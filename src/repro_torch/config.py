@@ -1,0 +1,155 @@
+"""Configuration for the PyTorch port: its own copy of the reference's
+``ModelConfig``, ``ServeConfig``, ``pad_to_multiple`` and block-family
+constants (``src/repro/config.py``), field for field, so the port never
+imports the JAX package."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+# Block families. A model is a stack of identical-structure blocks plus
+# embeddings; the port serves the dense family so far.
+BLOCK_DENSE = "dense"          # attn + gated MLP
+BLOCK_MOE = "moe"              # attn + mixture-of-experts FFN
+BLOCK_SSM = "ssm"              # Mamba2 SSD block (attention-free)
+BLOCK_HYBRID = "hybrid"        # parallel attn + SSM heads (Hymba), + MLP
+
+
+def pad_to_multiple(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    block: str                       # one of BLOCK_*
+    num_layers: int
+    d_model: int
+    num_heads: int                   # query heads (0 for attention-free)
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int                        # per-expert FFN hidden dim for MoE
+    vocab_size: int
+
+    # --- attention details ---
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    # sliding-window attention: window size (0 = full attention everywhere)
+    swa_window: int = 0
+    # layer indices that use full/global attention even when swa_window > 0
+    global_layers: Tuple[int, ...] = ()
+    logit_softcap: float = 0.0
+
+    # --- MLP ---
+    mlp_act: str = "swiglu"          # swiglu | geglu | gelu (ungated)
+
+    # --- MoE ---
+    num_experts: int = 0
+    top_k: int = 0
+    moe_group_size: int = 512
+    capacity_factor: float = 1.25
+
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_d_inner: int = 0
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    ssm_chunk: int = 128
+
+    # --- norms / embeddings ---
+    norm_type: str = "rmsnorm"       # rmsnorm | layernorm
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    embed_scale: bool = False        # gemma-style sqrt(d_model) input scaling
+    rmsnorm_unit_offset: bool = False  # gemma-style (1 + w) RMSNorm weight
+
+    # --- encoder-decoder (whisper) ---
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    encoder_seq: int = 1500
+
+    # --- modality frontend stub (vlm/audio) ---
+    frontend: str = "none"           # none | patch_stub | audio_stub
+    num_frontend_tokens: int = 0
+
+    # --- positional embedding ---
+    pos_embed: str = "rope"          # rope | learned | sinusoidal | none
+
+    # ------------------------------------------------------------------
+    @property
+    def ssm_heads(self) -> int:
+        if self.ssm_d_inner == 0:
+            return 0
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 128; logits beyond vocab_size are
+        masked."""
+        return pad_to_multiple(self.vocab_size, 128)
+
+    @property
+    def uses_attention(self) -> bool:
+        return self.num_heads > 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        if self.block == BLOCK_SSM:
+            return True
+        if self.block == BLOCK_HYBRID and self.swa_window > 0:
+            return True
+        return False
+
+    def param_count(self) -> int:
+        """Analytical parameter count (embedding + blocks)."""
+        d, f, L, V = self.d_model, self.d_ff, self.num_layers, self.padded_vocab
+        n = V * d
+        if not self.tie_embeddings:
+            n += V * d
+        per_layer = 0
+        if self.uses_attention:
+            per_layer += d * self.num_heads * self.head_dim
+            per_layer += 2 * d * self.num_kv_heads * self.head_dim
+            per_layer += self.num_heads * self.head_dim * d
+        if self.block in (BLOCK_DENSE, BLOCK_HYBRID):
+            gates = 2 if self.mlp_act in ("swiglu", "geglu") else 1
+            per_layer += (gates + 1) * d * f
+        if self.block == BLOCK_MOE:
+            gates = 2 if self.mlp_act in ("swiglu", "geglu") else 1
+            per_layer += self.num_experts * (gates + 1) * d * f
+            per_layer += d * self.num_experts
+        if self.block in (BLOCK_SSM, BLOCK_HYBRID):
+            di, s, h = self.ssm_d_inner, self.ssm_state, self.ssm_heads
+            per_layer += d * (2 * di + 2 * s + h)
+            per_layer += self.ssm_conv * di
+            per_layer += 3 * h + di
+            per_layer += di * d
+        n += L * per_layer
+        if self.is_encoder_decoder:
+            enc = self.num_encoder_layers * (
+                4 * d * self.num_heads * self.head_dim + 2 * d * f)
+            xattn = L * 4 * d * self.num_heads * self.head_dim
+            n += enc + xattn
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only top_k experts)."""
+        if self.block != BLOCK_MOE:
+            return self.param_count()
+        d, f, L = self.d_model, self.d_ff, self.num_layers
+        gates = 2 if self.mlp_act in ("swiglu", "geglu") else 1
+        inactive = L * (self.num_experts - self.top_k) * (gates + 1) * d * f
+        return self.param_count() - inactive
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    attn_chunk_threshold: int = 2_048
+    attn_chunk: int = 512
+    # ring-buffer KV window for long-context decode (sub-quadratic archs)
+    ring_buffer: bool = False

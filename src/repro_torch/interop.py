@@ -1,0 +1,53 @@
+"""Parameter bridge from the JAX reference to the port.
+
+``jax.random`` init cannot be reproduced in PyTorch, so the tests make
+both sides compute the same function by moving the reference's
+parameters over, as numpy arrays. Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.config import BLOCK_DENSE, ModelConfig
+
+
+def _t(a, device, dtype) -> torch.Tensor:
+    # np.array copies: the reference's arrays are read-only views
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        device=device, dtype=dtype)
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *,
+                      device="cpu", dtype=torch.float32) -> Dict[str, Any]:
+    """The reference's dense parameter pytree (numpy leaves) -> the port's.
+
+    In the reference tree ``embed`` is ``(Vp, d)``, ``final_norm.w`` a norm
+    weight, and ``blocks.*`` is stacked on a leading ``L`` axis:
+    ``ln1.w``, ``attn.{wq (d,H,hd), wk/wv (d,Hkv,hd), wo (H,hd,d)}``,
+    ``ln2.w``, ``mlp.{w_gate, w_up (d,f), w_down (f,d)}``. The port keeps
+    the same leaves and layouts, with ``blocks`` a list of per-layer
+    dicts."""
+    if cfg.block != BLOCK_DENSE:
+        raise NotImplementedError("only the dense family is ported")
+    blocks = tree["blocks"]
+    out: Dict[str, Any] = {
+        "embed": _t(tree["embed"], device, dtype),
+        "final_norm": {"w": _t(tree["final_norm"]["w"], device, dtype)},
+        "blocks": [],
+    }
+    for i in range(cfg.num_layers):
+        out["blocks"].append({
+            "ln1": {"w": _t(blocks["ln1"]["w"][i], device, dtype)},
+            "attn": {k: _t(blocks["attn"][k][i], device, dtype)
+                     for k in ("wq", "wk", "wv", "wo")},
+            "ln2": {"w": _t(blocks["ln2"]["w"][i], device, dtype)},
+            "mlp": {k: _t(blocks["mlp"][k][i], device, dtype)
+                    for k in ("w_gate", "w_up", "w_down")},
+        })
+    if "lm_head" in tree:
+        out["lm_head"] = _t(tree["lm_head"], device, dtype)
+    return out

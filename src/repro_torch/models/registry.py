@@ -1,0 +1,105 @@
+"""Model registry of the port: build a ``Model`` bundle from a ModelConfig.
+
+The bundle carries plain functions closed over the config, the device
+and the dtypes. The port serves the dense family; every other family
+raises, naming the slice of the port that brings it.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.config import (BLOCK_DENSE, BLOCK_HYBRID, BLOCK_MOE,
+                                BLOCK_SSM, ModelConfig, ServeConfig)
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.layers import dtype_of
+
+
+class Capabilities(NamedTuple):
+    """Structural serving capabilities of a model family (the reference's
+    ``registry.Capabilities``). ``reason`` says, for anything False, why
+    the structure forbids it; engines raise it verbatim."""
+    chunked_prefill: bool = True
+    paged_decode: bool = True
+    slot_chunk: bool = True
+    carried_state: bool = False
+    state_leaves: tuple = ()
+    prefix_cache: bool = True
+    kv_migration: bool = True
+    encoder_prechunk: bool = False
+    chunk_multiple: int = 1
+    speculative: bool = True
+    reason: str = ""
+
+
+_LATER_FAMILIES = {
+    BLOCK_MOE: "the model-families slice (MoE, dropless routing)",
+    BLOCK_SSM: "the model-families slice (SSM, with the ssd_scan kernel)",
+    BLOCK_HYBRID: "the model-families slice (hybrid, with the ssd_scan "
+                  "kernel)",
+}
+
+
+def derive_capabilities(cfg: ModelConfig) -> Capabilities:
+    """Map config structure to serving capabilities: the dense case."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            "encoder-decoder models arrive with the model-families slice of "
+            "the port")
+    if cfg.frontend == "patch_stub":
+        raise NotImplementedError(
+            "the patch_stub frontend arrives with the dense-family slice of "
+            "the port")
+    if cfg.block != BLOCK_DENSE:
+        raise NotImplementedError(
+            f"block family {cfg.block!r} arrives with "
+            f"{_LATER_FAMILIES.get(cfg.block, 'a later slice')} of the port")
+    return Capabilities()
+
+
+class Model(NamedTuple):
+    cfg: ModelConfig
+    init: Callable[[int], Any]
+    init_paged_cache: Callable[..., Any]
+    decode_step_paged: Callable[..., Any]
+    prefill_chunk_paged: Callable[..., Any]
+    capabilities: Capabilities
+    device: torch.device
+    dtype: torch.dtype              # compute (and KV pool) dtype
+
+
+def build_model(cfg: ModelConfig, serve: Optional[ServeConfig] = None, *,
+                device="cuda") -> Model:
+    """Build the bundle on ``device`` (default: the card; raises when no
+    card is present unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    serve = serve or ServeConfig()
+    caps = derive_capabilities(cfg)
+    pdt = dtype_of(serve.param_dtype)
+    cdt = dtype_of(serve.compute_dtype)
+
+    def init(seed: int):
+        """Parameters from a seeded ``torch.Generator`` on the device."""
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        return transformer.init_lm_params(cfg, gen, dev, pdt)
+
+    def init_paged_cache(num_blocks: int, block_size: int, dtype=None):
+        return transformer.init_paged_cache(cfg, num_blocks, block_size,
+                                            device=dev, dtype=dtype or cdt)
+
+    return Model(
+        cfg=cfg,
+        init=init,
+        init_paged_cache=init_paged_cache,
+        decode_step_paged=functools.partial(
+            transformer.decode_step_paged, cfg, compute_dtype=cdt),
+        prefill_chunk_paged=functools.partial(
+            transformer.prefill_chunk_paged, cfg, compute_dtype=cdt),
+        capabilities=caps,
+        device=dev,
+        dtype=cdt)

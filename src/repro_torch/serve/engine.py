@@ -1,0 +1,399 @@
+"""Continuous-batching engine over the paged KV pool — the port of the
+reference's ``ContinuousEngine(kv_layout="paged")``.
+
+Each host micro-step admits requests from the cell-queue scheduler
+(:mod:`repro_torch.serve.scheduler`) while rows and free blocks allow,
+deposits the next chunk of up to ``max_prefill_per_step`` prompts in one
+fused :func:`prefill_chunk_paged` call (the multi-query paged-attention
+kernel), then advances every decoding row by one token in one
+:func:`decode_step_paged` call (the decode kernel) over all request rows.
+Rows that are free or still prefilling ride along parked (a far-negative
+position): they write nothing to the pool and their logits are dropped.
+
+The pool is updated in place by the model's steps. Sampling is greedy
+``argmax``; a request with ``temperature > 0`` draws from its own
+``torch.Generator`` seeded from ``(seed, rid)`` — deterministic within
+the port, not the reference's bits. Each micro-step syncs with the host
+once, to read the sampled tokens.
+
+Not ported yet, and raising ``NotImplementedError`` naming the slice
+that brings them: the slot layout and ``StaticEngine``, prefix caching,
+speculative decoding, and the serving fabric's prefill/decode roles.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass
+from typing import Deque, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.serve.block_pool import PagedKVCache
+from repro_torch.serve.scheduler import CellQueueScheduler, ServeRequest
+
+#: parked decode position: so far below zero that a free or prefilling
+#: row's decode writes nothing and reads no token
+PARK_POS = -(2 ** 30)
+
+
+def _not_ported(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet; it arrives with the "
+        f"{slice_name} slice of the port")
+
+
+class StaticEngine:
+    """The reference's fixed-batch parity baseline; not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("StaticEngine", "static-engine and slot-layout")
+
+
+@dataclass(eq=False)      # identity equality: deque.remove must never
+class _PrefillJob:        # field-compare requests (ndarray __eq__ raises)
+    """A partially-deposited prompt: ``off`` tokens landed so far."""
+    req: ServeRequest
+    slot: int
+    tokens: np.ndarray            # (prompt_len,) int32
+    off: int = 0
+
+
+class ContinuousEngine:
+    """Continuous-batching engine: paged-pool decode + cell-queue
+    admission + chunked, batched prefill.
+
+    ``step(now)`` is one micro-step; drive it from a traffic loop (see
+    ``repro_torch.launch.serve``) or use :meth:`generate` for a
+    same-arrival batch."""
+
+    def __init__(self, model, params, *, cache_len: int, num_slots: int,
+                 eos_id: int = -1,
+                 scheduler: Optional[CellQueueScheduler] = None,
+                 max_prefill_per_step: int = 1, prefill_chunk: int = 64,
+                 kv_layout: str = "paged", block_size: int = 16,
+                 num_blocks: Optional[int] = None, role: str = "full",
+                 prefix_cache: bool = False, speculate: int = 0,
+                 device="cuda"):
+        dev = resolve_device(device)
+        if dev != model.device:
+            raise ValueError(f"engine device {dev} != model device "
+                             f"{model.device}")
+        if kv_layout == "slot":
+            raise _not_ported("the slot KV layout",
+                              "static-engine and slot-layout")
+        if kv_layout != "paged":
+            raise ValueError(f"unknown kv_layout {kv_layout!r} "
+                             "(expected 'slot' or 'paged')")
+        if role != "full":
+            raise _not_ported(f"role={role!r}", "serving-fabric")
+        if prefix_cache:
+            raise _not_ported("prefix caching", "prefix-caching")
+        if speculate:
+            raise _not_ported("speculative decoding", "speculative-decoding")
+        if not prefill_chunk:
+            raise ValueError("paged KV deposits prompts chunk-by-chunk; "
+                             "prefill_chunk must be > 0")
+        self.model = model
+        self.params = params
+        self.device = dev
+        self.cache_len = int(cache_len)
+        self.eos_id = eos_id
+        self.kv_layout = kv_layout
+        self.max_prefill_per_step = max(1, int(max_prefill_per_step))
+        self.prefill_chunk = min(int(prefill_chunk), self.cache_len)
+        # equal-HBM default: the token capacity a slot pool would reserve,
+        # repartitioned into leased blocks
+        mbr = -(-self.cache_len // int(block_size))
+        nblocks = (int(num_blocks) if num_blocks
+                   else -(-num_slots * self.cache_len // int(block_size)))
+        self.kv = PagedKVCache(model, num_blocks=nblocks,
+                               block_size=int(block_size),
+                               num_slots=num_slots, max_blocks_per_req=mbr)
+        self.scheduler = scheduler or CellQueueScheduler(
+            num_cells=4 * num_slots,
+            prefill_chunk_bytes=4 * self.prefill_chunk,
+            block_bytes=4 * int(block_size))
+        #: partially-deposited requests, FIFO; each micro-step serves the
+        #: first ``max_prefill_per_step`` of them with one fused dispatch
+        self._prefilling: Deque[_PrefillJob] = deque()
+        self._fresh_state()
+        self.peak_live = 0
+        self._resident_tok_sum = 0
+        self._reserved_tok_sum = 0
+
+    def _fresh_state(self) -> None:
+        """Per-row decode state, on the host: next input token, next
+        position (parked rows at PARK_POS), temperature and generator."""
+        S = self.kv.num_slots
+        self._tok = np.zeros((S,), np.int64)
+        self._pos = np.full((S,), PARK_POS, np.int64)
+        self._temp = np.zeros((S,), np.float32)
+        self._gen: List[Optional[torch.Generator]] = [None] * S
+        self._slot_req: List[Optional[ServeRequest]] = [None] * S
+        self._slot_out: List[Optional[np.ndarray]] = [None] * S
+
+    # -- sampling ----------------------------------------------------------
+    def _generator(self, req: ServeRequest) -> Optional[torch.Generator]:
+        if req.temperature <= 0.0:
+            return None
+        seed = np.random.SeedSequence([req.seed, req.rid]).generate_state(1)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed[0]))
+        return gen
+
+    @staticmethod
+    def _sample(logits, temps, gens) -> np.ndarray:
+        """Greedy argmax per row; rows with ``temps > 0`` draw from their
+        own generator instead. logits (R, Vp) -> (R,) int64 on the host
+        (the step's one host sync)."""
+        nxt = logits.argmax(dim=-1)
+        for i, t in enumerate(temps):
+            if t > 0.0:
+                probs = torch.softmax(logits[i] / max(float(t), 1e-6), -1)
+                nxt[i] = torch.multinomial(probs, 1, generator=gens[i])[0]
+        return nxt.cpu().numpy()
+
+    # -- request intake ----------------------------------------------------
+    def submit(self, req: ServeRequest, now: float = 0.0) -> str:
+        """Queue a request through the cell-queue scheduler. A request
+        whose token budget can never fit its block table or the pool is
+        rejected here, at submit."""
+        budget = self._token_budget(req)
+        cap = self.admittable_tokens
+        if budget > cap:
+            raise ValueError(
+                f"request {req.rid}: prompt+max_new = {budget} tokens "
+                f"exceeds the admittable capacity {cap} (= min(table cap "
+                f"{self.kv.max_blocks_per_req}, pool "
+                f"{self.kv.pool.num_blocks}) blocks x {self.kv.block_size})"
+                "; raise cache_len/num_blocks or lower max_new_tokens")
+        return self.scheduler.submit(req, now)
+
+    @property
+    def admittable_tokens(self) -> int:
+        """Largest token budget one request could ever lease: it must fit
+        both the per-request table and the whole pool."""
+        return (min(self.kv.max_blocks_per_req, self.kv.pool.num_blocks)
+                * self.kv.block_size)
+
+    @staticmethod
+    def _token_budget(req: ServeRequest) -> int:
+        """Tokens leased at admission: the prompt plus every token the
+        request may generate (no mid-decode block exhaustion)."""
+        return req.prompt_len + req.max_new_tokens
+
+    @property
+    def num_decoding(self) -> int:
+        return sum(r is not None for r in self._slot_req)
+
+    @property
+    def idle(self) -> bool:
+        return self.kv.num_live == 0 and self.scheduler.num_waiting == 0
+
+    # -- micro-step --------------------------------------------------------
+    def step(self, now: float = 0.0) -> List[ServeRequest]:
+        """One serving micro-step: admit, deposit one chunk for up to
+        ``max_prefill_per_step`` prompts, then advance every decoding row
+        by one token. Returns the requests that finished this step."""
+        finished: List[ServeRequest] = []
+        budget = min(self.kv.num_free,
+                     self.max_prefill_per_step - len(self._prefilling))
+        # second admission gate: a request's whole token budget must fit
+        # in free blocks; admit one at a time so each lease is debited
+        # before the next candidate is gated
+        def can(r):
+            return self.kv.can_admit(self._token_budget(r))
+
+        while budget > 0:
+            admitted = self.scheduler.admit(now, 1, can_admit=can)
+            if not admitted:
+                break
+            self._begin_prefill(admitted[0])
+            budget -= 1
+        if self._prefilling:
+            finished.extend(self._prefill_chunk_step(now))
+        if self.num_decoding:
+            finished.extend(self._decode_micro_step(now))
+        self._account()
+        return finished
+
+    def _account(self) -> None:
+        live = self.kv.num_live
+        self.peak_live = max(self.peak_live, live)
+        if live:
+            self._resident_tok_sum += int(self.kv.lengths.sum())
+            self._reserved_tok_sum += self.kv.resident_capacity_tokens
+
+    def kv_accounting(self) -> dict:
+        """HBM-efficiency evidence: total pool bytes, bytes pinned per
+        resident token (time-averaged over non-idle steps), and peak
+        concurrent in-flight requests."""
+        total = self.kv.kv_bytes
+        per_tok = total / max(1, self.kv.capacity_tokens)
+        resident = max(1, self._resident_tok_sum)
+        return {
+            "kv_layout": self.kv_layout,
+            "kv_bytes_total": float(total),
+            "kv_capacity_tokens": float(self.kv.capacity_tokens),
+            "kv_bytes_per_token": per_tok,
+            "kv_reserved_over_resident": self._reserved_tok_sum / resident,
+            "kv_bytes_per_resident_token":
+                per_tok * self._reserved_tok_sum / resident,
+            "peak_concurrent": float(self.peak_live),
+        }
+
+    # -- chunked prompt deposit --------------------------------------------
+    def _begin_prefill(self, req: ServeRequest) -> None:
+        """Lease blocks + a request row and enter ``prefilling``. No
+        blanking: paged masking is structural (a stale page of a block's
+        previous owner is never at a position <= qpos of the new one)."""
+        slot = self.kv.alloc(req, self._token_budget(req))
+        req.state = "prefilling"
+        tokens = np.asarray(req.batch["tokens"][0], np.int32)
+        self._prefilling.append(_PrefillJob(req=req, slot=slot,
+                                            tokens=tokens))
+
+    def _prefill_chunk_step(self, now: float) -> List[ServeRequest]:
+        """One fused dispatch: the next chunk of up to
+        ``max_prefill_per_step`` prefilling requests, one row each, padded
+        to the chunk length and masked by ``n_valid``."""
+        C = self.prefill_chunk
+        jobs = list(self._prefilling)[:self.max_prefill_per_step]
+        n = len(jobs)
+        tok = np.zeros((n, C), np.int64)
+        slots = np.zeros((n,), np.int64)
+        pos0 = np.zeros((n,), np.int64)
+        n_valid = np.zeros((n,), np.int64)
+        for i, job in enumerate(jobs):
+            k = min(C, len(job.tokens) - job.off)
+            tok[i, :k] = job.tokens[job.off:job.off + k]
+            slots[i] = job.slot
+            pos0[i] = job.off
+            n_valid[i] = k
+            job.req.prefill_chunks += 1
+        dev = self.device
+        logits = self.model.prefill_chunk_paged(
+            self.params, self.kv.buffers, torch.as_tensor(tok).to(dev),
+            torch.as_tensor(self.kv.table_rows(slots)).to(dev),
+            torch.as_tensor(pos0).to(dev), torch.as_tensor(n_valid).to(dev))
+
+        final = []
+        for i, job in enumerate(jobs):
+            job.off += int(n_valid[i])
+            self.kv.advance(job.slot, int(n_valid[i]))   # pages appended
+            if job.off >= len(job.tokens):
+                final.append(i)
+        finished: List[ServeRequest] = []
+        if not final:
+            return finished
+        gens = [self._generator(jobs[i].req) for i in final]
+        tok0 = self._sample(logits[final],
+                            [jobs[i].req.temperature for i in final], gens)
+        for i, t0, gen in zip(final, tok0, gens):
+            job = jobs[i]
+            self._prefilling.remove(job)
+            self._tok[job.slot] = int(t0)
+            self._pos[job.slot] = len(job.tokens)        # next decode pos
+            self._temp[job.slot] = job.req.temperature
+            self._gen[job.slot] = gen
+            done = self._install_first_token(job.slot, job.req, int(t0), now)
+            if done is not None:
+                finished.append(done)
+        return finished
+
+    def _install_first_token(self, slot: int, req: ServeRequest, tok0: int,
+                             now: float) -> Optional[ServeRequest]:
+        """Record the first sampled token and either finish the request
+        (EOS first token / max_new == 1) or enter decoding."""
+        req.first_token_time = now
+        req.state = "decoding"
+        fill = self.eos_id if self.eos_id >= 0 else 0
+        out = np.full((req.max_new_tokens,), fill, np.int32)
+        out[0] = tok0
+        req.generated = 1
+        if (0 <= self.eos_id == tok0) or req.max_new_tokens == 1:
+            return self._finish(slot, req, out, now)
+        self._slot_req[slot] = req
+        self._slot_out[slot] = out
+        return None
+
+    def _decode_micro_step(self, now: float) -> List[ServeRequest]:
+        dev = self.device
+        logits = self.model.decode_step_paged(
+            self.params, self.kv.buffers,
+            torch.as_tensor(self._tok[:, None]).to(dev),
+            torch.as_tensor(self._pos).to(dev), self.kv.tables_device())
+        nxt = self._sample(logits, self._temp, self._gen)
+
+        finished: List[ServeRequest] = []
+        for slot in self.kv.live_slots:
+            req = self._slot_req[slot]
+            if req is None:        # row still mid-prefill: nothing to read
+                continue
+            t = int(nxt[slot])
+            out = self._slot_out[slot]
+            out[req.generated] = t
+            req.generated += 1
+            self.kv.advance(slot)
+            self._tok[slot] = t
+            self._pos[slot] += 1
+            if (0 <= self.eos_id == t) \
+                    or req.generated >= req.max_new_tokens:
+                finished.append(self._finish(slot, req, out, now))
+                self._slot_req[slot] = None
+                self._slot_out[slot] = None
+        return finished
+
+    def _finish(self, slot: int, req: ServeRequest, out: np.ndarray,
+                now: float) -> ServeRequest:
+        req.output = out
+        self.kv.free(slot)
+        # park the freed row so later decode steps write nothing for it
+        self._pos[slot] = PARK_POS
+        self._temp[slot] = 0.0
+        self._gen[slot] = None
+        self.scheduler.record_finish(req, now)
+        return req
+
+    def reset(self, *, strict: bool = False) -> None:
+        """Return the engine to its post-construction state: every row
+        freed, decode state parked, scheduler queues and accounting
+        cleared. Rows still holding requests are lease leaks: named via
+        ``LeaseLeakWarning``, or ``LeaseLeakError`` when ``strict``."""
+        self._fresh_state()
+        self._prefilling.clear()
+        self.kv.reset(strict=strict)
+        self.scheduler.reset()
+        self.peak_live = 0
+        self._resident_tok_sum = 0
+        self._reserved_tok_sum = 0
+
+    # -- batch-API convenience ---------------------------------------------
+    def generate(self, batch, max_new_tokens: int, *,
+                 temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+        """Same-arrival batch through the continuous path: split the batch
+        into per-row requests, run micro-steps until drained, reassemble
+        (B, max_new) in row order."""
+        B = batch["tokens"].shape[0]
+        reqs = []
+        for i in range(B):
+            row = {k: np.asarray(v[i:i + 1]) for k, v in batch.items()}
+            req = ServeRequest(rid=i, batch=row,
+                               max_new_tokens=max_new_tokens,
+                               temperature=temperature, seed=seed)
+            reqs.append(req)
+            self.submit(req, 0.0)
+        chunk_steps = sum(-(-r.prompt_len // self.prefill_chunk) + 1
+                          for r in reqs)
+        limit = (B * (max_new_tokens + 2)) // max(1, self.kv.num_slots) \
+            + B * (max_new_tokens + 2) + chunk_steps
+        steps = 0
+        while not self.idle:
+            self.step(0.0)
+            steps += 1
+            if steps > limit:
+                raise RuntimeError("continuous generate failed to drain")
+        return np.stack([r.output for r in reqs])

@@ -1,0 +1,285 @@
+"""Continuous-batching request scheduler: bounded cell-queue admission
+(paper §3.2 recast as serving admission control) — the port of the
+reference's ``serve/scheduler.py`` (admission and paged pricing).
+
+A request's prompt is its message (``nbytes = prompt tokens x
+itemsize``), classified by :func:`repro_torch.core.protocol.
+select_protocol`: eager-class prompts are buffered into the bounded cell
+queue on submit; rendezvous-class prompts wait in a deferral queue until
+a row is free and every buffered request ahead of them has drained;
+eager submissions that find the cells full overflow and are promoted back
+as cells free. Admission priority is cells -> promoted overflow ->
+rendezvous, FIFO within each class.
+
+Per-request arrival/admit/first-token/finish times are stamped on the
+:class:`ServeRequest` itself.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import deque
+from dataclasses import dataclass
+from typing import Deque, Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.core import protocol
+
+#: scheduler classes mapped from the protocol model
+EAGER_CLASS = ("eager_fast", "eager")
+
+
+@dataclass
+class ServeRequest:
+    """One generation request plus its lifecycle accounting."""
+    rid: int
+    batch: Dict[str, np.ndarray]          # model inputs, leading dim 1
+    max_new_tokens: int
+    temperature: float = 0.0
+    seed: int = 0
+    arrival: float = 0.0                  # trace arrival time (seconds)
+
+    # -- stamped by the scheduler / engine --
+    protocol: str = ""
+    nbytes: int = 0
+    cells: int = 0
+    admit_cost_s: float = 0.0             # protocol-model admission price
+    # lifecycle: queued -> prefilling -> decoding -> done
+    state: str = "queued"
+    prefill_chunks: int = 0               # chunk dispatches this rode in
+    submit_time: Optional[float] = None
+    admit_time: Optional[float] = None
+    first_token_time: Optional[float] = None
+    finish_time: Optional[float] = None
+    output: Optional[np.ndarray] = None   # (max_new_tokens,) int32
+    generated: int = 0
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.batch["tokens"].shape[1])
+
+    @property
+    def latency(self) -> float:
+        if self.finish_time is None:
+            raise ValueError(f"request {self.rid} not finished")
+        return self.finish_time - self.arrival
+
+    @property
+    def queue_delay(self) -> float:
+        if self.admit_time is None:
+            raise ValueError(f"request {self.rid} not admitted")
+        return self.admit_time - (self.submit_time
+                                  if self.submit_time is not None
+                                  else self.arrival)
+
+    @property
+    def ttft(self) -> float:
+        """Time to first token, from trace arrival."""
+        if self.first_token_time is None:
+            raise ValueError(f"request {self.rid} has no first token yet")
+        return self.first_token_time - self.arrival
+
+
+class CellQueueScheduler:
+    """Bounded cell-pool admission queue with rendezvous deferral."""
+
+    def __init__(self, num_cells: int = 16,
+                 cell_size: int = protocol.DEFAULT_CELL_SIZE,
+                 itemsize: int = 4, prefill_chunk_bytes: int = 0,
+                 block_bytes: int = 0):
+        if num_cells < 1:
+            raise ValueError("need at least one cell")
+        self.num_cells = int(num_cells)
+        self.cell_size = int(cell_size)
+        self.itemsize = int(itemsize)
+        # the SAME HostModel (same cell) classifies and prices
+        self.host_model = protocol.HostModel(cell=int(cell_size))
+        # >0: prompts larger than a chunk stream in chunk by chunk and are
+        # priced as chunked handoffs
+        self.prefill_chunk_bytes = int(prefill_chunk_bytes)
+        # >0: the deposit target is a paged pool — chunked prompts pay the
+        # per-block table surcharge on top of the chunked handoff
+        self.block_bytes = int(block_bytes)
+        self.cells_free = int(num_cells)
+        self._cellq: Deque[ServeRequest] = deque()      # buffered (eager)
+        self._overflow: Deque[ServeRequest] = deque()   # eager, pool full
+        self._rendezvous: Deque[ServeRequest] = deque() # 1-copy sized
+        self.finished: List[ServeRequest] = []
+        self.n_submitted = 0
+        self.n_eager_admits = 0       # buffered straight into cells
+        self.n_deferred = 0           # overflow + rendezvous submissions
+        self.n_block_deferrals = 0    # admissions stalled on free blocks
+        self.modeled_admit_cost_s = 0.0
+
+    def reset(self) -> None:
+        """Drop all queued/finished requests and zero the accounting (the
+        queue configuration is kept)."""
+        self.cells_free = self.num_cells
+        self._cellq.clear()
+        self._overflow.clear()
+        self._rendezvous.clear()
+        self.finished = []
+        self.n_submitted = 0
+        self.n_eager_admits = 0
+        self.n_deferred = 0
+        self.n_block_deferrals = 0
+        self.modeled_admit_cost_s = 0.0
+
+    # -- classification ----------------------------------------------------
+    def _price(self, nbytes: int, proto: str) -> float:
+        """Protocol-model admission price, matching what the engine does
+        with the prompt: a prompt larger than one chunk streams in and
+        pays the chunked (paged) handoff; one that fits a chunk keeps its
+        eager/1-copy price."""
+        if 0 < self.prefill_chunk_bytes < nbytes:
+            if self.block_bytes > 0:
+                return protocol.paged_admission_latency(
+                    nbytes, self.prefill_chunk_bytes, self.block_bytes,
+                    self.host_model)
+            return protocol.chunked_handoff_latency(
+                nbytes, self.prefill_chunk_bytes, self.host_model)
+        return protocol.interthread_latency(nbytes, self.host_model,
+                                            proto=proto)
+
+    def _classify(self, req: ServeRequest, now: float) -> str:
+        req.submit_time = now
+        req.nbytes = int(req.batch["tokens"].size) * self.itemsize
+        req.protocol = protocol.select_protocol(
+            req.nbytes, interthread=True, cell=self.cell_size)
+        req.admit_cost_s = self._price(req.nbytes, req.protocol)
+        req.cells = (max(1, math.ceil(req.nbytes / self.cell_size))
+                     if req.protocol in EAGER_CLASS else 0)
+        self.modeled_admit_cost_s += req.admit_cost_s
+        return req.protocol
+
+    # -- submission --------------------------------------------------------
+    def submit(self, req: ServeRequest, now: float = 0.0) -> str:
+        """Queue a request; returns the queue it landed in
+        (``"cells" | "overflow" | "rendezvous"``)."""
+        proto = self._classify(req, now)
+        self.n_submitted += 1
+        req.state = "queued"
+        if proto in EAGER_CLASS and req.cells <= self.num_cells:
+            if req.cells <= self.cells_free:
+                self.cells_free -= req.cells
+                self._cellq.append(req)
+                self.n_eager_admits += 1
+                return "cells"
+            self._overflow.append(req)
+            self.n_deferred += 1
+            return "overflow"
+        if proto in EAGER_CLASS:
+            # eager prompts that could never fit the cell pool re-route to
+            # the rendezvous discipline, and their accounting says so
+            self.modeled_admit_cost_s -= req.admit_cost_s
+            req.protocol = "one_copy"
+            req.admit_cost_s = self._price(req.nbytes, "one_copy")
+            self.modeled_admit_cost_s += req.admit_cost_s
+        req.cells = 0
+        self._rendezvous.append(req)
+        self.n_deferred += 1
+        return "rendezvous"
+
+    def _promote(self) -> None:
+        """Refill freed cells from the overflow queue (FIFO)."""
+        while self._overflow and self._overflow[0].cells <= self.cells_free:
+            req = self._overflow.popleft()
+            self.cells_free -= req.cells
+            self._cellq.append(req)
+
+    # -- admission ---------------------------------------------------------
+    def admit(self, now: float, free_slots: int,
+              can_admit=None) -> List[ServeRequest]:
+        """Hand over up to ``free_slots`` requests for prefill, priority
+        cells -> promoted overflow -> rendezvous. ``can_admit(req)`` is the
+        engine's second gate (free blocks); admission is head-of-line
+        within the priority order."""
+        out: List[ServeRequest] = []
+        while free_slots > 0:
+            if self._cellq:
+                queue = self._cellq
+            elif self._rendezvous:
+                queue = self._rendezvous
+            else:
+                break
+            req = queue[0]
+            if can_admit is not None and not can_admit(req):
+                self.n_block_deferrals += 1
+                break
+            queue.popleft()
+            if queue is self._cellq:
+                self.cells_free += req.cells
+                self._promote()
+            req.admit_time = now
+            out.append(req)
+            free_slots -= 1
+        return out
+
+    # -- completion / stats ------------------------------------------------
+    def record_finish(self, req: ServeRequest, now: float) -> None:
+        req.finish_time = now
+        req.state = "done"
+        self.finished.append(req)
+
+    @property
+    def num_waiting(self) -> int:
+        return len(self._cellq) + len(self._overflow) + len(self._rendezvous)
+
+
+def latency_stats_over(finished: List[ServeRequest]) -> Dict[str, float]:
+    """Latency/TTFT percentiles over a finished-request collection."""
+    if not finished:
+        return {}
+    lat = np.array([r.latency for r in finished])
+    qd = np.array([r.queue_delay for r in finished])
+    toks = int(sum(r.generated for r in finished))
+    out = {
+        "n": float(len(lat)),
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p95_s": float(np.percentile(lat, 95)),
+        "latency_mean_s": float(lat.mean()),
+        "queue_delay_p50_s": float(np.percentile(qd, 50)),
+        "queue_delay_p95_s": float(np.percentile(qd, 95)),
+        "tokens": float(toks),
+    }
+    ttft = np.array([r.ttft for r in finished
+                     if r.first_token_time is not None])
+    if ttft.size:
+        out["ttft_p50_s"] = float(np.percentile(ttft, 50))
+        out["ttft_p95_s"] = float(np.percentile(ttft, 95))
+        out["ttft_mean_s"] = float(ttft.mean())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Traffic traces
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TraceEntry:
+    arrival: float
+    max_new: int
+    prompt_len: int = 0
+
+
+def make_trace(n_requests: int, *, prompt_len, max_new, rate: float = 100.0,
+               seed: int = 0) -> List[TraceEntry]:
+    """Poisson arrival trace (exponential gaps at ``rate`` req/s).
+    ``max_new`` is an int or an inclusive ``(lo, hi)`` range sampled per
+    request. ``prompt_len`` is an int or a sequence cycled across
+    requests — e.g. ``(16, 256)``. The numpy draws follow the reference's
+    order, so one seed gives the reference's poisson trace."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / rate, size=n_requests)
+    times = np.cumsum(gaps) - gaps[0]
+    if isinstance(max_new, int):
+        news = np.full(n_requests, max_new)
+    else:
+        lo, hi = max_new
+        news = rng.integers(lo, hi + 1, size=n_requests)
+    plens = ([int(prompt_len)] if isinstance(prompt_len, (int, np.integer))
+             else [int(p) for p in prompt_len])
+    return [TraceEntry(arrival=float(times[i]), max_new=int(news[i]),
+                       prompt_len=plens[i % len(plens)])
+            for i in range(n_requests)]
