@@ -7,24 +7,36 @@ Phases (any failure exits non-zero and prints no result):
 
 1. Environment: Python, torch and CUDA versions, ``nvcc --version``,
    the card's name and power limit.
-2. Build: both paged-attention kernels compiled by nvcc for sm_90a from
-   ``src/repro_torch/kernels/paged_attention/csrc``.
-3. Kernels vs their plain versions (``ref.py``) on the card, at gemma-2b's
-   head shapes (H=8, Hkv=1, hd=256, bs=16) — long decode rows, chunks at
-   pos0 0/64/192, and the serve phase's own batch and table widths —
-   plus a GQA case with a window and a softcap, in float32 and
-   bfloat16. Each kernel's time
-   (CUDA events, median of 30, L2 flushed before each launch), its bound
-   (bytes this run's data needs over 3.35 TB/s, or flops over the peak
-   for the dtype), the plain version's time and the time of
-   ``F.scaled_dot_product_attention`` on the pre-gathered pages (a
-   yardstick only; the port never calls it).
-4. Model: full-width gemma-2b in bfloat16 from seed 0; one prefill chunk
-   and one decode step on a filled pool, kernel path vs the same step
-   through the plain attention.
+2. Build: every kernel (``src/repro_torch/kernels/*/csrc/*.cu``: both
+   paged-attention kernels and the flash-attention kernel) compiled by
+   nvcc for sm_90a, one nvcc per source, all at once.
+3. Kernels vs their plain versions (``ref.py``) on the card, in float32
+   and bfloat16. Paged attention at gemma-2b's head shapes (H=8, Hkv=1,
+   hd=256, bs=16) — long decode rows, chunks at pos0 0/64/192, and the
+   serve phase's own batch and table widths — plus a GQA case with a
+   window and a softcap. Flash attention at the monolithic prefill's
+   shapes (B=1 and 8 at S=16 and 256, B=4 at S=256), a ragged length, a
+   q_offset continuation, a window, an H = Hkv case and B=1 at S=2048.
+   Each kernel's time (CUDA events, median of 30, L2 flushed before each
+   launch), its bound (bytes this run's data needs over 3.35 TB/s, or
+   flops over the peak for the dtype), the plain version's time and the
+   time of ``F.scaled_dot_product_attention`` on the same data (pages
+   gathered up front, or kv heads repeated up front; a yardstick only,
+   the port never calls it).
+4. Model: full-width gemma-2b in bfloat16 from seed 0; one paged prefill
+   chunk, one paged decode step and one monolithic prefill (B=4, S=256),
+   each kernel path vs the same step through the plain attention; a
+   profile of one static prefill and one slot decode step.
 5. Serve: ``repro_torch.launch.serve.run_serve`` — the paged continuous
    engine answering 16 requests of a mixed 16/256-token Poisson trace —
    with the launch counters zeroed just before and read just after.
+6. Engine comparison: ``repro_torch.launch.serve.run_traffic`` (the
+   launcher's ``--engine both``) at gemma-2b's full width and depth —
+   static batches, the slot continuous engine chunked and monolithic,
+   the paged engine at equal HBM, and the greedy parity batch — with the
+   counters zeroed just before and read just after; every request must
+   finish and every monolithic prefill must launch the flash kernel once
+   per layer.
 
 The last lines are the kernel table (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -45,11 +57,15 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CU_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+FLASH_SOURCE = \
+    "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 TPU_KERNELS = {
     "paged_decode":
         "src/repro/kernels/paged_attention/paged_attention.py:57",
     "paged_mq":
         "src/repro/kernels/paged_attention/paged_attention.py:113",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:29",
 }
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -57,6 +73,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: (the reference's own kernel tolerance); bfloat16 outputs are rounded
 #: once on each side from identical float32 math: two bf16 ulps
 TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
+#: flash kernel vs plain version: the reference's own kernel tolerances.
+#: In bfloat16 the kernel rounds the unnormalised p before p.v (as the
+#: Pallas kernel does) and the plain version the normalised output only,
+#: so outputs of magnitude 2-4 differ by up to one bf16 ulp (0.0156)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: full model, bfloat16, 18 layers: max |logit difference| relative to
 #: max(1, max |logit|) between the kernel path and the plain path
 MODEL_REL_TOL = 3e-2
@@ -245,7 +266,7 @@ def phase_kernels(dev, timer):
 
     table = {k: {"name": k, "route": "cuda", "source": CU_SOURCE,
                  "replaces": TPU_KERNELS[k], "launches": 0,
-                 "max_abs_err": 0.0} for k in TPU_KERNELS}
+                 "max_abs_err": 0.0} for k in ("paged_decode", "paged_mq")}
     for kernel, label, dtype, kw, window, softcap in specs:
         case = make_case(dev, dtype, seed=len(label) + kw["B"], **kw)
         args = [case[k] for k in ("q", "k_pages", "v_pages", "block_tables",
@@ -299,6 +320,112 @@ def phase_kernels(dev, timer):
                   f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}: "
                   f"{nbytes} bytes, {flops} flops)", flush=True)
     return table
+
+
+# ---------------------------------------------------------------------------
+# phase 3, flash attention: kernel vs plain version
+# ---------------------------------------------------------------------------
+
+#: (label, B, H, Hkv, S_q, S_k, hd, window, q_offset); "path" cases are
+#: the monolithic prefill's own shapes (gemma-2b: H=8, Hkv=1, hd=256)
+FLASH_CASES = [
+    ("path B=1 S=16", 1, 8, 1, 16, 16, 256, 0, 0),
+    ("path B=1 S=256", 1, 8, 1, 256, 256, 256, 0, 0),
+    ("path B=8 S=16", 8, 8, 1, 16, 16, 256, 0, 0),
+    ("path B=8 S=256", 8, 8, 1, 256, 256, 256, 0, 0),
+    ("path B=4 S=256", 4, 8, 1, 256, 256, 256, 0, 0),
+    ("ragged B=2 S=200", 2, 8, 1, 200, 200, 256, 0, 0),
+    ("q_offset 96", 1, 8, 1, 32, 128, 256, 0, 96),
+    ("window 100", 2, 8, 1, 256, 256, 256, 100, 0),
+    ("H=Hkv=8", 2, 8, 8, 256, 256, 256, 0, 0),
+    ("B=1 S=2048", 1, 8, 1, 2048, 2048, 256, 0, 0),
+]
+#: the shape the kernel table reports: a static batch of 8 slots
+FLASH_TABLE_CASE = "path B=8 S=256"
+
+
+def flash_needs(B, H, Hkv, Sq, Sk, hd, window, q_offset, item):
+    """Bytes (q, k, v read once, the output written once) and flops (q.k
+    and p.v over the (query, key) pairs the masks leave) of one call."""
+    qpos = q_offset + np.arange(Sq)
+    hi = np.minimum(qpos + 1, Sk)                        # causal
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else 0
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    nbytes = item * hd * (2 * B * H * Sq + 2 * B * Hkv * Sk)
+    return nbytes, 4 * pairs * B * H * hd
+
+
+def phase_flash(dev, timer):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": FLASH_SOURCE,
+           "replaces": TPU_KERNELS["flash_attention"], "launches": 0,
+           "max_abs_err_by_dtype": {}}
+    times = []
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = 0.0
+        for label, B, H, Hkv, Sq, Sk, hd, window, q_offset in FLASH_CASES:
+            g = torch.Generator().manual_seed(Sq + B + H * Hkv)
+            q = torch.randn(B, Sq, H, hd, generator=g).to(dev, dtype)
+            k = torch.randn(B, Sk, Hkv, hd, generator=g).to(dev, dtype)
+            v = torch.randn(B, Sk, Hkv, hd, generator=g).to(dev, dtype)
+            kw = dict(causal=True, window=window, q_offset=q_offset)
+            before = flash_ops.flash_launches
+            out = flash_ops.flash_attention(q, k, v, **kw)
+            require(flash_ops.flash_launches == before + 1,
+                    f"flash {label}: the kernel was not launched")
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
+                v.transpose(1, 2)
+            ref = flash_attention_ref(qt, kt, vt, **kw).transpose(1, 2)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(out.float()).all()),
+                    f"flash {label} {dtype}: non-finite output")
+            err = (out.float() - ref.float()).abs()
+            tol = FLASH_TOL[dtype]
+            bad = err > tol + tol * ref.float().abs()
+            max_err = float(err.max())
+            worst = max(worst, max_err)
+            print(f"check flash_attention {label:18s} {str(dtype):14s} "
+                  f"max_abs_err={max_err:.3e} tol={tol:g} "
+                  f"{'ok' if not bad.any() else 'MISMATCH'}", flush=True)
+            require(not bool(bad.any()),
+                    f"flash {label} {dtype}: disagrees with ref.py")
+            if dtype != torch.bfloat16 or not (
+                    label.startswith("path") or label == "B=1 S=2048"):
+                continue
+            nbytes, flops = flash_needs(B, H, Hkv, Sq, Sk, hd, window,
+                                        q_offset, q.element_size())
+            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+            t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+            rep = H // Hkv
+            qs = qt.contiguous()
+            ks = kt.repeat_interleave(rep, dim=1).contiguous()
+            vs = vt.repeat_interleave(rep, dim=1).contiguous()
+            t = dict(
+                shape=label, dtype="bfloat16",
+                ms=timer.ms(lambda: flash_ops.flash_attention(q, k, v,
+                                                              **kw)),
+                plain_ms=timer.ms(lambda: flash_attention_ref(qt, kt, vt,
+                                                              **kw)),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, bound_flops=flops,
+                library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True)))
+            times.append(t)
+            print(f"time  flash_attention {label:18s} bf16 ms={t['ms']:.4f} "
+                  f"plain_ms={t['plain_ms']:.4f} "
+                  f"library_ms={t['library_ms']:.4f} "
+                  f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}: "
+                  f"{nbytes} bytes, {flops} flops)", flush=True)
+        row["max_abs_err_by_dtype"][str(dtype).split(".")[-1]] = worst
+    main_case = next(t for t in times if t["shape"] == FLASH_TABLE_CASE)
+    row.update(main_case)
+    row["max_abs_err"] = max(row["max_abs_err_by_dtype"].values())
+    row["times"] = times
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -379,8 +506,60 @@ def phase_model(dev):
         results["decode_step_ms"])
     results["chunk_profile"] = profile_step(
         "chunk", lambda: chunk(pool, 2 * C, n_last), results["chunk_step_ms"])
-    del model, params, pool, ref_pool
+    del pool, ref_pool
     torch.cuda.empty_cache()
+    results.update(monolithic(model, params, cfg))
+    del model, params
+    torch.cuda.empty_cache()
+    return results
+
+
+def plain_flash(q, k, v, **kw):
+    """The flash kernel's plain version in the models' (B, S, H, hd)
+    layout: what monolithic prefill runs instead of the kernel."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), **kw).transpose(1, 2)
+
+
+def monolithic(model, params, cfg):
+    """Monolithic prefill through the flash kernel vs through its plain
+    version (B=4, S=256), then one static prefill (B=8, S=256) and one
+    slot decode step (B=8) timed and profiled."""
+    dev = model.device
+    results = {}
+    rng = np.random.default_rng(1)
+    S, W = 256, 256 + 48
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(4, S))).to(
+        dev)
+    logits, _ = model.prefill(params, tok, W)
+    ref_logits, _ = model.prefill(params, tok, W, attention=plain_flash)
+    results["prefill"] = compare("monolithic prefill (B=4, S=256)", logits,
+                                 ref_logits, cfg)
+
+    tok8 = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(8, S))).to(
+        dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(2):
+        ev[0].record()
+        logits, cache = model.prefill(params, tok8, W)
+        ev[1].record()
+        nxt = logits.argmax(-1, keepdim=True)
+        pos = torch.full((8,), S, device=dev)
+        model.decode_step(params, cache, nxt, pos)
+        ev[2].record()
+    torch.cuda.synchronize()
+    results["static_prefill_ms"] = ev[0].elapsed_time(ev[1])
+    results["slot_decode_step_ms"] = ev[1].elapsed_time(ev[2])
+    print(f"model step time (B=8, kernel path): static prefill S=256 "
+          f"{results['static_prefill_ms']:.3f} ms, slot decode "
+          f"{results['slot_decode_step_ms']:.3f} ms", flush=True)
+    results["static_prefill_profile"] = profile_step(
+        "static prefill", lambda: model.prefill(params, tok8, W),
+        results["static_prefill_ms"])
+    results["slot_decode_profile"] = profile_step(
+        "slot decode", lambda: model.decode_step(params, cache, nxt, pos),
+        results["slot_decode_step_ms"])
     return results
 
 
@@ -411,7 +590,8 @@ def profile_step(label, step, step_ms):
               "measured)", flush=True)
         return None
     attn_ms = sum(dev_us(e) for e in kernels
-                  if "paged_decode" in e.key or "paged_mq" in e.key) / 1e3
+                  if any(n in e.key for n in ("paged_decode", "paged_mq",
+                                              "flash_kernel"))) / 1e3
     launches = sum(e.count for e in kernels)
     out = {"step_ms": step_ms, "device_busy_ms": busy_ms,
            "attention_kernel_ms": attn_ms, "device_launches": launches,
@@ -419,7 +599,7 @@ def profile_step(label, step, step_ms):
            "top": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in
                    sorted(kernels, key=dev_us, reverse=True)[:6]]}
     print(f"profile {label}: step {step_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({launches} kernels), paged attention "
+          f"{busy_ms:.3f} ms ({launches} kernels), attention kernels "
           f"{attn_ms:.3f} ms, idle share {out['idle_share']:.3f}", flush=True)
     for name, ms, n in out["top"]:
         print(f"profile {label}:   {ms:8.3f} ms  x{n:<4d} {name}", flush=True)
@@ -479,6 +659,77 @@ def phase_serve():
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: --engine both at full width
+# ---------------------------------------------------------------------------
+
+ENGINE_ARMS = ("static", "continuous", "continuous_monolithic",
+               "continuous_paged")
+
+
+def phase_engines():
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+
+    cfg = get_config("gemma-2b")
+    launch.reset_kernel_counters()
+    res = launch.run_traffic("gemma-2b", smoke=False, device="cuda",
+                             requests=16, slots=8, prompt_len=(16, 256),
+                             max_new=(4, 48), rate=50.0, engine="both",
+                             prefill_chunk=64, max_prefill_per_step=2,
+                             block_size=16, seed=0)
+    counts = launch.kernel_counters()
+    require(counts == res["kernels"], "counter mismatch")
+    for arm in ENGINE_ARMS:
+        require(arm in res, f"--engine both ran no {arm} arm")
+        stats = res[arm]
+        require(stats.get("n") == 16.0,
+                f"{arm}: {stats.get('n')} of 16 requests finished")
+        outs = res["outputs_by_arm"][arm]
+        require(len(outs) == 16 and all(len(t) > 0 for t in outs),
+                f"{arm}: a request produced no token")
+        require(all(0 <= t < cfg.vocab_size for toks in outs for t in toks),
+                f"{arm}: token out of [0, {cfg.vocab_size})")
+        ttft = (f"TTFT p50 {1e3 * stats['ttft_p50_s']:.2f} ms p95 "
+                f"{1e3 * stats['ttft_p95_s']:.2f} ms"
+                if "ttft_p50_s" in stats else
+                "TTFT not measured (the static drive sees a batch's "
+                "tokens when it finishes)")
+        print(f"engines {arm:22s}: {int(stats['n'])} requests, "
+              f"{stats['useful_tokens']:.0f} tokens in "
+              f"{stats['makespan_s']:.3f} s: {stats['tok_s']:.2f} tok/s, "
+              f"{ttft}, latency p50 {1e3 * stats['latency_p50_s']:.2f} ms "
+              f"p95 {1e3 * stats['latency_p95_s']:.2f} ms"
+              + (f", peak concurrent {stats['peak_concurrent']:.0f}"
+                 if "peak_concurrent" in stats else ""), flush=True)
+    L = cfg.num_layers
+    require(counts["prefill_calls"] > 0, "no monolithic prefill ran")
+    require(counts["flash_launches"] == L * counts["prefill_calls"],
+            f"flash kernel launched {counts['flash_launches']} times for "
+            f"{counts['prefill_calls']} monolithic prefills x {L} layers")
+    require(counts["decode_launches"] > 0, "decode kernel never launched")
+    require(counts["mq_launches"] > 0, "multi-query kernel never launched")
+    require(counts["ref_calls"] == 0 and counts["flash_ref_calls"] == 0,
+            "a plain attention version ran on the card")
+    flags = {k: res[k] for k in (
+        "speedup_tok_s", "continuous_faster_verified",
+        "chunked_ttft_p95_improved", "ttft_p95_chunked_s",
+        "ttft_p95_monolithic_s", "paged_more_concurrent_verified",
+        "paged_max_concurrency", "slot_max_concurrency",
+        "paged_hbm_within_budget", "paged_bytes_per_resident_token",
+        "slot_bytes_per_resident_token", "parity_token_identical",
+        "parity_token_identical_paged", "paged_token_identical_trace",
+        "monolithic_token_identical_trace", "static_token_identical_trace",
+        "parity_equal_token_share", "parity_equal_token_share_paged",
+        "paged_equal_token_share", "monolithic_equal_token_share",
+        "static_equal_token_share") if k in res}
+    print("engines flags: " + json.dumps(flags), flush=True)
+    print("engines kernels: " + json.dumps(counts), flush=True)
+    print(f"engines max_memory_allocated {res['max_memory_allocated']} "
+          "bytes", flush=True)
+    return res, counts
+
+
 def main() -> None:
     require((SRC / "repro_torch").is_dir(),
             "src/repro_torch not found: run from the root of a checkout")
@@ -508,13 +759,22 @@ def main() -> None:
 
     timer = Timer(dev)
     table = phase_kernels(dev, timer)
+    table["flash_attention"] = phase_flash(dev, timer)
     del timer
     torch.cuda.empty_cache()
     model = phase_model(dev)
-    res, counts = phase_serve()
+    _, serve_counts = phase_serve()
+    torch.cuda.empty_cache()
+    _, counts = phase_engines()
 
+    # launches: the --engine both run, which drives all three kernels;
+    # the paged serve phase's own counts stand beside them
     table["paged_decode"]["launches"] = counts["decode_launches"]
     table["paged_mq"]["launches"] = counts["mq_launches"]
+    table["flash_attention"]["launches"] = counts["flash_launches"]
+    table["paged_decode"]["launches_paged_serve"] = \
+        serve_counts["decode_launches"]
+    table["paged_mq"]["launches_paged_serve"] = serve_counts["mq_launches"]
     print("model: " + json.dumps(model), flush=True)
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)

@@ -149,7 +149,13 @@ class ModelConfig:
 class ServeConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    # monolithic prefill on the CPU: attention switches to the chunked
+    # online-softmax path above this sequence length (the reference reads
+    # these three from its TrainConfig knobs; the card always runs the
+    # flash kernel)
     attn_chunk_threshold: int = 2_048
     attn_chunk: int = 512
+    # kv-block size of the chunked path (0 = same as attn_chunk)
+    attn_chunk_kv: int = 0
     # ring-buffer KV window for long-context decode (sub-quadratic archs)
     ring_buffer: bool = False

@@ -1,8 +1,9 @@
-"""Parameter bridge from the JAX reference to the port.
+"""Parameter and cache bridge from the JAX reference to the port.
 
 ``jax.random`` init cannot be reproduced in PyTorch, so the tests make
 both sides compute the same function by moving the reference's
-parameters over, as numpy arrays. Nothing here imports JAX.
+parameters (and, for the cached steps, its slot cache) over, as numpy
+arrays. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -50,4 +51,31 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *,
         })
     if "lm_head" in tree:
         out["lm_head"] = _t(tree["lm_head"], device, dtype)
+    return out
+
+
+def slot_cache_from_numpy(cache: Dict[str, Any], *, device="cpu",
+                          dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """The reference's slot cache (numpy leaves) -> the port's.
+
+    The reference's cache of ``B`` rows holds ``k``/``v`` ``(L, B, W, Gs,
+    hd)`` and one position row per layer, ``pos`` ``(L, W)``, shared by the
+    rows. The port's adds the scratch column (zeros in k/v, -1 in pos) and
+    keeps one position row per cache row: ``pos`` ``(B, W + 1)``. Every
+    layer of a reference cache holds the same positions; a cache whose
+    layers differ is refused."""
+    pos = np.asarray(cache["pos"])
+    if not (pos == pos[0]).all():
+        raise ValueError("the reference cache's layers hold different "
+                         "positions")
+    k = np.asarray(cache["k"], np.float32)
+    L_, B, W, gs, hd = k.shape
+    out = {}
+    for name in ("k", "v"):
+        buf = np.zeros((L_, B, W + 1, gs, hd), np.float32)
+        buf[:, :, :W] = np.asarray(cache[name], np.float32)
+        out[name] = torch.from_numpy(buf).to(device=device, dtype=dtype)
+    rows = np.full((B, W + 1), -1, np.int32)
+    rows[:, :W] = pos[0]
+    out["pos"] = torch.from_numpy(rows).to(device)
     return out

@@ -1,0 +1,127 @@
+"""Public wrapper for flash attention: layout adapter, dispatch, and
+launch counters.
+
+Follows the reference wrapper's contract
+(``src/repro/kernels/flash_attention/ops.py``): models hand in q
+``(B, Sq, H, hd)`` and k, v ``(B, Sk, Hkv, hd)``; the kernel works on
+``(B, H, S, hd)``. Here the layout change is a strided view, not a copy:
+the kernel takes (batch, head, position) strides. Tensors on the CPU take
+the plain version (``ref.py``); tensors on the card launch the
+hand-written CUDA kernel, or raise. There is no fallback from one to the
+other.
+
+The module counts what it ran, in plain integers: ``flash_launches`` (one
+per kernel launch) and ``ref_calls`` (one per plain-version call).
+:func:`reset_counters` zeroes them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+flash_launches = 0
+ref_calls = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims the kernel is instantiated for (its accumulator tile is
+#: ``hd / 16`` columns a thread)
+HEAD_DIMS = (64, 128, 256)
+
+_I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+
+
+def reset_counters() -> None:
+    global flash_launches, ref_calls
+    flash_launches = ref_calls = 0
+
+
+def counters() -> dict:
+    return {"flash_launches": flash_launches, "ref_calls": ref_calls}
+
+
+def _lib():
+    lib = _build.library("flash_attention")
+    if lib.flash_attention.argtypes is None:
+        lib.flash_attention.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I, _I, _I, _I, _I, _I, _F, _P]
+        lib.flash_attention.restype = _I
+    return lib
+
+
+def _check_inputs(q, k, v):
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the flash kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be (B, H, Sq, hd) and k, v (B, Hkv, Sk, "
+                         f"hd), got {tuple(q.shape)} / {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
+    B, H, Sq, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[1]:
+        raise ValueError(f"q (B={B}, H={H}, hd={hd}) does not fit k/v "
+                         f"{tuple(k.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS}")
+    vec = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name} needs a contiguous head dimension, "
+                             "16-byte aligned rows and strides")
+
+
+def launch(q, k, v, *, causal: bool = True, window: int = 0,
+           q_offset: int = 0):
+    """Launch the kernel on the card: q (B, H, Sq, hd), k, v (B, Hkv, Sk,
+    hd), each with any (batch, head, position) strides. Returns (B, H, Sq,
+    hd): a view of an output stored as (B, Sq, H, hd), the model's
+    layout."""
+    global flash_launches
+    _check_inputs(q, k, v)
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
+                                         for s in t.stride()[:3]))
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), strides, B, H, Hkv, Sq, Sk, hd, int(causal),
+            int(window), int(q_offset), 1.0 / math.sqrt(hd), stream)
+    _build.check(lib, err, "flash_attention")
+    flash_launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
+    """q: (B, Sq, H, hd); k, v: (B, Sk, Hkv, hd) -> (B, Sq, H, hd). Query
+    ``i`` sits at position ``q_offset + i``; ``window`` > 0 adds the
+    sliding-window mask."""
+    global ref_calls
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if q.device.type == "cpu":
+        ref_calls += 1
+        out = flash_attention_ref(qt, kt, vt, causal=causal, window=window,
+                                  q_offset=q_offset)
+    elif q.device.type == "cuda":
+        out = launch(qt, kt, vt, causal=causal, window=window,
+                     q_offset=q_offset)
+    else:
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return out.transpose(1, 2)

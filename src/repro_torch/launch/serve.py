@@ -1,19 +1,32 @@
-"""Serving traffic runner of the port: a Poisson arrival trace through the
-paged continuous engine, in wall-clock time.
+"""Serving traffic runner of the port: arrival traces through the
+continuous-batching engine against the static-batch baseline, in
+wall-clock time (the reference's ``launch/serve.py``).
 
-Builds the model (parameters from a seed), warms the engine on one short
-request off the clock, then submits every trace request at its arrival
-time and runs micro-steps until all have finished. Reports useful-token
-throughput, TTFT and latency percentiles, KV accounting and the
-paged-attention kernel launch counts; ``--json`` writes them out.
+:func:`run_traffic` (the CLI's ``--engine both``) builds the model once
+(parameters from a seed), warms each engine on one short prompt shape
+off the clock, then drives one Poisson trace through:
+
+* the static-batch baseline (``StaticEngine``: batches of ``slots``
+  prompts of one length, monolithic prefill, lockstep decode);
+* the continuous engine on the slot layout with chunked prefill, and
+  once more with monolithic prefill (``prefill_chunk=0``);
+* the continuous engine on the paged layout at the slot pool's HBM
+  budget;
+
+and a greedy parity check (static vs continuous vs paged on one batch of
+the longest prompt). It reports useful-token throughput, latency and TTFT
+percentiles, KV accounting, the comparison flags and the kernel launch
+counts; ``--json`` writes them out. :func:`run_serve` drives the paged
+continuous engine alone.
 
 On the card (the default):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
-      --requests 16 --slots 8 --prompt-len 16,256 --prefill-chunk 64 \\
-      --kv-block-size 16 --json serve_torch.json
+      --engine both --requests 16 --slots 8 --prompt-len 16,256 \\
+      --prefill-chunk 64 --kv-block-size 16 --json serve_torch.json
 On the CPU, at the smoke config (the plain attention path):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
-      --smoke --device cpu --requests 4 --slots 2 --prompt-len 16,40
+      --smoke --device cpu --engine both --requests 4 --slots 2 \\
+      --prompt-len 16,40
 """
 
 from __future__ import annotations
@@ -30,24 +43,72 @@ import torch
 
 from repro_torch.config import ServeConfig
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops
+from repro_torch.models import transformer
 from repro_torch.models.registry import build_model
-from repro_torch.serve import ContinuousEngine, ServeRequest, make_trace
+from repro_torch.serve import (ContinuousEngine, ServeRequest, StaticEngine,
+                               make_trace)
+from repro_torch.serve.engine import not_ported
 from repro_torch.serve.scheduler import latency_stats_over
 
 
+def synthetic_tokens(cfg, batch: int, seq_len: int, seed: int) -> np.ndarray:
+    """Prompt tokens (batch, seq_len) int32, drawn by numpy from ``seed``."""
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(batch, seq_len), dtype=np.int32)
+
+
 def requests_from_trace(cfg, trace, *, seed: int = 0) -> List[ServeRequest]:
-    """One ServeRequest per trace entry, each with its own prompt drawn by
-    numpy from ``seed + 1000 + rid``."""
-    reqs = []
-    for rid, entry in enumerate(trace):
-        rng = np.random.default_rng(seed + 1000 + rid)
-        tokens = rng.integers(0, cfg.vocab_size, size=(1, entry.prompt_len),
-                              dtype=np.int32)
-        reqs.append(ServeRequest(rid=rid, batch={"tokens": tokens},
-                                 max_new_tokens=entry.max_new,
-                                 seed=seed, arrival=entry.arrival))
-    return reqs
+    """One ServeRequest per trace entry, each with its own prompt drawn
+    from ``seed + 1000 + rid``; one seed gives byte-identical prompts to
+    every engine driven from the trace."""
+    return [ServeRequest(rid=rid, batch={"tokens": synthetic_tokens(
+                cfg, 1, entry.prompt_len, seed + 1000 + rid)},
+                         max_new_tokens=entry.max_new, seed=seed,
+                         arrival=entry.arrival)
+            for rid, entry in enumerate(trace)]
+
+
+def effective_chunk(caps, prefill_chunk: int) -> int:
+    """Capability-aware chunk size: floored to the family's
+    ``chunk_multiple``, never below one multiple; 0 (monolithic) when the
+    family cannot chunk at all."""
+    if prefill_chunk <= 0 or not caps.chunked_prefill:
+        return 0
+    m = max(1, int(caps.chunk_multiple))
+    return max(m, (prefill_chunk // m) * m)
+
+
+def useful_tokens(row: np.ndarray, eos_id: int) -> int:
+    """Tokens a request actually produced: up to and including the first
+    EOS (or the full row when EOS never fires / is disabled)."""
+    if eos_id >= 0:
+        hits = np.flatnonzero(row == eos_id)
+        if hits.size:
+            return int(hits[0]) + 1
+    return int(row.size)
+
+
+def kernel_counters() -> Dict[str, int]:
+    """Every launch counter of the port's kernels, and the monolithic
+    prefill calls (each launches the flash kernel once per layer on the
+    card)."""
+    fl = flash_ops.counters()
+    return {**ops.counters(), "flash_launches": fl["flash_launches"],
+            "flash_ref_calls": fl["ref_calls"],
+            "prefill_calls": transformer.prefill_calls}
+
+
+def reset_kernel_counters() -> None:
+    ops.reset_counters()
+    flash_ops.reset_counters()
+    transformer.reset_counters()
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def device_info(device: torch.device) -> Dict:
@@ -75,8 +136,6 @@ def drive_continuous(eng: ContinuousEngine, requests: List[ServeRequest]
     have finished; return latency/throughput stats."""
     pending = sorted(requests, key=lambda r: r.arrival)
     n, i, done = len(pending), 0, 0
-    sync = (torch.cuda.synchronize if eng.device.type == "cuda"
-            else (lambda: None))
     t0 = time.perf_counter()
     while done < n:
         now = time.perf_counter() - t0
@@ -87,9 +146,10 @@ def drive_continuous(eng: ContinuousEngine, requests: List[ServeRequest]
             time.sleep(min(1e-3, max(0.0, pending[i].arrival - now)))
             continue
         done += len(eng.step(time.perf_counter() - t0))
-    sync()
+    _sync(eng.device)
     makespan = time.perf_counter() - t0
-    toks = sum(r.generated for r in requests)
+    toks = sum(useful_tokens(r.output[:r.generated], eng.eos_id)
+               for r in requests)
     stats = latency_stats_over(eng.scheduler.finished)
     stats.update(makespan_s=makespan, useful_tokens=float(toks),
                  tok_s=toks / makespan,
@@ -100,6 +160,293 @@ def drive_continuous(eng: ContinuousEngine, requests: List[ServeRequest]
                  * eng.scheduler.modeled_admit_cost_s)
     stats.update(eng.kv_accounting())
     return stats
+
+
+def drive_static(eng: StaticEngine, requests: List[ServeRequest],
+                 batch_size: int) -> Dict[str, float]:
+    """Static-batch baseline: wait for ``batch_size`` arrivals, prefill
+    them together, decode the whole batch to the slowest member. Requests
+    are bucketed by prompt length (a static batch needs rectangular
+    prompts), batches form FIFO within a bucket and run in order of their
+    last member's arrival. The last partial batch is padded (repeat of its
+    final row) to the batch shape; padding rows are not counted. Sampling
+    is per-row; heterogeneous seeds in one group cannot be honored and
+    raise."""
+    reqs = sorted(requests, key=lambda r: r.arrival)
+    n = len(reqs)
+    buckets: Dict[int, List[ServeRequest]] = {}
+    for r in reqs:
+        buckets.setdefault(r.prompt_len, []).append(r)
+    groups = [rs[start:start + batch_size]
+              for rs in buckets.values()
+              for start in range(0, len(rs), batch_size)]
+    groups.sort(key=lambda g: max(r.arrival for r in g))
+    t0 = time.perf_counter()
+    for group in groups:
+        latest = max(r.arrival for r in group)
+        while time.perf_counter() - t0 < latest:
+            time.sleep(1e-3)
+        seeds = {r.seed for r in group}
+        if len(seeds) > 1:
+            raise ValueError("drive_static: heterogeneous seeds in one "
+                             f"static batch group: {sorted(seeds)}")
+        rows = [r.batch for r in group]
+        temps = [r.temperature for r in group]
+        while len(rows) < batch_size:          # shape-stable padding
+            rows.append(rows[-1])
+            temps.append(temps[-1])
+        batch = {k: np.concatenate([row[k] for row in rows])
+                 for k in rows[0]}
+        max_new = max(r.max_new_tokens for r in group)
+        out = eng.generate(batch, max_new,
+                           temperature=np.asarray(temps, np.float32),
+                           seed=group[0].seed)
+        now = time.perf_counter() - t0
+        for j, r in enumerate(group):
+            r.output = out[j, :r.max_new_tokens].copy()
+            r.generated = useful_tokens(r.output, eng.eos_id)
+            r.finish_time = now
+    makespan = time.perf_counter() - t0
+    toks = sum(r.generated for r in reqs)
+    lat = np.array([r.finish_time - r.arrival for r in reqs])
+    return {"n": float(n), "makespan_s": makespan,
+            "useful_tokens": float(toks), "tok_s": toks / makespan,
+            "batches": float(len(groups)),
+            "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p95_s": float(np.percentile(lat, 95)),
+            "latency_mean_s": float(lat.mean())}
+
+
+def _rows(reqs: List[ServeRequest]) -> List[np.ndarray]:
+    """Each request's generated tokens."""
+    return [r.output[:r.generated] for r in reqs]
+
+
+def _identical(a, b) -> bool:
+    """Two sets of output rows are token-identical."""
+    return bool(all(np.array_equal(x, y) for x, y in zip(a, b)))
+
+
+def _equal_share(a, b) -> float:
+    """Share of equal tokens, position by position, between two sets of
+    output rows; a length mismatch counts as unequal tokens."""
+    same = total = 0
+    for x, y in zip(a, b):
+        m = min(len(x), len(y))
+        same += int((np.asarray(x[:m]) == np.asarray(y[:m])).sum())
+        total += max(len(x), len(y))
+    return same / max(1, total)
+
+
+def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
+                device="cuda", requests: int = 12, slots: int = 4,
+                prompt_len=16, max_new=(4, 32), rate: float = 50.0,
+                engine: str = "both", ring: bool = False, eos_id: int = -1,
+                seed: int = 0, parity_check: bool = True,
+                prefill_chunk: int = 64, max_prefill_per_step: int = 2,
+                chunk_compare: bool = True, paged_compare: bool = True,
+                block_size: int = 16, prefix_compare: bool = False,
+                spec_compare: bool = False, params=None) -> Dict:
+    """Build the model once, warm each engine off the clock, then drive a
+    Poisson trace through the requested engine(s). Returns the full
+    measurement dict (the reference's keys, plus the port's ``backend``,
+    ``device``, ``kernels``, per-arm outputs and equal-token shares).
+
+    ``prompt_len`` is an int or a sequence cycled across the trace (e.g.
+    ``(16, 256)`` interleaves short and long prompts). With
+    ``chunk_compare`` the continuous engine runs chunked and again
+    monolithic (``prefill_chunk=0``), recording the TTFT comparison. With
+    ``paged_compare`` it runs once more over a paged pool sized to the
+    slot pool's token budget (``slots * cache_len`` tokens in
+    ``block_size``-token blocks, request rows no longer the scarce
+    resource): token identity against the slot run, bytes per resident
+    token and peak concurrency at equal HBM. ``parity_check`` runs one
+    batch of the longest prompt through static, continuous and paged
+    engines.
+
+    ``params`` replaces the seeded random parameters (the tests move the
+    reference's over). The kernel counters are zeroed at the start and
+    cover the whole run, warm-ups included. The prefix-cache and
+    speculative comparisons are not ported: asking for them raises."""
+    if prefix_compare:
+        raise not_ported("the prefix-cache comparison (prefix_compare)",
+                         "prefix-caching")
+    if spec_compare:
+        raise not_ported("the speculative comparison (spec_compare)",
+                         "speculative-decoding")
+    if engine not in ("static", "continuous", "both"):
+        raise ValueError(f"unknown engine {engine!r} "
+                         "(static, continuous or both)")
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    dtype = "float32" if smoke else "bfloat16"
+    model = build_model(cfg, ServeConfig(param_dtype=dtype,
+                                         compute_dtype=dtype,
+                                         attn_chunk_threshold=4096,
+                                         ring_buffer=ring), device=device)
+    dev = model.device
+    caps = model.capabilities
+    prefill_chunk = effective_chunk(caps, prefill_chunk)
+    slot_chunk = prefill_chunk if caps.slot_chunk else 0
+    if params is None:
+        params = model.init(seed)
+    plens = ((int(prompt_len),) if isinstance(prompt_len, int)
+             else tuple(int(p) for p in prompt_len))
+    pmax = max(plens)
+    hi = max_new if isinstance(max_new, int) else max_new[1]
+    cache_len = pmax + hi
+    reset_kernel_counters()
+
+    trace = make_trace(requests, prompt_len=plens, max_new=max_new,
+                       rate=rate, seed=seed)
+    result: Dict = {"backend": "torch", "arch": cfg.name,
+                    "device": device_info(dev),
+                    "torch_version": torch.__version__,
+                    "cuda_version": torch.version.cuda, "dtype": dtype,
+                    "requests": requests, "slots": slots,
+                    "prompt_len": list(plens), "cache_len": cache_len,
+                    "arrival": "poisson", "rate": rate, "eos_id": eos_id,
+                    "prefill_chunk": 0,     # effective value set below
+                    "max_prefill_per_step": max_prefill_per_step,
+                    "distinct_prompt_lens": len(set(plens)),
+                    # eager PyTorch compiles no programs; the fields stay
+                    # for schema parity with the reference's artifact
+                    "prefill_compiles": None,
+                    "prefill_compiles_prompt_len_independent": None,
+                    "outputs_by_arm": {}}
+    warm = synthetic_tokens(cfg, 1, plens[0], seed)
+
+    def _drive_continuous(chunk: int, kv_layout: str = "slot",
+                          num_blocks=None, n_rows=None):
+        eng = ContinuousEngine(
+            model, params, cache_len=cache_len, num_slots=n_rows or slots,
+            eos_id=eos_id, prefill_chunk=chunk,
+            max_prefill_per_step=max_prefill_per_step, kv_layout=kv_layout,
+            block_size=block_size, num_blocks=num_blocks, device=dev)
+        # warm on one prompt shape off the clock (kernel build and load,
+        # library handles), then a clean engine for the measured drive
+        eng.generate({"tokens": np.concatenate(
+            [warm] * min(2, eng.kv.num_slots))}, 2)
+        eng.reset()
+        reqs = requests_from_trace(cfg, trace, seed=seed)
+        _sync(dev)
+        stats = drive_continuous(eng, reqs)
+        stats["prefill_chunk"] = float(eng.prefill_chunk)
+        stats["prefill_compiles_total"] = None
+        stats["prefill_compiles_drive"] = None
+        return stats, reqs
+
+    if engine in ("continuous", "both"):
+        result["continuous"], slot_reqs = _drive_continuous(slot_chunk)
+        slot_rows = _rows(slot_reqs)
+        result["outputs_by_arm"]["continuous"] = [r.tolist()
+                                                  for r in slot_rows]
+        eff_chunk = int(result["continuous"]["prefill_chunk"])
+        result["prefill_chunk"] = eff_chunk
+        if eff_chunk and chunk_compare:
+            result["continuous_monolithic"], mono_reqs = _drive_continuous(0)
+            mono_rows = _rows(mono_reqs)
+            result["outputs_by_arm"]["continuous_monolithic"] = [
+                r.tolist() for r in mono_rows]
+            c, m = result["continuous"], result["continuous_monolithic"]
+            if "ttft_p95_s" in c and "ttft_p95_s" in m:
+                result["ttft_p95_chunked_s"] = c["ttft_p95_s"]
+                result["ttft_p95_monolithic_s"] = m["ttft_p95_s"]
+                result["chunked_ttft_p95_improved"] = bool(
+                    c["ttft_p95_s"] < m["ttft_p95_s"])
+            result["monolithic_token_identical_trace"] = _identical(
+                slot_rows, mono_rows)
+            result["monolithic_equal_token_share"] = _equal_share(
+                slot_rows, mono_rows)
+        if prefill_chunk and paged_compare and caps.paged_decode:
+            # equal-HBM paged run: the slot pool's token capacity
+            # repartitioned into leased blocks; request rows stop being
+            # the scarce resource, blocks gate admission
+            nblocks = max(1, (slots * cache_len) // block_size)
+            rows = min(requests, nblocks)
+            result["continuous_paged"], paged_reqs = _drive_continuous(
+                prefill_chunk, kv_layout="paged", num_blocks=nblocks,
+                n_rows=rows)
+            paged_rows = _rows(paged_reqs)
+            result["outputs_by_arm"]["continuous_paged"] = [
+                r.tolist() for r in paged_rows]
+            c, p = result["continuous"], result["continuous_paged"]
+            result["block_size"] = block_size
+            result["paged_num_blocks"] = nblocks
+            result["paged_token_identical_trace"] = _identical(slot_rows,
+                                                               paged_rows)
+            result["paged_equal_token_share"] = _equal_share(slot_rows,
+                                                             paged_rows)
+            result["paged_hbm_within_budget"] = bool(
+                p["kv_bytes_total"] <= c["kv_bytes_total"])
+            result["paged_max_concurrency"] = p["peak_concurrent"]
+            result["slot_max_concurrency"] = c["peak_concurrent"]
+            result["paged_more_concurrent_verified"] = bool(
+                p["peak_concurrent"] > c["peak_concurrent"])
+            result["paged_bytes_per_resident_token"] = \
+                p["kv_bytes_per_resident_token"]
+            result["slot_bytes_per_resident_token"] = \
+                c["kv_bytes_per_resident_token"]
+        result["continuous_tok_s"] = result["continuous"]["tok_s"]
+        result["ttft_p50_ms"] = 1e3 * result["continuous"]["ttft_p50_s"]
+        result["ttft_p95_ms"] = 1e3 * result["continuous"]["ttft_p95_s"]
+        result["outputs"] = result["outputs_by_arm"]["continuous"]
+
+    if engine in ("static", "both"):
+        seng = StaticEngine(model, params, cache_len=cache_len,
+                            eos_id=eos_id, device=dev)
+        seng.generate({"tokens": np.concatenate([warm] * slots)}, 2)
+        static_reqs = requests_from_trace(cfg, trace, seed=seed)
+        _sync(dev)
+        result["static"] = drive_static(seng, static_reqs, batch_size=slots)
+        static_rows = _rows(static_reqs)
+        result["outputs_by_arm"]["static"] = [r.tolist()
+                                              for r in static_rows]
+        if engine == "both":
+            result["static_token_identical_trace"] = _identical(
+                slot_rows, static_rows)
+            result["static_equal_token_share"] = _equal_share(
+                slot_rows, static_rows)
+
+    if engine == "both":
+        spd = result["continuous"]["tok_s"] / result["static"]["tok_s"]
+        result["speedup_tok_s"] = spd
+        result["continuous_faster_verified"] = bool(spd > 1.0)
+
+    if parity_check:
+        # parity at the LONGEST prompt length: a multi-chunk deposit must
+        # be token-identical to the monolithic static prefill; the decode
+        # budget is capped by the trace's max_new ceiling (cache_len)
+        B = min(4, slots)
+        par_new = min(8, hi)
+        prompt = {"tokens": synthetic_tokens(cfg, B, pmax, seed + 1)}
+        s_out = StaticEngine(model, params, cache_len=cache_len,
+                             eos_id=eos_id, device=dev).generate(prompt,
+                                                                 par_new)
+        c_out = ContinuousEngine(
+            model, params, cache_len=cache_len, num_slots=B, eos_id=eos_id,
+            prefill_chunk=slot_chunk,
+            max_prefill_per_step=max_prefill_per_step,
+            device=dev).generate(prompt, par_new)
+        result["parity_token_identical"] = _identical(s_out, c_out)
+        result["parity_equal_token_share"] = _equal_share(s_out, c_out)
+        result["parity_prompt_len"] = pmax
+        if paged_compare and caps.paged_decode and prefill_chunk:
+            p_out = ContinuousEngine(
+                model, params, cache_len=cache_len, num_slots=B,
+                eos_id=eos_id, prefill_chunk=prefill_chunk,
+                max_prefill_per_step=max_prefill_per_step,
+                kv_layout="paged", block_size=block_size,
+                device=dev).generate(prompt, par_new)
+            result["parity_token_identical_paged"] = _identical(s_out,
+                                                                p_out)
+            result["parity_equal_token_share_paged"] = _equal_share(s_out,
+                                                                    p_out)
+    _sync(dev)
+    result["kernels"] = kernel_counters()
+    if dev.type == "cuda":
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+            dev)
+    return result
 
 
 def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
@@ -122,7 +469,8 @@ def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
     eng = ContinuousEngine(model, params, cache_len=cache_len,
                            num_slots=slots, prefill_chunk=prefill_chunk,
                            max_prefill_per_step=max_prefill_per_step,
-                           block_size=block_size, device=model.device)
+                           kv_layout="paged", block_size=block_size,
+                           device=model.device)
     # warm-up off the clock (kernel build and load, library handles),
     # then a clean engine for the measured drive
     warm = np.random.default_rng(seed).integers(
@@ -166,11 +514,49 @@ def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
     return result
 
 
+ARMS = ("static", "continuous_monolithic", "continuous",
+        "continuous_paged")
+
+
+def print_traffic(result: Dict) -> None:
+    """Human-readable summary of a :func:`run_traffic` result."""
+    print(f"arch={result['arch']} device={result['device']['name']} "
+          f"requests={result['requests']} slots={result['slots']} "
+          f"cache_len={result['cache_len']} "
+          f"prompt_len={result['prompt_len']} "
+          f"prefill_chunk={result['prefill_chunk']}", flush=True)
+    for name in ARMS:
+        if name not in result:
+            continue
+        m = result[name]
+        ttft = (f"  ttft p50 {m['ttft_p50_s'] * 1e3:.2f} ms "
+                f"p95 {m['ttft_p95_s'] * 1e3:.2f} ms"
+                if "ttft_p95_s" in m else "  ttft not measured")
+        print(f"{name:>21}: {m['tok_s']:9.2f} tok/s  "
+              f"makespan {m['makespan_s']:.3f} s  "
+              f"latency p50 {m['latency_p50_s'] * 1e3:.2f} ms "
+              f"p95 {m['latency_p95_s'] * 1e3:.2f} ms{ttft}", flush=True)
+    keys = ("speedup_tok_s", "continuous_faster_verified",
+            "chunked_ttft_p95_improved", "paged_more_concurrent_verified",
+            "paged_max_concurrency", "slot_max_concurrency",
+            "paged_hbm_within_budget", "parity_token_identical",
+            "parity_token_identical_paged", "paged_token_identical_trace",
+            "monolithic_token_identical_trace",
+            "static_token_identical_trace", "parity_equal_token_share",
+            "parity_equal_token_share_paged", "paged_equal_token_share",
+            "monolithic_equal_token_share", "static_equal_token_share")
+    print("flags: " + json.dumps({k: result[k] for k in keys
+                                  if k in result}), flush=True)
+    print("kernels: " + json.dumps(result["kernels"]), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="gemma-2b", choices=list(ARCH_NAMES))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--engine", default="both",
+                    choices=("static", "continuous", "both"))
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--prompt-len", default="16,256", metavar="N[,N...]")
@@ -179,22 +565,26 @@ def main(argv=None):
     ap.add_argument("--rate", type=float, default=50.0)
     ap.add_argument("--prefill-chunk", type=int, default=64)
     ap.add_argument("--max-prefill-per-step", type=int, default=2)
+    ap.add_argument("--no-chunk-compare", action="store_true")
     ap.add_argument("--kv-block-size", type=int, default=16)
+    ap.add_argument("--no-paged-compare", action="store_true")
+    ap.add_argument("--eos-id", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None, metavar="PATH")
     args = ap.parse_args(argv)
-    result = run_serve(
+    plens = tuple(int(p) for p in args.prompt_len.split(","))
+    result = run_traffic(
         args.arch, smoke=args.smoke, device=args.device,
         requests=args.requests, slots=args.slots,
-        prompt_len=tuple(int(p) for p in args.prompt_len.split(",")),
+        prompt_len=plens[0] if len(plens) == 1 else plens,
         max_new=(args.max_new_lo, args.max_new_hi), rate=args.rate,
+        engine=args.engine, eos_id=args.eos_id, seed=args.seed,
         prefill_chunk=args.prefill_chunk,
         max_prefill_per_step=args.max_prefill_per_step,
-        block_size=args.kv_block_size, seed=args.seed)
-    summary = {k: result[k] for k in (
-        "backend", "arch", "device", "continuous_tok_s", "ttft_p50_ms",
-        "ttft_p95_ms", "kernels")}
-    print(json.dumps(summary))
+        chunk_compare=not args.no_chunk_compare,
+        paged_compare=not args.no_paged_compare,
+        block_size=args.kv_block_size)
+    print_traffic(result)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(result, f, indent=2)

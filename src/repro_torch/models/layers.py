@@ -1,5 +1,6 @@
-"""Shared layers of the port: norms, RoPE, q/k/v projection, attention
-output, gated MLP, and the reference's initializers.
+"""Shared layers of the port: norms, RoPE, q/k/v projection, the plain
+full and chunked attention, attention output, gated MLP, and the
+reference's initializers.
 
 Plain functions on tensors; parameters are dicts of tensors in the
 reference's layout (``wq`` is ``(d, H, hd)``, ``wo`` is ``(H, hd, d)``,
@@ -132,6 +133,96 @@ def repeat_kv(k, num_heads: int):
     if hkv == num_heads:
         return k
     return torch.repeat_interleave(k, num_heads // hkv, dim=2)
+
+
+PAD_POS = 2 ** 30   # sentinel position for padded kv slots
+
+
+def _mask_bias(q_pos, k_pos, *, causal: bool, window):
+    """Additive mask bias float32, broadcastable to (..., Sq, Sk), from
+    absolute positions.
+
+    ``window``: 0 / None = unlimited. Sentinel positions (>= PAD_POS/2)
+    are always masked, so chunk padding never leaks into non-causal
+    attention."""
+    dq = q_pos[..., :, None]
+    dk = k_pos[..., None, :]
+    ok = dk < PAD_POS // 2       # broadcasts against the scores it biases
+    if causal:
+        ok = ok & (dk <= dq)
+    if window:
+        ok = ok & (dk > dq - int(window))
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def full_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None,
+                   softcap: float = 0.0, extra_mask=None):
+    """Dense attention. q (B,S,H,hd), k/v (B,T,H,hd) (kv already
+    repeated); q_pos (S,), k_pos (T,). ``extra_mask``: optional (B, T)
+    validity mask for cache slots. Scores are formed in the activation
+    dtype and softmaxed in float32; the probabilities are normalised
+    before they are cast back (the reference's order)."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bshk,bthk->bhst", q, k).float()
+    scores = scores / math.sqrt(hd)
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = scores + _mask_bias(q_pos, k_pos, causal=causal, window=window)
+    if extra_mask is not None:
+        scores = scores + torch.where(
+            extra_mask, 0.0, NEG_INF).float()[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthk->bshk", probs, v)
+
+
+def chunked_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None,
+                      softcap: float = 0.0, chunk_q: int = 512,
+                      chunk_k: int = 512):
+    """Flash-style online-softmax attention over q and kv blocks (the
+    reference's ``lax.scan`` as Python loops). Never materialises the
+    (S, T) score matrix. Ragged tails are padded: padded queries sit at
+    position -1 and are dropped, padded keys at ``PAD_POS`` and are always
+    masked. q (B,S,H,hd); k, v (B,T,H,hd); q_pos (S,), k_pos (T,)."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    cq, ck = min(chunk_q, S), min(chunk_k, T)
+    nq, nk = -(-S // cq), -(-T // ck)
+    pad_q, pad_k = nq * cq - S, nk * ck - T
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = F.pad(q_pos, (0, pad_q), value=-1)
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        k_pos = F.pad(k_pos, (0, pad_k), value=PAD_POS)
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for iq in range(nq):
+        qc = q[:, iq * cq:(iq + 1) * cq]
+        qp = q_pos[iq * cq:(iq + 1) * cq]
+        m = torch.full((B, H, cq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, cq, hd), dtype=torch.float32,
+                          device=q.device)
+        for ik in range(nk):
+            kc = k[:, ik * ck:(ik + 1) * ck]
+            vc = v[:, ik * ck:(ik + 1) * ck]
+            kp = k_pos[ik * ck:(ik + 1) * ck]
+            s = torch.einsum("bshk,bthk->bhst", qc, kc).float() * scale
+            if softcap > 0:
+                s = softcap * torch.tanh(s / softcap)
+            s = s + _mask_bias(qp, kp, causal=causal, window=window)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhst,bthk->bhsk", p.to(qc.dtype), vc).float()
+            m = m_new
+        out = acc / l.clamp(min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2).to(qc.dtype))     # (B,cq,H,hd)
+    return torch.cat(outs, dim=1)[:, :S]
 
 
 def attn_output(p, ctx_heads, out_dtype):

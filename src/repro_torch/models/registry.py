@@ -1,8 +1,9 @@
 """Model registry of the port: build a ``Model`` bundle from a ModelConfig.
 
-The bundle carries plain functions closed over the config, the device
-and the dtypes. The port serves the dense family; every other family
-raises, naming the slice of the port that brings it.
+The bundle carries plain functions closed over the config, the device,
+the dtypes and the serving knobs, for both KV layouts (slot and paged).
+The port serves the dense family; every other family raises, naming the
+slice of the port that brings it, as does a ring-buffer ServeConfig.
 """
 
 from __future__ import annotations
@@ -64,12 +65,18 @@ def derive_capabilities(cfg: ModelConfig) -> Capabilities:
 class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable[[int], Any]
+    # slot layout: monolithic prefill, slot decode, slot chunk
+    init_cache: Callable[..., Any]
+    prefill: Callable[..., Any]
+    decode_step: Callable[..., Any]
+    prefill_chunk: Callable[..., Any]
+    # paged layout
     init_paged_cache: Callable[..., Any]
     decode_step_paged: Callable[..., Any]
     prefill_chunk_paged: Callable[..., Any]
     capabilities: Capabilities
     device: torch.device
-    dtype: torch.dtype              # compute (and KV pool) dtype
+    dtype: torch.dtype              # compute (and KV cache) dtype
 
 
 def build_model(cfg: ModelConfig, serve: Optional[ServeConfig] = None, *,
@@ -78,6 +85,8 @@ def build_model(cfg: ModelConfig, serve: Optional[ServeConfig] = None, *,
     card is present unless ``device="cpu"``)."""
     dev = resolve_device(device)
     serve = serve or ServeConfig()
+    if serve.ring_buffer:
+        raise transformer.ring_buffer_not_ported()
     caps = derive_capabilities(cfg)
     pdt = dtype_of(serve.param_dtype)
     cdt = dtype_of(serve.compute_dtype)
@@ -88,13 +97,26 @@ def build_model(cfg: ModelConfig, serve: Optional[ServeConfig] = None, *,
         gen.manual_seed(int(seed))
         return transformer.init_lm_params(cfg, gen, dev, pdt)
 
-    def init_paged_cache(num_blocks: int, block_size: int, dtype=None):
+    def init_cache(batch: int, cache_len: int, dtype=None):
+        return transformer.init_cache(cfg, batch, cache_len, device=dev,
+                                      dtype=dtype or cdt)
+
+    def init_paged_cache(num_blocks: int, block_size: int, dtype=None,
+                         num_rows: int = 0):
         return transformer.init_paged_cache(cfg, num_blocks, block_size,
-                                            device=dev, dtype=dtype or cdt)
+                                            device=dev, dtype=dtype or cdt,
+                                            num_rows=num_rows)
 
     return Model(
         cfg=cfg,
         init=init,
+        init_cache=init_cache,
+        prefill=functools.partial(transformer.prefill, cfg,
+                                  compute_dtype=cdt, serve=serve),
+        decode_step=functools.partial(transformer.decode_step, cfg,
+                                      compute_dtype=cdt),
+        prefill_chunk=functools.partial(transformer.prefill_chunk, cfg,
+                                        compute_dtype=cdt),
         init_paged_cache=init_paged_cache,
         decode_step_paged=functools.partial(
             transformer.decode_step_paged, cfg, compute_dtype=cdt),

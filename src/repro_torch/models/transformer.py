@@ -1,7 +1,7 @@
-"""Dense decoder-only transformer over the paged KV pool: the port of the
-main-path functions of ``src/repro/models/transformer.py``.
+"""Dense decoder-only transformer: the port of the serving entry points of
+``src/repro/models/transformer.py``.
 
-Two entry points serve the continuous engine:
+Paged layout (the paged continuous engine):
 
 * :func:`decode_step_paged` — one token per request row, through the
   rows' block tables (the paged-attention decode kernel);
@@ -9,17 +9,44 @@ Two entry points serve the continuous engine:
   row, deposited through the block tables (the multi-query kernel, with
   ``lengths = pos0 + C``).
 
-The KV pool is ``{"k", "v"}``, each ``(L, P, bs, Gs, hd)``. Both steps
-write it **in place**: PyTorch has no buffer donation, so where the
-reference returns a new pool the port updates the one it was given and
-returns only the logits. Only valid query tokens write: parked rows
-(negative positions), chunk padding (``j >= n_valid``) and rows with an
-all ``-1`` table leave the pool byte-identical.
+Slot layout (the static engine and the slot continuous engine):
 
-Layers run as a Python loop; attention goes through
-``kernels.paged_attention.ops.paged_attention`` unless the caller hands
-another function of the same signature in ``attention`` (the plain
-version, for a comparison on the card).
+* :func:`prefill` — a whole prompt at once (monolithic prefill), its
+  attention through the flash kernel on the card; returns the logits and
+  a fresh slot cache;
+* :func:`decode_step` — one token per cache row at per-row positions;
+* :func:`prefill_chunk` — a fixed-size chunk per cache row.
+
+The KV pool is ``{"k", "v"}``, each ``(L, P, bs, Gs, hd)``; the slot cache
+is ``{"k", "v"}``, each ``(L, B, W + 1, Gs, hd)``, plus ``"pos"`` ``(B, W +
+1)`` int32, the absolute position held in each column (-1 = empty). The
+reference keeps one position row per layer; every layer writes the same
+positions, so the port keeps one per cache row. Column ``W`` is a scratch
+column: the reference's writes drop out-of-range slots, where
+``index_put_`` would raise, so queries that must write nothing (parked
+rows, chunk padding) write their k/v there and store position -1, which
+keeps the column invisible — without a host sync.
+
+Every step writes its cache **in place**: PyTorch has no buffer donation,
+so where the reference returns a new cache the port updates the one it
+was given and returns only the logits. Only valid query tokens write
+visible entries: parked rows (negative positions), chunk padding
+(``j >= n_valid``) and, in the paged pool, rows with an all ``-1`` table
+leave them byte-identical.
+
+Layers run as a Python loop. Paged attention goes through
+``kernels.paged_attention.ops.paged_attention``, and monolithic prefill
+on the card through ``kernels.flash_attention.ops.flash_attention``,
+unless the caller hands another function of the same signature in
+``attention`` (the plain version, for a comparison on the card). On the
+CPU, monolithic prefill mirrors the reference: kv repeated, then
+``full_attention`` or, above ``attn_chunk_threshold``,
+``chunked_attention``. Slot decode and slot chunks attend in plain
+PyTorch on both devices, as the reference computes them outside any
+Pallas kernel.
+
+Ring-buffer caches (prompts longer than the cache) arrive with a later
+slice and raise here.
 """
 
 from __future__ import annotations
@@ -29,9 +56,19 @@ from typing import Any, Dict, List
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ServeConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.models import layers as L
+
+#: monolithic prefill calls since the last :func:`reset_counters`; on the
+#: card each launches the flash kernel once per layer
+prefill_calls = 0
+
+
+def reset_counters() -> None:
+    global prefill_calls
+    prefill_calls = 0
 
 
 def kv_store_heads(cfg: ModelConfig, tp: int) -> int:
@@ -76,10 +113,14 @@ def _logits(cfg, params, hidden, compute_dtype):
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
-                     device, dtype) -> Dict[str, torch.Tensor]:
+                     device, dtype, num_rows: int = 0
+                     ) -> Dict[str, torch.Tensor]:
     """Global KV block pool: k/v ``(L, P, bs, Gs, hd)``. Table entry ``i`` of
     a request maps its tokens ``[i*bs, (i+1)*bs)`` onto one pool block
-    shared across all layers, so positions are structural."""
+    shared across all layers, so positions are structural. ``num_rows``
+    sizes the per-row carried-state leaves of the recurrent families; the
+    dense family has none, so it is accepted and unused."""
+    del num_rows
     gs = kv_store_heads(cfg, 1)
     shape = (cfg.num_layers, num_blocks, block_size, gs, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -174,6 +215,202 @@ def prefill_chunk_paged(cfg, params, cache, tokens, block_tables, pos0,
     lengths = (pos0.long() + C).to(torch.int32)
     h = _paged_backbone(cfg, params, x, cache, block_tables, qpos, wvalid,
                         lengths, attention)
+    last = (n_valid.long() - 1).clamp(0, C - 1)
+    hidden = h[torch.arange(B, device=dev), last]
+    return _logits(cfg, params, hidden, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Slot layout: monolithic prefill, slot decode, slot chunk
+# ---------------------------------------------------------------------------
+
+def ring_buffer_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "ring-buffer KV caches (prompts longer than cache_len, "
+        "ServeConfig.ring_buffer) are not ported to PyTorch yet; they "
+        "arrive with the ring-buffer slice of the port")
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device,
+               dtype) -> Dict[str, torch.Tensor]:
+    """Empty slot cache for ``batch`` rows of ``cache_len`` tokens: k/v
+    ``(L, batch, cache_len + 1, Gs, hd)`` zeros (the last column is the
+    scratch column) and pos ``(batch, cache_len + 1)`` int32, all -1."""
+    gs = kv_store_heads(cfg, 1)
+    shape = (cfg.num_layers, batch, cache_len + 1, gs, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((batch, cache_len + 1), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def _attn_branch(cfg, p, xn, positions, is_global, serve: ServeConfig,
+                 attention):
+    """Self-attention of a whole prompt. xn (B,S,d), positions (S,).
+    Returns (out (B,S,d), k, v) with k, v (B,S,Hkv,hd) un-repeated.
+
+    On the card the flash kernel takes the un-repeated k/v (GQA by
+    index); it has no softcap, so a softcapped config raises rather than
+    lose it. On the CPU: kv repeated, then ``full_attention`` or, above
+    ``attn_chunk_threshold``, ``chunked_attention``, as the reference."""
+    q, k, v = L.project_qkv(p, xn, cfg, positions)
+    # per-layer window: 0 disables the window clause on global layers
+    window = ((0 if is_global else cfg.swa_window) if cfg.swa_window > 0
+              else None)
+    if xn.device.type == "cuda":
+        if cfg.logit_softcap > 0:
+            raise NotImplementedError(
+                f"{cfg.name}: logit_softcap={cfg.logit_softcap}, but the "
+                "flash kernel has no softcap (as on the TPU); monolithic "
+                "prefill of a softcapped config is not ported to the card")
+        ctx = attention(q, k, v, causal=True, window=window or 0)
+    else:
+        kf = L.repeat_kv(k, cfg.num_heads)
+        vf = L.repeat_kv(v, cfg.num_heads)
+        if xn.shape[1] > serve.attn_chunk_threshold:
+            ctx = L.chunked_attention(
+                q, kf, vf, q_pos=positions, k_pos=positions, causal=True,
+                window=window, softcap=cfg.logit_softcap,
+                chunk_q=serve.attn_chunk,
+                chunk_k=serve.attn_chunk_kv or serve.attn_chunk)
+        else:
+            ctx = L.full_attention(q, kf, vf, q_pos=positions,
+                                   k_pos=positions, causal=True,
+                                   window=window, softcap=cfg.logit_softcap)
+    return L.attn_output(p, ctx, xn.dtype), k, v
+
+
+def block_forward(cfg, p, x, positions, is_global, serve, attention):
+    """One dense block over a whole sequence: returns (x, k, v)."""
+    a_out, k, v = _attn_branch(cfg, p["attn"],
+                               L.apply_norm(x, p["ln1"], cfg), positions,
+                               is_global, serve, attention)
+    x = x + a_out
+    x = x + L.mlp_apply(p["mlp"], L.apply_norm(x, p["ln2"], cfg), cfg)
+    return x, k, v
+
+
+def backbone(cfg, params, x, positions, serve, cache, attention):
+    """The blocks over x (B,S,d) at ``positions`` (S,), as a loop over
+    layers; layer i's k/v land in ``cache[...][i, :, :S]``. Returns the
+    final-normed hidden states (B,S,d)."""
+    S = x.shape[1]
+    gs = cache["k"].shape[3]
+    h = x
+    for i, (p_l, flag) in enumerate(zip(params["blocks"], layer_flags(cfg))):
+        h, k, v = block_forward(cfg, p_l, h, positions, flag, serve,
+                                attention)
+        cache["k"][i, :, :S] = L.repeat_kv(k, gs).to(cache["k"].dtype)
+        cache["v"][i, :, :S] = L.repeat_kv(v, gs).to(cache["v"].dtype)
+    return L.apply_norm(h, params["final_norm"], cfg)
+
+
+def prefill(cfg, params, tokens, cache_len: int, *, compute_dtype, serve,
+            attention=flash_ops.flash_attention):
+    """Run whole prompts: tokens (B,S) int -> (last-position logits (B,Vp)
+    float32, slot cache of ``cache_len`` tokens holding the prompts)."""
+    global prefill_calls
+    B, S = tokens.shape
+    if S > cache_len:
+        raise ring_buffer_not_ported()
+    dev = tokens.device
+    x = embed_tokens(cfg, params, tokens, compute_dtype)
+    positions = torch.arange(S, device=dev)
+    cache = init_cache(cfg, B, cache_len, device=dev, dtype=compute_dtype)
+    hidden = backbone(cfg, params, x, positions, serve, cache, attention)
+    cache["pos"][:, :S] = positions.to(torch.int32)
+    prefill_calls += 1
+    return _logits(cfg, params, hidden[:, -1], compute_dtype), cache
+
+
+def _masked_group_attention(cfg, p, q, keys, values, okay, out_dtype):
+    """Grouped attention of the cached paths: grouped scores, softcap,
+    additive NEG_INF mask, softmax, context, output projection.
+
+    q (B,C,H,hd); keys/values (B,T,Gs,hd); okay (B,C,T)."""
+    B, C = q.shape[0], q.shape[1]
+    gs = keys.shape[2]
+    R = cfg.num_heads // gs
+    qg = q.reshape(B, C, gs, R, cfg.head_dim)
+    s = torch.einsum("bqgrk,btgk->bgrqt", qg, keys).float()
+    s = s / math.sqrt(cfg.head_dim)
+    if cfg.logit_softcap > 0:
+        s = cfg.logit_softcap * torch.tanh(s / cfg.logit_softcap)
+    bias = torch.where(okay, 0.0, L.NEG_INF).float()
+    s = s + bias[:, None, None]
+    prob = torch.softmax(s, dim=-1).to(out_dtype)
+    ctx = torch.einsum("bgrqt,btgk->bqgrk", prob, values)
+    ctx = ctx.reshape(B, C, cfg.num_heads, cfg.head_dim)
+    return L.attn_output(p, ctx, out_dtype)
+
+
+def _cached_attn(cfg, p, xn, k_cache, v_cache, kpos, qpos, rows, wcol,
+                 is_global):
+    """Attention for query tokens against (and into) one layer's slot
+    cache — the shared core of slot decode and slot chunks.
+
+    xn (B,C,d); k_cache/v_cache (B,W+1,Gs,hd), written in place at
+    ``(rows, wcol)``; kpos (B,W+1) the positions after this step's
+    writes; qpos (B,C) the queries' absolute positions. Queries attend
+    over the whole updated cache, causally masked on the stored
+    positions — earlier chunks of the same prompt are cache entries."""
+    gs = k_cache.shape[2]
+    q, k, v = L.project_qkv(p, xn, cfg, qpos)
+    k_cache[rows, wcol] = L.repeat_kv(k, gs).to(k_cache.dtype)
+    v_cache[rows, wcol] = L.repeat_kv(v, gs).to(v_cache.dtype)
+    kp = kpos[:, None, :]
+    okay = (kp >= 0) & (kp <= qpos[:, :, None])             # (B, C, W+1)
+    if cfg.swa_window > 0 and not is_global:
+        okay = okay & (kp > qpos[:, :, None] - cfg.swa_window)
+    return _masked_group_attention(cfg, p, q, k_cache, v_cache, okay,
+                                   xn.dtype)
+
+
+def _slot_backbone(cfg, params, x, cache, qpos, valid):
+    """The dense blocks over the slot cache (in place). Valid queries
+    write column ``qpos % W`` and store ``qpos``; the others write the
+    scratch column ``W`` and store -1. The position row is shared by the
+    layers, so it is written once, before them."""
+    B = x.shape[0]
+    W = cache["pos"].shape[1] - 1
+    rows = torch.arange(B, device=x.device)[:, None]
+    wcol = torch.where(valid, torch.remainder(qpos, W), W)
+    cache["pos"][rows, wcol] = torch.where(valid, qpos, -1).to(torch.int32)
+    kpos = cache["pos"].long()
+    h = x
+    for i, (p_l, flag) in enumerate(zip(params["blocks"], layer_flags(cfg))):
+        xn = L.apply_norm(h, p_l["ln1"], cfg)
+        h = h + _cached_attn(cfg, p_l["attn"], xn, cache["k"][i],
+                             cache["v"][i], kpos, qpos, rows, wcol, flag)
+        h = h + L.mlp_apply(p_l["mlp"], L.apply_norm(h, p_l["ln2"], cfg), cfg)
+    return L.apply_norm(h, params["final_norm"], cfg)
+
+
+def decode_step(cfg, params, cache, tokens, positions, *, compute_dtype):
+    """Batched one-token decode over a slot cache: tokens (B,1) int,
+    positions (B,) int (one per cache row) -> logits (B,Vp) float32;
+    ``cache`` is updated in place. A negative (parked) position writes
+    nothing visible and yields a garbage row the engine discards."""
+    x = embed_tokens(cfg, params, tokens, compute_dtype)
+    qpos = positions.long()[:, None]                  # (B, 1)
+    h = _slot_backbone(cfg, params, x, cache, qpos, qpos >= 0)
+    return _logits(cfg, params, h[:, 0], compute_dtype)
+
+
+def prefill_chunk(cfg, params, cache, tokens, pos0, n_valid, *,
+                  compute_dtype):
+    """Fixed-shape chunked prompt deposit into slot-cache rows: tokens
+    (B,C) int, pos0 / n_valid (B,) int -> logits at each row's last valid
+    position (B,Vp) float32; ``cache`` is updated in place. Padding
+    positions (``j >= n_valid``) write no visible entry and draw no
+    attention weight from valid queries."""
+    B, C = tokens.shape
+    dev = tokens.device
+    x = embed_tokens(cfg, params, tokens, compute_dtype)
+    j = torch.arange(C, device=dev)[None, :]
+    qpos = pos0.long()[:, None] + j
+    h = _slot_backbone(cfg, params, x, cache, qpos,
+                       j < n_valid.long()[:, None])
     last = (n_valid.long() - 1).clamp(0, C - 1)
     hidden = h[torch.arange(B, device=dev), last]
     return _logits(cfg, params, hidden, compute_dtype)

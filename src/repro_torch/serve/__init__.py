@@ -1,9 +1,10 @@
-"""Serving layer of the port: scheduler, block pool, continuous engine."""
+"""Serving layer of the port: scheduler, slot pool, block pool, static and
+continuous engines."""
 
 from repro_torch.serve.block_pool import BlockPool, PagedKVCache
 from repro_torch.serve.engine import ContinuousEngine, StaticEngine
 from repro_torch.serve.kv_cache import (LeaseLeakError, LeaseLeakWarning,
-                                        SlotError)
+                                        SlotError, SlotKVCache)
 from repro_torch.serve.scheduler import (CellQueueScheduler, ServeRequest,
                                          TraceEntry, latency_stats_over,
                                          make_trace)

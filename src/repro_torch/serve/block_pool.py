@@ -127,7 +127,8 @@ class PagedKVCache:
         self.block_size = int(block_size)
         self.max_blocks_per_req = int(max_blocks_per_req)
         self.pool = BlockPool(num_blocks, block_size)
-        self._buf = model.init_paged_cache(num_blocks, block_size)
+        self._buf = model.init_paged_cache(num_blocks, block_size,
+                                           num_rows=num_slots)
         self._tables = np.full((num_slots, max_blocks_per_req), -1, np.int32)
         self._tables_dev: Optional[torch.Tensor] = None
         self._free_rows: List[int] = list(range(num_slots - 1, -1, -1))

@@ -1,24 +1,44 @@
-"""Continuous-batching engine over the paged KV pool — the port of the
-reference's ``ContinuousEngine(kv_layout="paged")``.
+"""Serving engines of the port: the static-batch baseline and continuous
+batching over the slot pool or the paged KV pool (the reference's
+``serve/engine.py``).
 
-Each host micro-step admits requests from the cell-queue scheduler
-(:mod:`repro_torch.serve.scheduler`) while rows and free blocks allow,
-deposits the next chunk of up to ``max_prefill_per_step`` prompts in one
-fused :func:`prefill_chunk_paged` call (the multi-query paged-attention
-kernel), then advances every decoding row by one token in one
-:func:`decode_step_paged` call (the decode kernel) over all request rows.
-Rows that are free or still prefilling ride along parked (a far-negative
-position): they write nothing to the pool and their logits are dropped.
+``StaticEngine`` prefills a whole batch at once (monolithic prefill; on
+the card its attention is the flash kernel) and decodes every row in
+lockstep until all are done. It stays the parity and throughput
+baseline.
 
-The pool is updated in place by the model's steps. Sampling is greedy
-``argmax``; a request with ``temperature > 0`` draws from its own
-``torch.Generator`` seeded from ``(seed, rid)`` — deterministic within
-the port, not the reference's bits. Each micro-step syncs with the host
-once, to read the sampled tokens.
+``ContinuousEngine`` interleaves prefill and decode micro-steps. Each
+host micro-step admits requests from the cell-queue scheduler
+(:mod:`repro_torch.serve.scheduler`), deposits prompt material, then
+advances every decoding row by one token in one decode call over all
+rows. Two KV layouts:
+
+* ``kv_layout="slot"`` (the default, as in the reference): a fixed pool
+  of per-request slots (:class:`SlotKVCache`). With ``prefill_chunk > 0``
+  prompts stream in chunk by chunk: up to ``max_prefill_per_step``
+  chunk-rows are gathered from their slots, advanced by one fused
+  :func:`prefill_chunk` call and scattered back. With
+  ``prefill_chunk=0`` each admitted prompt is prefilled whole
+  (:func:`prefill`, the flash kernel on the card) and inserted into its
+  slot. Decode is :func:`decode_step` over the whole pool.
+* ``kv_layout="paged"``: a global pool of KV blocks leased through
+  per-request block tables (:class:`PagedKVCache`); admission also gates
+  on free blocks, chunks deposit through the tables
+  (:func:`prefill_chunk_paged`, the multi-query paged-attention kernel)
+  and decode reads through them (:func:`decode_step_paged`, the decode
+  kernel).
+
+Rows that are free or still prefilling ride along in decode parked (a
+far-negative position): they write nothing visible and their logits are
+dropped. The caches are updated in place by the model's steps. Sampling
+is greedy ``argmax``; a request with ``temperature > 0`` draws from its
+own ``torch.Generator`` seeded from ``(seed, rid)`` — deterministic
+within the port, not the reference's bits. Each micro-step syncs with
+the host once, to read the sampled tokens.
 
 Not ported yet, and raising ``NotImplementedError`` naming the slice
-that brings them: the slot layout and ``StaticEngine``, prefix caching,
-speculative decoding, and the serving fabric's prefill/decode roles.
+that brings them: prefix caching, speculative decoding, and the serving
+fabric's prefill/decode roles.
 """
 
 from __future__ import annotations
@@ -32,6 +52,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.serve.block_pool import PagedKVCache
+from repro_torch.serve.kv_cache import SlotKVCache
 from repro_torch.serve.scheduler import CellQueueScheduler, ServeRequest
 
 #: parked decode position: so far below zero that a free or prefilling
@@ -39,17 +60,95 @@ from repro_torch.serve.scheduler import CellQueueScheduler, ServeRequest
 PARK_POS = -(2 ** 30)
 
 
-def _not_ported(what: str, slice_name: str) -> NotImplementedError:
+def not_ported(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet; it arrives with the "
         f"{slice_name} slice of the port")
 
 
-class StaticEngine:
-    """The reference's fixed-batch parity baseline; not ported yet."""
+def _check_device(device, model) -> torch.device:
+    dev = resolve_device(device)
+    if dev != model.device:
+        raise ValueError(f"engine device {dev} != model device "
+                         f"{model.device}")
+    return dev
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("StaticEngine", "static-engine and slot-layout")
+
+def _generator(seed: int, rid: int, temperature: float,
+               device) -> Optional[torch.Generator]:
+    """The row's own sampling generator, seeded from ``(seed, rid)``;
+    None for a greedy row."""
+    if temperature <= 0.0:
+        return None
+    state = np.random.SeedSequence([seed, rid]).generate_state(1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state[0]))
+    return gen
+
+
+def _sample(logits, temps, gens) -> np.ndarray:
+    """Greedy argmax per row; rows with ``temps > 0`` draw from their own
+    generator instead. logits (R, Vp) -> (R,) int64 on the host (the
+    step's one host sync)."""
+    nxt = logits.argmax(dim=-1)
+    for i, t in enumerate(temps):
+        if t > 0.0:
+            probs = torch.softmax(logits[i] / max(float(t), 1e-6), -1)
+            nxt[i] = torch.multinomial(probs, 1, generator=gens[i])[0]
+    return nxt.cpu().numpy()
+
+
+class StaticEngine:
+    """Fixed-batch engine: one prefill, lockstep decode, done-masking."""
+
+    def __init__(self, model, params, cache_len: int, eos_id: int = -1, *,
+                 device="cuda"):
+        self.device = _check_device(device, model)
+        self.model = model
+        self.params = params
+        self.cache_len = int(cache_len)
+        self.eos_id = eos_id
+
+    def generate(self, batch, max_new_tokens: int, *, temperature=0.0,
+                 seed: int = 0) -> np.ndarray:
+        """batch: ``{"tokens": (B, S)}`` prompts of one length. Returns
+        (B, max_new) tokens. Rows finished early emit ``eos_id``; an
+        all-done batch exits the loop. ``temperature`` is a scalar or a
+        per-row (B,) vector; row ``i`` samples from its own generator
+        seeded from ``(seed, i)``. The decode step after the last emitted
+        token, whose logits nothing reads, is not run."""
+        tokens = np.asarray(batch["tokens"])
+        B, prompt_len = tokens.shape
+        temps = np.asarray(temperature, np.float32)
+        if temps.ndim == 0:
+            temps = np.full((B,), float(temps), np.float32)
+        elif temps.shape != (B,):
+            raise ValueError(f"temperature must be scalar or ({B},), got "
+                             f"shape {temps.shape}")
+        dev = self.device
+        gens = [_generator(seed, i, float(t), dev) for i, t in
+                enumerate(temps)]
+        logits, cache = self.model.prefill(
+            self.params, torch.tensor(tokens, device=dev), self.cache_len)
+        fill = self.eos_id if self.eos_id >= 0 else 0
+        out = np.full((B, max_new_tokens), fill, np.int32)
+        done = np.zeros((B,), bool)
+        tok = _sample(logits, temps, gens)
+        for t in range(max_new_tokens):
+            out[:, t] = np.where(done, self.eos_id, tok)
+            if self.eos_id >= 0:
+                done |= out[:, t] == self.eos_id
+                if done.all():
+                    break
+            if t + 1 == max_new_tokens:
+                break
+            pos = torch.full((B,), prompt_len + t, dtype=torch.int64,
+                             device=dev)
+            logits = self.model.decode_step(
+                self.params, cache, torch.as_tensor(tok[:, None]).to(dev),
+                pos)
+            tok = _sample(logits, temps, gens)
+        return out
 
 
 @dataclass(eq=False)      # identity equality: deque.remove must never
@@ -62,8 +161,8 @@ class _PrefillJob:        # field-compare requests (ndarray __eq__ raises)
 
 
 class ContinuousEngine:
-    """Continuous-batching engine: paged-pool decode + cell-queue
-    admission + chunked, batched prefill.
+    """Continuous-batching engine: slot-pool or paged-pool decode +
+    cell-queue admission + chunked, batched (or monolithic) prefill.
 
     ``step(now)`` is one micro-step; drive it from a traffic loop (see
     ``repro_torch.launch.serve``) or use :meth:`generate` for a
@@ -73,29 +172,20 @@ class ContinuousEngine:
                  eos_id: int = -1,
                  scheduler: Optional[CellQueueScheduler] = None,
                  max_prefill_per_step: int = 1, prefill_chunk: int = 64,
-                 kv_layout: str = "paged", block_size: int = 16,
+                 kv_layout: str = "slot", block_size: int = 16,
                  num_blocks: Optional[int] = None, role: str = "full",
                  prefix_cache: bool = False, speculate: int = 0,
                  device="cuda"):
-        dev = resolve_device(device)
-        if dev != model.device:
-            raise ValueError(f"engine device {dev} != model device "
-                             f"{model.device}")
-        if kv_layout == "slot":
-            raise _not_ported("the slot KV layout",
-                              "static-engine and slot-layout")
-        if kv_layout != "paged":
+        dev = _check_device(device, model)
+        if kv_layout not in ("slot", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r} "
                              "(expected 'slot' or 'paged')")
         if role != "full":
-            raise _not_ported(f"role={role!r}", "serving-fabric")
+            raise not_ported(f"role={role!r}", "serving-fabric")
         if prefix_cache:
-            raise _not_ported("prefix caching", "prefix-caching")
+            raise not_ported("prefix caching", "prefix-caching")
         if speculate:
-            raise _not_ported("speculative decoding", "speculative-decoding")
-        if not prefill_chunk:
-            raise ValueError("paged KV deposits prompts chunk-by-chunk; "
-                             "prefill_chunk must be > 0")
+            raise not_ported("speculative decoding", "speculative-decoding")
         self.model = model
         self.params = params
         self.device = dev
@@ -103,19 +193,29 @@ class ContinuousEngine:
         self.eos_id = eos_id
         self.kv_layout = kv_layout
         self.max_prefill_per_step = max(1, int(max_prefill_per_step))
-        self.prefill_chunk = min(int(prefill_chunk), self.cache_len)
-        # equal-HBM default: the token capacity a slot pool would reserve,
-        # repartitioned into leased blocks
-        mbr = -(-self.cache_len // int(block_size))
-        nblocks = (int(num_blocks) if num_blocks
-                   else -(-num_slots * self.cache_len // int(block_size)))
-        self.kv = PagedKVCache(model, num_blocks=nblocks,
-                               block_size=int(block_size),
-                               num_slots=num_slots, max_blocks_per_req=mbr)
+        # 0 = monolithic prefill (slot layout only)
+        self.prefill_chunk = (min(int(prefill_chunk), self.cache_len)
+                              if prefill_chunk else 0)
+        paged = kv_layout == "paged"
+        if paged:
+            if not self.prefill_chunk:
+                raise ValueError("paged KV deposits prompts chunk-by-chunk;"
+                                 " prefill_chunk must be > 0")
+            # equal-HBM default: the token capacity a slot pool would
+            # reserve, repartitioned into leased blocks
+            mbr = -(-self.cache_len // int(block_size))
+            nblocks = (int(num_blocks) if num_blocks
+                       else -(-num_slots * self.cache_len // int(block_size)))
+            self.kv = PagedKVCache(model, num_blocks=nblocks,
+                                   block_size=int(block_size),
+                                   num_slots=num_slots,
+                                   max_blocks_per_req=mbr)
+        else:
+            self.kv = SlotKVCache(model, self.cache_len, num_slots)
         self.scheduler = scheduler or CellQueueScheduler(
             num_cells=4 * num_slots,
             prefill_chunk_bytes=4 * self.prefill_chunk,
-            block_bytes=4 * int(block_size))
+            block_bytes=4 * int(block_size) if paged else 0)
         #: partially-deposited requests, FIFO; each micro-step serves the
         #: first ``max_prefill_per_step`` of them with one fused dispatch
         self._prefilling: Deque[_PrefillJob] = deque()
@@ -135,47 +235,34 @@ class ContinuousEngine:
         self._slot_req: List[Optional[ServeRequest]] = [None] * S
         self._slot_out: List[Optional[np.ndarray]] = [None] * S
 
-    # -- sampling ----------------------------------------------------------
     def _generator(self, req: ServeRequest) -> Optional[torch.Generator]:
-        if req.temperature <= 0.0:
-            return None
-        seed = np.random.SeedSequence([req.seed, req.rid]).generate_state(1)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed[0]))
-        return gen
-
-    @staticmethod
-    def _sample(logits, temps, gens) -> np.ndarray:
-        """Greedy argmax per row; rows with ``temps > 0`` draw from their
-        own generator instead. logits (R, Vp) -> (R,) int64 on the host
-        (the step's one host sync)."""
-        nxt = logits.argmax(dim=-1)
-        for i, t in enumerate(temps):
-            if t > 0.0:
-                probs = torch.softmax(logits[i] / max(float(t), 1e-6), -1)
-                nxt[i] = torch.multinomial(probs, 1, generator=gens[i])[0]
-        return nxt.cpu().numpy()
+        return _generator(req.seed, req.rid, req.temperature, self.device)
 
     # -- request intake ----------------------------------------------------
     def submit(self, req: ServeRequest, now: float = 0.0) -> str:
-        """Queue a request through the cell-queue scheduler. A request
-        whose token budget can never fit its block table or the pool is
-        rejected here, at submit."""
-        budget = self._token_budget(req)
-        cap = self.admittable_tokens
-        if budget > cap:
-            raise ValueError(
-                f"request {req.rid}: prompt+max_new = {budget} tokens "
-                f"exceeds the admittable capacity {cap} (= min(table cap "
-                f"{self.kv.max_blocks_per_req}, pool "
-                f"{self.kv.pool.num_blocks}) blocks x {self.kv.block_size})"
-                "; raise cache_len/num_blocks or lower max_new_tokens")
+        """Queue a request through the cell-queue scheduler. A paged
+        request whose token budget can never fit its block table or the
+        pool is rejected here, at submit."""
+        if self.kv_layout == "paged":
+            budget = self._token_budget(req)
+            cap = self.admittable_tokens
+            if budget > cap:
+                raise ValueError(
+                    f"request {req.rid}: prompt+max_new = {budget} tokens "
+                    f"exceeds the admittable capacity {cap} (= min(table "
+                    f"cap {self.kv.max_blocks_per_req}, pool "
+                    f"{self.kv.pool.num_blocks}) blocks x "
+                    f"{self.kv.block_size}); raise cache_len/num_blocks or "
+                    "lower max_new_tokens")
         return self.scheduler.submit(req, now)
 
     @property
     def admittable_tokens(self) -> int:
-        """Largest token budget one request could ever lease: it must fit
-        both the per-request table and the whole pool."""
+        """Largest token budget one request could ever lease: on the paged
+        layout it must fit both the per-request table and the whole pool;
+        unbounded on the slot layout."""
+        if self.kv_layout != "paged":
+            return 2 ** 31 - 1
         return (min(self.kv.max_blocks_per_req, self.kv.pool.num_blocks)
                 * self.kv.block_size)
 
@@ -195,26 +282,34 @@ class ContinuousEngine:
 
     # -- micro-step --------------------------------------------------------
     def step(self, now: float = 0.0) -> List[ServeRequest]:
-        """One serving micro-step: admit, deposit one chunk for up to
-        ``max_prefill_per_step`` prompts, then advance every decoding row
-        by one token. Returns the requests that finished this step."""
+        """One serving micro-step: deposit prompt material for up to
+        ``max_prefill_per_step`` requests (one chunk each, fused into one
+        dispatch; or, with ``prefill_chunk=0``, whole prompts), then
+        advance every decoding row by one token. Returns the requests
+        that finished this step."""
         finished: List[ServeRequest] = []
-        budget = min(self.kv.num_free,
-                     self.max_prefill_per_step - len(self._prefilling))
-        # second admission gate: a request's whole token budget must fit
-        # in free blocks; admit one at a time so each lease is debited
-        # before the next candidate is gated
-        def can(r):
-            return self.kv.can_admit(self._token_budget(r))
-
-        while budget > 0:
-            admitted = self.scheduler.admit(now, 1, can_admit=can)
-            if not admitted:
-                break
-            self._begin_prefill(admitted[0])
-            budget -= 1
-        if self._prefilling:
-            finished.extend(self._prefill_chunk_step(now))
+        if self.prefill_chunk:
+            budget = min(self.kv.num_free,
+                         self.max_prefill_per_step - len(self._prefilling))
+            # paged: a request's whole token budget must also fit in free
+            # blocks; admit one at a time so each lease is debited before
+            # the next candidate is gated
+            can = ((lambda r: self.kv.can_admit(self._token_budget(r)))
+                   if self.kv_layout == "paged" else None)
+            while budget > 0:
+                admitted = self.scheduler.admit(now, 1, can_admit=can)
+                if not admitted:
+                    break
+                self._begin_prefill(admitted[0])
+                budget -= 1
+            if self._prefilling:
+                finished.extend(self._prefill_chunk_step(now))
+        else:
+            n_admit = min(self.kv.num_free, self.max_prefill_per_step)
+            for req in self.scheduler.admit(now, n_admit):
+                done = self._admit(req, now)
+                if done is not None:
+                    finished.append(done)
         if self.num_decoding:
             finished.extend(self._decode_micro_step(now))
         self._account()
@@ -225,19 +320,25 @@ class ContinuousEngine:
         self.peak_live = max(self.peak_live, live)
         if live:
             self._resident_tok_sum += int(self.kv.lengths.sum())
-            self._reserved_tok_sum += self.kv.resident_capacity_tokens
+            self._reserved_tok_sum += (
+                self.kv.resident_capacity_tokens
+                if self.kv_layout == "paged" else live * self.cache_len)
 
     def kv_accounting(self) -> dict:
-        """HBM-efficiency evidence: total pool bytes, bytes pinned per
+        """HBM-efficiency evidence: total cache bytes, bytes pinned per
         resident token (time-averaged over non-idle steps), and peak
-        concurrent in-flight requests."""
+        concurrent in-flight requests. The slot pool's bytes include its
+        scratch column and position rows; its token capacity is
+        ``num_slots * cache_len``."""
         total = self.kv.kv_bytes
-        per_tok = total / max(1, self.kv.capacity_tokens)
+        cap_tokens = (self.kv.capacity_tokens if self.kv_layout == "paged"
+                      else self.kv.num_slots * self.cache_len)
+        per_tok = total / max(1, cap_tokens)
         resident = max(1, self._resident_tok_sum)
         return {
             "kv_layout": self.kv_layout,
             "kv_bytes_total": float(total),
-            "kv_capacity_tokens": float(self.kv.capacity_tokens),
+            "kv_capacity_tokens": float(cap_tokens),
             "kv_bytes_per_token": per_tok,
             "kv_reserved_over_resident": self._reserved_tok_sum / resident,
             "kv_bytes_per_resident_token":
@@ -245,12 +346,17 @@ class ContinuousEngine:
             "peak_concurrent": float(self.peak_live),
         }
 
-    # -- chunked prompt deposit --------------------------------------------
+    # -- prompt deposit ----------------------------------------------------
     def _begin_prefill(self, req: ServeRequest) -> None:
-        """Lease blocks + a request row and enter ``prefilling``. No
-        blanking: paged masking is structural (a stale page of a block's
-        previous owner is never at a position <= qpos of the new one)."""
-        slot = self.kv.alloc(req, self._token_budget(req))
+        """Claim a slot (blanked: a chunked deposit appends entries) or
+        lease blocks + a request row, and enter ``prefilling``. Paged
+        masking is structural (a stale page of a block's previous owner
+        is never at a position <= qpos of the new one): no blanking."""
+        if self.kv_layout == "paged":
+            slot = self.kv.alloc(req, self._token_budget(req))
+        else:
+            slot = self.kv.alloc(req)
+            self.kv.reset_slot(slot)
         req.state = "prefilling"
         tokens = np.asarray(req.batch["tokens"][0], np.int32)
         self._prefilling.append(_PrefillJob(req=req, slot=slot,
@@ -259,7 +365,9 @@ class ContinuousEngine:
     def _prefill_chunk_step(self, now: float) -> List[ServeRequest]:
         """One fused dispatch: the next chunk of up to
         ``max_prefill_per_step`` prefilling requests, one row each, padded
-        to the chunk length and masked by ``n_valid``."""
+        to the chunk length and masked by ``n_valid``. The slot layout
+        gathers the rows' slots, advances them and scatters them back; the
+        paged layout writes through the block tables."""
         C = self.prefill_chunk
         jobs = list(self._prefilling)[:self.max_prefill_per_step]
         n = len(jobs)
@@ -275,34 +383,60 @@ class ContinuousEngine:
             n_valid[i] = k
             job.req.prefill_chunks += 1
         dev = self.device
-        logits = self.model.prefill_chunk_paged(
-            self.params, self.kv.buffers, torch.as_tensor(tok).to(dev),
-            torch.as_tensor(self.kv.table_rows(slots)).to(dev),
-            torch.as_tensor(pos0).to(dev), torch.as_tensor(n_valid).to(dev))
+        args = (torch.as_tensor(tok).to(dev), torch.as_tensor(pos0).to(dev),
+                torch.as_tensor(n_valid).to(dev))
+        if self.kv_layout == "paged":
+            tables = torch.as_tensor(self.kv.table_rows(slots)).to(dev)
+            logits = self.model.prefill_chunk_paged(
+                self.params, self.kv.buffers, args[0], tables, *args[1:])
+        else:
+            rows = self.kv.rows_at(slots)
+            logits = self.model.prefill_chunk(self.params, rows, *args)
+            self.kv.rows_into(rows, slots)
 
         final = []
         for i, job in enumerate(jobs):
             job.off += int(n_valid[i])
-            self.kv.advance(job.slot, int(n_valid[i]))   # pages appended
+            self.kv.advance(job.slot, int(n_valid[i]))   # entries appended
             if job.off >= len(job.tokens):
                 final.append(i)
         finished: List[ServeRequest] = []
         if not final:
             return finished
         gens = [self._generator(jobs[i].req) for i in final]
-        tok0 = self._sample(logits[final],
-                            [jobs[i].req.temperature for i in final], gens)
+        tok0 = _sample(logits[final], [jobs[i].req.temperature
+                                       for i in final], gens)
         for i, t0, gen in zip(final, tok0, gens):
             job = jobs[i]
             self._prefilling.remove(job)
-            self._tok[job.slot] = int(t0)
-            self._pos[job.slot] = len(job.tokens)        # next decode pos
-            self._temp[job.slot] = job.req.temperature
-            self._gen[job.slot] = gen
-            done = self._install_first_token(job.slot, job.req, int(t0), now)
+            done = self._start_decode(job.slot, job.req, int(t0), gen, now)
             if done is not None:
                 finished.append(done)
         return finished
+
+    def _admit(self, req: ServeRequest, now: float) -> Optional[ServeRequest]:
+        """Monolithic admission (slot layout, ``prefill_chunk=0``): prefill
+        the whole prompt, insert its cache into a fresh slot and sample the
+        first token. Returns the request if it finished at once."""
+        tokens = torch.tensor(np.asarray(req.batch["tokens"]),
+                              device=self.device)
+        logits, cache = self.model.prefill(self.params, tokens,
+                                           self.cache_len)
+        slot = self.kv.alloc(req)
+        self.kv.insert(slot, cache, length=req.prompt_len)
+        gen = self._generator(req)
+        tok0 = int(_sample(logits, [req.temperature], [gen])[0])
+        return self._start_decode(slot, req, tok0, gen, now)
+
+    def _start_decode(self, slot: int, req: ServeRequest, tok0: int, gen,
+                      now: float) -> Optional[ServeRequest]:
+        """Install a freshly-prefilled row's decode state (next token, next
+        position, temperature, generator) and its first token."""
+        self._tok[slot] = tok0
+        self._pos[slot] = req.prompt_len                 # next decode pos
+        self._temp[slot] = req.temperature
+        self._gen[slot] = gen
+        return self._install_first_token(slot, req, tok0, now)
 
     def _install_first_token(self, slot: int, req: ServeRequest, tok0: int,
                              now: float) -> Optional[ServeRequest]:
@@ -322,11 +456,16 @@ class ContinuousEngine:
 
     def _decode_micro_step(self, now: float) -> List[ServeRequest]:
         dev = self.device
-        logits = self.model.decode_step_paged(
-            self.params, self.kv.buffers,
-            torch.as_tensor(self._tok[:, None]).to(dev),
-            torch.as_tensor(self._pos).to(dev), self.kv.tables_device())
-        nxt = self._sample(logits, self._temp, self._gen)
+        tok = torch.as_tensor(self._tok[:, None]).to(dev)
+        pos = torch.as_tensor(self._pos).to(dev)
+        if self.kv_layout == "paged":
+            logits = self.model.decode_step_paged(
+                self.params, self.kv.buffers, tok, pos,
+                self.kv.tables_device())
+        else:
+            logits = self.model.decode_step(self.params, self.kv.buffers,
+                                            tok, pos)
+        nxt = _sample(logits, self._temp, self._gen)
 
         finished: List[ServeRequest] = []
         for slot in self.kv.live_slots:
@@ -386,8 +525,8 @@ class ContinuousEngine:
                                temperature=temperature, seed=seed)
             reqs.append(req)
             self.submit(req, 0.0)
-        chunk_steps = sum(-(-r.prompt_len // self.prefill_chunk) + 1
-                          for r in reqs)
+        chunk_steps = (sum(-(-r.prompt_len // self.prefill_chunk) + 1
+                           for r in reqs) if self.prefill_chunk else B)
         limit = (B * (max_new_tokens + 2)) // max(1, self.kv.num_slots) \
             + B * (max_new_tokens + 2) + chunk_steps
         steps = 0

@@ -35,8 +35,7 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.models.registry import build_model
 from repro_torch.serve import (CellQueueScheduler, ContinuousEngine,
-                               ServeRequest, SlotError, StaticEngine,
-                               make_trace)
+                               ServeRequest, SlotError, make_trace)
 
 ROOT = Path(__file__).resolve().parents[1]
 TRAIN = TrainConfig(param_dtype="float32", compute_dtype="float32",
@@ -106,7 +105,8 @@ def test_engine_token_identical_to_reference(bundles):
     jreqs = _requests(JaxRequest, trace, vocab)
     treqs = _requests(ServeRequest, trace, vocab)
     jeng = JaxEngine(jmodel, jparams, kv_layout="paged", **ENGINE_KW)
-    teng = ContinuousEngine(model, params, device="cpu", **ENGINE_KW)
+    teng = ContinuousEngine(model, params, kv_layout="paged", device="cpu",
+                            **ENGINE_KW)
     jlog, tlog = _drive(jeng, jreqs), _drive(teng, treqs)
     assert len(jlog) == len(tlog)
     for (jt, ja, jf), (tt, ta, tf) in zip(jlog, tlog):
@@ -151,7 +151,7 @@ def test_temperature_is_deterministic_within_the_port(bundles):
     prompt = {"tokens": np.random.default_rng(7).integers(
         0, model.cfg.vocab_size, size=(3, 8)).astype(np.int32)}
     kw = dict(cache_len=24, num_slots=3, prefill_chunk=4, block_size=8,
-              device="cpu")
+              kv_layout="paged", device="cpu")
     a = ContinuousEngine(model, params, **kw).generate(
         prompt, 10, temperature=0.7, seed=3)
     b = ContinuousEngine(model, params, **kw).generate(
@@ -169,7 +169,7 @@ def test_engine_eos_reset_and_capacity(bundles):
     prompt = {"tokens": np.random.default_rng(8).integers(
         0, model.cfg.vocab_size, size=(2, 8)).astype(np.int32)}
     kw = dict(cache_len=40, num_slots=2, prefill_chunk=4, block_size=8,
-              device="cpu")
+              kv_layout="paged", device="cpu")
     ref = ContinuousEngine(model, params, **kw).generate(prompt, 16)
     eos = int(ref[0, 3])
     eng = ContinuousEngine(model, params, eos_id=eos, **kw)
@@ -193,8 +193,8 @@ def test_counts_plain_attention_calls_on_cpu(bundles):
     ops.reset_counters()
     prompt = {"tokens": np.zeros((1, 6), np.int32)}
     ContinuousEngine(model, params, cache_len=16, num_slots=1,
-                     prefill_chunk=4, block_size=4, device="cpu").generate(
-        prompt, 3)
+                     prefill_chunk=4, block_size=4, kv_layout="paged",
+                     device="cpu").generate(prompt, 3)
     L = model.cfg.num_layers
     # 2 chunk dispatches + 2 decode steps, one attention call per layer
     assert ops.counters() == {"decode_launches": 0, "mq_launches": 0,
@@ -204,14 +204,23 @@ def test_counts_plain_attention_calls_on_cpu(bundles):
 def test_unported_paths_raise_naming_the_slice(bundles):
     _, _, model, params = bundles
     kw = dict(cache_len=16, num_slots=1, device="cpu")
-    for extra, what in ((dict(kv_layout="slot"), "slot"),
-                        (dict(prefix_cache=True), "prefix"),
+    for extra, what in ((dict(prefix_cache=True), "prefix"),
                         (dict(speculate=2), "speculative"),
-                        (dict(role="prefill"), "fabric")):
+                        (dict(role="prefill"), "fabric"),
+                        (dict(kv_layout="paged", prefix_cache=True),
+                         "prefix")):
         with pytest.raises(NotImplementedError, match=what):
             ContinuousEngine(model, params, **kw, **extra)
-    with pytest.raises(NotImplementedError, match="slice"):
-        StaticEngine(model, params, cache_len=16)
+    cfg = get_smoke_config("gemma-2b")
+    with pytest.raises(NotImplementedError, match="ring-buffer slice"):
+        build_model(cfg, ServeConfig(param_dtype="float32",
+                                     compute_dtype="float32",
+                                     ring_buffer=True), device="cpu")
+    from repro_torch.launch import serve as launch
+    for flag, what in (("prefix_compare", "prefix"),
+                       ("spec_compare", "speculative")):
+        with pytest.raises(NotImplementedError, match=what):
+            launch.run_traffic(smoke=True, device="cpu", **{flag: True})
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="mamba2"):
         get_config("mamba2-370m")
