@@ -8,8 +8,9 @@ Phases (any failure exits non-zero and prints no result):
 1. Environment: Python, torch and CUDA versions, ``nvcc --version``,
    the card's name and power limit.
 2. Build: every kernel (``src/repro_torch/kernels/*/csrc/*.cu``: both
-   paged-attention kernels and the flash-attention kernel) compiled by
-   nvcc for sm_90a, one nvcc per source, all at once.
+   paged-attention kernels, the flash-attention kernel and both msgq
+   message copies, eager and 1-copy) compiled by nvcc for sm_90a, one
+   nvcc per source, all at once.
 3. Kernels vs their plain versions (``ref.py``) on the card, in float32
    and bfloat16. Paged attention at gemma-2b's head shapes (H=8, Hkv=1,
    hd=256, bs=16) — long decode rows, chunks at pos0 0/64/192, and the
@@ -17,8 +18,8 @@ Phases (any failure exits non-zero and prints no result):
    window and a softcap. Flash attention at the monolithic prefill's
    shapes (B=1 and 8 at S=16 and 256, B=4 at S=256), a ragged length, a
    q_offset continuation, a window, an H = Hkv case and B=1 at S=2048.
-   Each kernel's time (CUDA events, median of 30, L2 flushed before each
-   launch), its bound (bytes this run's data needs over 3.35 TB/s, or
+   Each kernel's time (CUDA events, median of 30, L2 flushed and the
+   card kept busy by a spin before each launch), its bound (bytes this run's data needs over 3.35 TB/s, or
    flops over the peak for the dtype), the plain version's time and the
    time of ``F.scaled_dot_product_attention`` on the same data (pages
    gathered up front, or kv heads repeated up front; a yardstick only,
@@ -37,11 +38,32 @@ Phases (any failure exits non-zero and prints no result):
    counters zeroed just before and read just after; every request must
    finish and every monolithic prefill must launch the flash kernel once
    per layer.
+7. Threadcomm: (a) both msgq kernels against ``ref.py``, bitwise —
+   single messages of 64 B to 4 MiB (bench_p2p's sizes) and ragged ones
+   in f32, bf16 and int32, auto and both forced protocols; rounds of 8
+   ranks (a ring, a partial round), 0 elements to 256 KiB a rank, and
+   the halo exchange's strided planes at 128^3 and 256^3 — then each
+   kernel's time at its path shape (an eager 4 KiB ring round, the
+   1-copy 64 KiB halo round of 128^3) beside its byte bound, the plain
+   version and one ``index_select`` by the inverse permutation, and the
+   host-inclusive time of one 64-byte message.
+   (b) The Comm API on a 2 x 4 threadcomm at 1024 and 65536 f32 a rank:
+   every allreduce schedule, hierarchical and hierarchical_tree against
+   psum (rtol 1e-5), the bf16 wire, barriers, p2p rings, and the
+   ireduce_scatter -> iallreduce -> iallgather pipeline on a "grad" CUDA
+   stream, each with the msgq launches its schedule implies. (c) The
+   PETSc case study: the slab-decomposed 27-point MatMult at 128^3 and
+   256^3 on 8 unified ranks against the single-rank oracle (max abs err
+   <= 1e-4 x max|y|, two 1-copy launches each) and CG(10) at 128^3
+   against ``cg_solve_ref`` (max |x - x_ref| <= 1e-3). The msgq counters
+   are zeroed just before (b); the path's launches are the sum of each
+   call's own, read around it.
 
 The last lines are the kernel table (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import shutil
 import statistics
@@ -59,6 +81,7 @@ SRC = ROOT / "src"
 CU_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FLASH_SOURCE = \
     "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+MSGQ_SOURCE = "src/repro_torch/kernels/msgq/csrc/msgq.cu"
 TPU_KERNELS = {
     "paged_decode":
         "src/repro/kernels/paged_attention/paged_attention.py:57",
@@ -66,6 +89,8 @@ TPU_KERNELS = {
         "src/repro/kernels/paged_attention/paged_attention.py:113",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:29",
+    "msgq_eager": "src/repro/kernels/msgq/msgq.py:27",
+    "msgq_one_copy": "src/repro/kernels/msgq/msgq.py:34",
 }
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -105,10 +130,17 @@ def run(cmd):
 # timing
 # ---------------------------------------------------------------------------
 
+#: GPU clock cycles of the spin before each timed call: ~0.25 ms at the
+#: H100's 1.98 GHz boost clock
+SPIN_CYCLES = 500_000
+
+
 class Timer:
-    """Median CUDA-event time of one call, with the L2 flushed before each
-    (a 256 MB memset, which also covers the call's host-side launch
-    cost so the events time the device work)."""
+    """Median CUDA-event time of one call's device work. Before each call
+    the L2 is flushed (a 256 MB memset) and a spin kernel keeps the card
+    busy, so the call's host-side cost (~0.05-0.1 ms for a message round
+    of the comm layer, more than the memset takes) is spent while the
+    card is busy and the events time the device work only."""
 
     def __init__(self, dev):
         self.flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
@@ -120,6 +152,7 @@ class Timer:
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -730,6 +763,430 @@ def phase_engines():
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the threadcomm layer — msgq kernels, collectives, PETSc
+# ---------------------------------------------------------------------------
+
+#: bench_p2p's message sizes, bytes (``benchmarks/bench_p2p.py:18``)
+P2P_SIZES = [64, 256, 1024, 4096, 16384, 65536, 1 << 20, 1 << 22]
+#: the unified rank space of phase 7: 2 processes x 4 threads
+MESH = ((2, 4), ("proc", "thread"))
+#: CG iterations of the PETSc phase (``examples/spmv_petsc.py``'s default)
+CG_ITERS = 10
+
+
+def as_bytes(t):
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def bitwise(a, b) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(as_bytes(a), as_bytes(b)))
+
+
+def message(g, shape, dtype, dev):
+    if dtype == torch.int32:
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                             dtype=torch.int32).to(dev)
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, shape, generator=g,
+                             dtype=torch.uint8).to(dev)
+    return torch.randn(shape, generator=g).to(dev, dtype)
+
+
+def msgq_delta(before, after):
+    return (after["eager_launches"] - before["eager_launches"],
+            after["one_copy_launches"] - before["one_copy_launches"])
+
+
+def on_path(path, fn):
+    """Run one call of the threadcomm path: add the msgq launches and plain
+    calls it made to ``path``, and return its output with its (eager,
+    1-copy) launches. Timing loops and plain-path comparisons run outside
+    it and so stay out of the path's count."""
+    from repro_torch.kernels.msgq import ops as mq
+    before = mq.counters()
+    out = fn()
+    after = mq.counters()
+    for k in path:
+        path[k] += after[k] - before[k]
+    return out, msgq_delta(before, after)
+
+
+def host_ms(fn, iters: int = 10) -> float:
+    """Median host-inclusive time of one call that ends synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def held_to_ref(errs, name, out, ref, what):
+    """Hold one copy of kernel ``name`` to ref.py bitwise, and keep the
+    largest |out - ref| in ``errs[name]`` for the kernels line."""
+    err = 0.0
+    if out.shape == ref.shape and out.numel():
+        err = float((out.double() - ref.double()).abs().max())
+    errs[name] = max(errs[name], err)
+    require(bitwise(out, ref), f"{what}: differs from ref.py (max abs err "
+            f"{err:.3e})")
+
+
+#: the kernel a protocol launches, by ``ops.is_eager``
+KERNEL = {True: "msgq_eager", False: "msgq_one_copy"}
+
+
+def phase_msgq(dev, timer):
+    """7a: both msgq kernels against the plain version, bitwise, then
+    their times at the path shapes and the host-inclusive latency of one
+    64-byte message."""
+    from repro_torch.core import protocol
+    from repro_torch.kernels.msgq import ops as mq
+    from repro_torch.kernels.msgq.ref import msgq_copy_ref, msgq_round_ref
+
+    g = torch.Generator().manual_seed(7)
+    errs = {"msgq_eager": 0.0, "msgq_one_copy": 0.0}
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        item = torch.empty((), dtype=dtype).element_size()
+        for n in [s // item for s in P2P_SIZES] + [17, 5000]:
+            for force in (None, "eager", "one_copy"):
+                msg = message(g, (n,), dtype, dev)
+                before = mq.counters()
+                out, proto = mq.msgq_copy(msg, force_protocol=force)
+                want = force or protocol.select_protocol(
+                    n * item, cell=1024 * item)
+                eager = mq.is_eager(want)
+                require(proto == want, f"msgq_copy {n} x {dtype}: protocol "
+                        f"{proto}, the reference picks {want}")
+                require(msgq_delta(before, mq.counters())
+                        == ((1, 0) if eager else (0, 1)),
+                        f"msgq_copy {n} x {dtype} {proto}: launches")
+                torch.cuda.synchronize()
+                held_to_ref(errs, KERNEL[eager], out, msgq_copy_ref(msg),
+                            f"msgq_copy {n} x {dtype} {proto}")
+                checked += 1
+    msg = message(g, (7, 33, 5), torch.float32, dev)
+    out, proto = mq.msgq_copy(msg)
+    held_to_ref(errs, KERNEL[mq.is_eager(proto)], out, msgq_copy_ref(msg),
+                "msgq_copy (7, 33, 5)")
+    print(f"check msgq_copy: {checked + 1} messages of {P2P_SIZES[0]} B to "
+          f"{P2P_SIZES[-1]} B, ragged 17 and 5000, f32/bf16/int32, auto "
+          "and both forced protocols: bitwise equal to ref.py", flush=True)
+
+    R = 8
+    ring = [(i, (i + 1) % R) for i in range(R)]
+    partial = [(0, 3), (5, 1), (2, 2), (7, 0)]      # 4-7 receive nothing
+    rounds = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.uint8):
+        for shape in ((R,), (R, 0), (R, 3), (R, 17), (R, 1024), (R, 5000),
+                      (R, 16384), (R, 65536)):
+            x = message(g, shape, dtype, dev)
+            for pairs in (ring, partial):
+                for proto in ("eager", "one_copy"):
+                    out = mq.msgq_round(x, pairs, proto=proto)
+                    torch.cuda.synchronize()
+                    require(out.data_ptr() != x.data_ptr() or x.numel() == 0,
+                            "msgq_round wrote into its input")
+                    held_to_ref(errs, KERNEL[mq.is_eager(proto)], out,
+                                msgq_round_ref(x, pairs),
+                                f"msgq_round {shape} {dtype} {proto}")
+                    rounds += 1
+    # strided slabs: the halo exchange's boundary planes, read in place
+    # (MatMult's at 128^3 and 256^3)
+    for shape in ((R, 4, 33, 7), (R, 16, 128, 128), (R, 16, 256, 256)):
+        x = message(g, shape, torch.float32, dev)
+        for edge in (x[:, :1], x[:, -1:]):
+            for proto in ("eager", "one_copy"):
+                out = mq.msgq_round(edge, ring, proto=proto)
+                torch.cuda.synchronize()
+                held_to_ref(errs, KERNEL[mq.is_eager(proto)], out,
+                            msgq_round_ref(edge, ring),
+                            f"msgq_round strided edge of {shape} {proto}")
+                rounds += 1
+    print(f"check msgq_round: {rounds} rounds of 8 ranks (a ring and a "
+          "partial round; 0 to 256 KiB a rank; f32/bf16/int32/uint8; "
+          "strided halo planes of 128^3 and 256^3), both kernels: bitwise "
+          f"equal to ref.py (max abs err {json.dumps(errs)})", flush=True)
+
+    rows = {}
+    eager_x = message(g, (R, 1024), torch.float32, dev)
+    halo = message(g, (R, 16, 128, 128), torch.float32, dev)[:, -1:]
+    # the ring as one gather: out[d] = x[inverse[d]]
+    inverse = torch.tensor([s for s, _ in sorted(ring, key=lambda p: p[1])],
+                           device=dev)
+    for name, label, x, proto in (
+            ("msgq_eager", "4 KiB ring round, 8 ranks", eager_x,
+             "eager_fast"),
+            ("msgq_one_copy", "64 KiB halo round (128^3), 8 ranks", halo,
+             "one_copy")):
+        nbytes = 2 * x.shape[0] * x[0].numel() * x.element_size()
+        row = {"name": name, "route": "cuda", "source": MSGQ_SOURCE,
+               "replaces": TPU_KERNELS[name], "launches": 0,
+               "max_abs_err": errs[name], "shape": label,
+               "dtype": "float32",
+               "ms": timer.ms(lambda: mq.msgq_round(x, ring, proto=proto)),
+               "plain_ms": timer.ms(lambda: msgq_round_ref(x, ring)),
+               "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+               "bound_by": "bytes", "bound_bytes": nbytes,
+               "library_ms": timer.ms(lambda: x.index_select(0, inverse))}
+        rows[name] = row
+        print(f"time  {name:13s} {label:34s} ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.6f} (bytes: {nbytes})",
+              flush=True)
+    # the two protocols side by side (Fig. 3's bandwidth end included)
+    big = message(g, (1, 1 << 20), torch.float32, dev)         # 4 MiB
+    for label, x, pairs in (("4 KiB ring round", eager_x, ring),
+                            ("64 KiB halo round", halo, ring),
+                            ("4 MiB message", big, [(0, 0)])):
+        nbytes = 2 * x.shape[0] * x[0].numel() * x.element_size()
+        line = []
+        for proto in ("eager", "one_copy"):
+            ms = timer.ms(lambda: mq.msgq_round(x, pairs, proto=proto))
+            line.append(f"{proto} {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)")
+        print(f"time  protocols at {label}: " + ", ".join(line), flush=True)
+
+    one = message(g, (1, 16), torch.float32, dev)       # a 64-byte message
+    latency = {}
+    for proto in ("eager_fast", "one_copy"):
+        latency[proto] = host_ms(
+            lambda: mq.msgq_round(one, [(0, 0)], proto=proto), iters=200)
+    n = 1000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        mq.msgq_round(one, [(0, 0)], proto="eager_fast")
+    torch.cuda.synchronize()
+    per_call_us = 1e6 * (time.perf_counter() - t0) / n
+    rows["msgq_eager"]["latency_64B_ms"] = latency["eager_fast"]
+    rows["msgq_one_copy"]["latency_64B_ms"] = latency["one_copy"]
+    rows["msgq_eager"]["back_to_back_64B_us"] = per_call_us
+    print(f"time  64 B message, host-inclusive (call + synchronize, median "
+          f"of 200): eager {1e3 * latency['eager_fast']:.2f} us, 1-copy "
+          f"{1e3 * latency['one_copy']:.2f} us; back to back (1000 calls, "
+          f"one synchronize): {per_call_us:.2f} us a call", flush=True)
+    model = protocol.DeviceModel()
+    for name, x, proto in (("msgq_eager", eager_x, "eager_fast"),
+                           ("msgq_one_copy", halo, "one_copy")):
+        nbytes = x.shape[0] * x[0].numel() * x.element_size()
+        t = (protocol.staged_copy_time if name == "msgq_eager"
+             else protocol.direct_copy_time)(nbytes, model)
+        got = host_ms(lambda: mq.msgq_round(x, ring, proto=proto), iters=50)
+        rows[name]["host_inclusive_ms"] = got
+        print(f"model {name:13s} {rows[name]['shape']}: DeviceModel "
+              f"{1e3 * t:.4f} ms, measured host-inclusive {got:.4f} ms "
+              f"(call + synchronize, median of 50)", flush=True)
+    return rows
+
+
+def phase_collectives(dev, path):
+    """7b: the Comm API's collectives on a 2 x 4 threadcomm, each against
+    psum (rtol 1e-5) and each with the msgq launches it implies."""
+    from repro_torch.core import threadcomm_init
+    from repro_torch.core.compat import make_mesh
+
+    tc = threadcomm_init(make_mesh(*MESH), process_axes=("proc",),
+                         thread_axes=("thread",), num_threads=4)
+    cpu = threadcomm_init(make_mesh(*MESH, device="cpu"),
+                          process_axes=("proc",), thread_axes=("thread",))
+    g = torch.Generator().manual_seed(11)
+    times = {}
+    with tc.start(), cpu.start():
+        tcm, pcm = tc.thread_comm(), tc.process_comm()
+        ring = [(i, (i + 1) % tc.size) for i in range(tc.size)]
+        tring = [(i, (i + 1) % 4) for i in range(4)]
+        for nelem in (1024, 65536):
+            x = torch.rand(tc.size, nelem, generator=g).to(dev)
+            want = x.sum(0, keepdim=True).expand(tc.size, nelem)
+            top = (x[:, 0] + torch.arange(tc.size, device=dev)).max().expand(
+                tc.size, 1)
+            small = nelem * 4 <= 4096
+            k = (lambda n: (n, 0)) if small else (lambda n: (0, n))
+            chunk = (lambda n: (n, 0)) if nelem // 8 * 4 <= 4096 else \
+                (lambda n: (0, n))
+            # (label, op on a comm, msgq launches (eager, 1-copy), the
+            # expected result; None: the same op on the CPU's plain path)
+            cases = [
+                ("allreduce psum", lambda c, v: c.allreduce(v), (0, 0), want),
+                ("allreduce recursive_doubling", lambda c, v: c.allreduce(
+                    v, schedule="recursive_doubling"), k(3), want),
+                ("allreduce ring", lambda c, v: c.allreduce(
+                    v, schedule="ring"), chunk(14), want),
+                ("allreduce reduce_bcast", lambda c, v: c.allreduce(
+                    v, schedule="reduce_bcast"), k(6), want),
+                ("allreduce hierarchical", lambda c, v: c.allreduce(
+                    v, schedule="hierarchical"), (0, 0), want),
+                ("allreduce hierarchical_tree", lambda c, v: c.allreduce(
+                    v, schedule="hierarchical_tree"), k(4), want),
+                ("allreduce wire bf16", lambda c, v: c.allreduce(
+                    v, wire_dtype="bfloat16"),
+                 (3, 0) if nelem * 2 <= 4096 else (0, 3), None),
+                ("barrier msg", lambda c, v: c.barrier(
+                    v[:, 0, 0] + c.device_rank())[:, None, None], (3, 0),
+                 top),
+                ("barrier atomic", lambda c, v: c.barrier(
+                    v[:, 0, 0] + c.device_rank(),
+                    mode="atomic")[:, None, None], (0, 0), top),
+                ("send_recv ring (root)", lambda c, v: c.send_recv(v, ring),
+                 k(1), torch.roll(x, 1, 0)),
+                ("send_recv thread ring", lambda c, v:
+                 c.thread_comm().send_recv(v, tring), k(1),
+                 torch.cat([torch.roll(x[:4], 1, 0),
+                            torch.roll(x[4:], 1, 0)])),
+                ("send_recv forced eager", lambda c, v: c.send_recv(
+                    v, ring, force_protocol="eager"), (1, 0),
+                 torch.roll(x, 1, 0)),
+                ("send_recv forced one_copy", lambda c, v: c.send_recv(
+                    v, ring, force_protocol="one_copy"), (0, 1),
+                 torch.roll(x, 1, 0)),
+            ]
+            for label, op, launches, ref in cases:
+                fn = functools.partial(op, tc)
+                out, got = on_path(path, lambda: tc.run(fn, x))
+                torch.cuda.synchronize()
+                require(got == launches, f"{label} ({nelem}): msgq launches "
+                        f"(eager, 1-copy) {got}, the schedule implies "
+                        f"{launches}")
+                if ref is None:
+                    ref = cpu.run(functools.partial(op, cpu),
+                                  x.cpu()).to(dev)
+                require(bool(torch.allclose(out, ref, rtol=1e-5, atol=0)),
+                        f"{label} ({nelem}): disagrees with its reference "
+                        f"(max abs err {float((out - ref).abs().max()):.3e})")
+                times[f"{label} {nelem}"] = host_ms(lambda: tc.run(fn, x))
+                print(f"check collective {label:30s} {nelem * 4:7d} B/rank "
+                      f"msgq (eager, 1-copy) {got}: ok, "
+                      f"{times[f'{label} {nelem}']:.4f} ms", flush=True)
+
+            def pipeline(v):                    # v: (R, 1, nelem)
+                with tc.stream("grad") as s:
+                    r1 = tcm.ireduce_scatter(v.reshape(v.shape[0], -1))
+                    r2 = pcm.iallreduce(r1.wait(),
+                                        schedule="recursive_doubling")
+                    full = tcm.iallgather(r2.wait()).wait()
+                    require(len(s._requests) == 3 and s._cuda is not None
+                            and torch.cuda.current_stream() == s._cuda,
+                            "the requests did not run on the grad stream's "
+                            "CUDA stream")
+                return full.reshape(v.shape)
+
+            out, got = on_path(path, lambda: tc.run(pipeline, x))
+            shard = nelem // 4 * 4
+            require(got == ((1, 0) if shard <= 4096 else (0, 1)),
+                    f"stream pipeline ({nelem}): msgq launches {got}")
+            ok = bool(torch.allclose(out, want, rtol=1e-5, atol=0))
+            require(ok, f"stream pipeline ({nelem}): disagrees with psum")
+            times[f"stream pipeline {nelem}"] = host_ms(
+                lambda: tc.run(pipeline, x))
+            print(f"check collective {'ireduce_scatter>iallreduce>'
+                                      'iallgather on a grad CUDA stream':30s}"
+                  f" {nelem * 4:7d} B/rank msgq {got}: ok, "
+                  f"{times[f'stream pipeline {nelem}']:.4f} ms", flush=True)
+    tc.free()
+    cpu.free()
+    return times
+
+
+def phase_petsc(dev, path):
+    """7c: the PETSc case study — threadcomm_init over 2 x 4, the
+    slab-decomposed 27-point MatMult at 128^3 and 256^3 against the
+    single-rank oracle, and CG(10) at 128^3 against cg_solve_ref."""
+    from repro_torch.apps import spmv
+    from repro_torch.core import threadcomm_init
+    from repro_torch.core.compat import P, make_mesh
+
+    tc = threadcomm_init(make_mesh(*MESH), process_axes=("proc",),
+                         thread_axes=("thread",))
+    axes, ranks = tc.unified_axes, tc.size
+    g = torch.Generator().manual_seed(0)
+    res = {}
+    with tc.start():
+        matmult = spmv.make_distributed_matmult(axes, ranks)
+        for n in (128, 256):
+            b = torch.randn(n, n, n, generator=g).to(dev)
+            y, got = on_path(path, lambda: tc.run(matmult, b))
+            ref = spmv.stencil_matmult_ref(b)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            scale = float(ref.abs().max())
+            require(bool(torch.isfinite(y).all()) and y.shape == b.shape,
+                    f"MatMult {n}^3: bad output")
+            require(got == (0, 2), f"MatMult {n}^3: msgq launches (eager, "
+                    f"1-copy) {got}, expected (0, 2)")
+            require(err <= 1e-4 * scale, f"MatMult {n}^3: max abs err "
+                    f"{err:.3e} > 1e-4 x {scale:.3e}")
+            ms = host_ms(lambda: tc.run(matmult, b))
+            ref_ms = host_ms(lambda: spmv.stencil_matmult_ref(b))
+            res[f"matmult_{n}"] = {"ms": ms, "oracle_ms": ref_ms,
+                                   "max_abs_err": err, "max_abs_y": scale}
+            print(f"check petsc MatMult {n}^3 on {ranks} unified ranks: max "
+                  f"abs err {err:.3e} (tol {1e-4 * scale:.3e}), msgq "
+                  f"{got}: ok; {ms:.4f} ms (single-rank oracle "
+                  f"{ref_ms:.4f} ms)", flush=True)
+
+        b = torch.randn(128, 128, 128, generator=g).to(dev)
+        cg = spmv.make_distributed_cg(axes, ranks, CG_ITERS)
+        (x, hist), got = on_path(
+            path, lambda: tc.run(cg, b, out_specs=(P(axes), P())))
+        x_ref = spmv.cg_solve_ref(b, iters=CG_ITERS)
+        torch.cuda.synchronize()
+        err = float((x - x_ref).abs().max())
+        require(got == (0, 2 * (CG_ITERS + 1)),
+                f"CG: msgq launches {got}, expected 2 per MatMult")
+        require(bool(torch.isfinite(x).all()) and err <= 1e-3,
+                f"CG({CG_ITERS}) 128^3: max |x - x_ref| = {err:.3e}")
+        ms = host_ms(lambda: tc.run(cg, b, out_specs=(P(axes), P())),
+                     iters=5)
+        ref_ms = host_ms(lambda: spmv.cg_solve_ref(b, iters=CG_ITERS),
+                         iters=5)
+        history = [float(v) for v in hist.cpu()]
+        res["cg_128"] = {"ms": ms, "oracle_ms": ref_ms, "max_abs_err": err,
+                         "residual_history": history}
+        print(f"check petsc CG({CG_ITERS}) 128^3 on {ranks} unified ranks: "
+              f"max |x - x_ref| = {err:.3e} (tol 1e-3), msgq {got}: ok; "
+              f"{ms:.4f} ms (single-rank oracle {ref_ms:.4f} ms)",
+              flush=True)
+        print("petsc CG residual history: "
+              + ", ".join(f"{v:.6e}" for v in history), flush=True)
+    tc.free()
+    return res
+
+
+def phase_threadcomm(dev):
+    """Phase 7: kernels against their plain versions (7a), then the
+    threadcomm path (7b collectives, 7c PETSc) with the msgq counters
+    zeroed just before; the path's launches are the sum of each call's own
+    (``on_path``), so its timing loops and plain-path comparisons stay
+    out."""
+    from repro_torch.kernels.msgq import ops as mq
+
+    timer = Timer(dev)
+    rows = phase_msgq(dev, timer)
+    del timer
+    torch.cuda.empty_cache()
+    mq.reset_counters()
+    path = dict.fromkeys(mq.counters(), 0)
+    collectives = phase_collectives(dev, path)
+    petsc = phase_petsc(dev, path)
+    require(path["eager_launches"] > 0, "msgq_eager never launched")
+    require(path["one_copy_launches"] > 0, "msgq_one_copy never launched")
+    require(path["ref_calls"] == 0,
+            f"plain msgq ran {path['ref_calls']} times on the card")
+    rows["msgq_eager"]["launches"] = path["eager_launches"]
+    rows["msgq_one_copy"]["launches"] = path["one_copy_launches"]
+    print("threadcomm kernels on the path: " + json.dumps(path), flush=True)
+    print("threadcomm: " + json.dumps({"collectives_ms": collectives,
+                                       "petsc": petsc}), flush=True)
+    return rows
+
+
 def main() -> None:
     require((SRC / "repro_torch").is_dir(),
             "src/repro_torch not found: run from the root of a checkout")
@@ -766,6 +1223,8 @@ def main() -> None:
     _, serve_counts = phase_serve()
     torch.cuda.empty_cache()
     _, counts = phase_engines()
+    torch.cuda.empty_cache()
+    table.update(phase_threadcomm(dev))
 
     # launches: the --engine both run, which drives all three kernels;
     # the paged serve phase's own counts stand beside them

@@ -1,13 +1,16 @@
 """Message-protocol model: eager / 1-copy (paper §3.2, Fig. 3) — the
-port's copy of the host-side part of ``src/repro/core/protocol.py``.
+port's copy of ``src/repro/core/protocol.py``.
 
 The paper's interthread messaging picks a protocol by message size:
 eager (<= 4 KiB) copies into a bounded shared cell and out again (2
 copies), with a fast path that skips the request object for single-cell
 messages; 1-copy (> 4 KiB) has the receiver copy straight from the
-sender's buffer. This alpha-beta model prices the serving scheduler's
-admissions. Its constants are the paper's host numbers; a device model
-for the card comes with the msgq kernel's slice of the port.
+sender's buffer. The host half (``HostModel``) is an alpha-beta model
+with the paper's host numbers; it prices the serving scheduler's
+admissions and the comm layer's requests. The device half
+(``DeviceModel``) prices the two message copies of
+``kernels/msgq`` on the card: a shared-memory cell per CTA (eager) or a
+direct global-to-global copy (1-copy), with the card's constants.
 """
 
 from __future__ import annotations
@@ -40,6 +43,30 @@ class HostModel:
     t_handshake: float = 25e-8    # rndv/1-copy header + ack round trip
     t_map: float = 0.0            # address mapping (0 between threads)
     bw_copy: float = 12e9         # single-core memcpy bandwidth
+    cell: int = DEFAULT_CELL_SIZE
+
+
+@dataclass(frozen=True)
+class DeviceModel:
+    """The msgq copies on one card (the counterpart of the reference's
+    TPU model). Both copies read each byte from device memory once and
+    write it once; the eager copy also passes it through a shared-memory
+    cell and back, on chip. One launch moves a whole round, every cell or
+    block in parallel, so the issue time is paid once per message round,
+    not once per cell."""
+    #: host-inclusive time of one 64-byte message on the eager protocol
+    #: (call + synchronize, median of 200), as ``chip_smoke.py`` phase 7a
+    #: prints it on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit:
+    #: the median of three runs that read 44.50, 51.50 and 67.77 us. The
+    #: host's load moves it between runs; Python and the launch make
+    #: nearly all of it.
+    t_issue: float = 51.50e-6
+    #: device-memory bandwidth, H100 SXM data sheet
+    bw_hbm: float = 3.35e12
+    #: shared-memory bandwidth of the whole card: 132 SMs x 128 bytes a
+    #: clock x 1.98 GHz boost (data sheet figures, not measured)
+    bw_smem: float = 132 * 128 * 1.98e9
+    #: the eager protocol's shared-memory cell (one per CTA)
     cell: int = DEFAULT_CELL_SIZE
 
 
@@ -94,3 +121,36 @@ def paged_admission_latency(nbytes: int, chunk_bytes: int, block_bytes: int,
     nblocks = max(1, -(-nbytes // block_bytes))
     return (chunked_handoff_latency(nbytes, chunk_bytes, m)
             + nblocks * m.t_envelope * 0.25)
+
+
+def interprocess_latency(nbytes: int, m: HostModel = HostModel()) -> float:
+    """MPI-everywhere shared-memory messaging (eager / rndv, always 2-copy)."""
+    if nbytes <= EAGER_THRESHOLD_INTERPROCESS:
+        ncells = -(-nbytes // m.cell)
+        return (m.t_envelope + m.t_request + 2 * nbytes / m.bw_copy
+                + (ncells - 1) * m.t_envelope * 0.25)
+    return (m.t_envelope + m.t_request + m.t_handshake
+            + 2 * nbytes / m.bw_copy)
+
+
+def request_overhead(nbytes: int, proto: Optional[str] = None,
+                     m: HostModel = HostModel()) -> float:
+    """Request-object cost (seconds) of a nonblocking op: the eager fast
+    path for single-cell messages skips request allocation (§3.2)."""
+    proto = validate_protocol(proto) if proto else select_protocol(nbytes)
+    return 0.0 if proto == "eager_fast" else m.t_request
+
+
+def bandwidth(nbytes: int, latency_s: float) -> float:
+    return nbytes / latency_s
+
+
+def staged_copy_time(nbytes: int, m: DeviceModel = DeviceModel()) -> float:
+    """Eager copy on the card: device memory -> shared-memory cell ->
+    device memory, one launch for the whole message."""
+    return m.t_issue + 2 * nbytes / m.bw_hbm + 2 * nbytes / m.bw_smem
+
+
+def direct_copy_time(nbytes: int, m: DeviceModel = DeviceModel()) -> float:
+    """1-copy on the card: a direct global-to-global copy."""
+    return m.t_issue + 2 * nbytes / m.bw_hbm
