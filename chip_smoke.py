@@ -8,16 +8,20 @@ Phases (any failure exits non-zero and prints no result):
 1. Environment: Python, torch and CUDA versions, ``nvcc --version``,
    the card's name and power limit.
 2. Build: every kernel (``src/repro_torch/kernels/*/csrc/*.cu``: both
-   paged-attention kernels, the flash-attention kernel and both msgq
-   message copies, eager and 1-copy) compiled by nvcc for sm_90a, one
-   nvcc per source, all at once.
+   paged-attention kernels, the flash-attention kernel, both msgq
+   message copies, eager and 1-copy, and the SSD chunk scan) compiled by
+   nvcc for sm_90a, one nvcc per source, all at once.
 3. Kernels vs their plain versions (``ref.py``) on the card, in float32
    and bfloat16. Paged attention at gemma-2b's head shapes (H=8, Hkv=1,
    hd=256, bs=16) — long decode rows, chunks at pos0 0/64/192, and the
    serve phase's own batch and table widths — plus a GQA case with a
-   window and a softcap. Flash attention at the monolithic prefill's
-   shapes (B=1 and 8 at S=16 and 256, B=4 at S=256), a ragged length, a
-   q_offset continuation, a window, an H = Hkv case and B=1 at S=2048.
+   window and a softcap, and hymba-1.5b's head shapes (H=25, Hkv=5,
+   hd=64) at the serve phase's decode batch (8) and chunk (2 x 128) with
+   its 2048 window and without it (global layers), and past the window.
+   Flash attention at the monolithic prefill's shapes (B=1 and 8 at S=16
+   and 256, B=4 at S=256), a ragged length, a q_offset continuation, a
+   window, an H = Hkv case and B=1 at S=2048; then hymba's prefill (B=4
+   and 8 at S=256, window 2048 and a global layer) and past its window.
    Each kernel's time (CUDA events, median of 30, L2 flushed and the
    card kept busy by a spin before each launch), its bound (bytes this run's data needs over 3.35 TB/s, or
    flops over the peak for the dtype), the plain version's time and the
@@ -58,6 +62,33 @@ Phases (any failure exits non-zero and prints no result):
    against ``cg_solve_ref`` (max |x - x_ref| <= 1e-3). The msgq counters
    are zeroed just before (b); the path's launches are the sum of each
    call's own, read around it.
+8. The SSM and hybrid families (mamba2-370m, hymba-1.5b). (a) The SSD
+   scan kernel against its plain versions (``ssd_chunked_scan``, the
+   model path's chunked algorithm, and ``ssd_scan_ref``, the sequential
+   recurrence) in float32 and with bfloat16 x: mamba2's heads (H=32,
+   p=64, n=128) at S=128/256 and B=1/2/8, hymba's (H=50, p=64, n=16) at
+   B=2 S=256, a ragged S=200 and a seeded initial state, every case on
+   the chunk grid l=128 with the model's strided views; one call over 256
+   tokens against two calls over 128 + 128 threaded through the state,
+   bitwise; the kernel's time at the path shape (a mamba2 chunk dispatch:
+   B=2, S=128, with a carried state) beside its bound, the plain
+   version's time and no library call (no single PyTorch call computes
+   the scan). (b) Each model at its published widths and full depth in
+   bfloat16 from seed 0: a monolithic prefill (B=4, S=256), a slot chunk
+   and a paged chunk at pos0 0 and 128, a slot and a paged decode step,
+   each through the kernels and again through the plain versions (scan
+   and attention), logits compared as phase 4 compares gemma's, within
+   the larger of its tolerance and 3x the bf16 noise floor (the same step
+   through the sequential plain scan against the chunked one); then the
+   same steps in float32, kernel path vs plain path within 1e-3; parked
+   rows and rows outside a chunk keep their carried state byte for byte;
+   mamba2's paged chunk and decode steps timed and profiled. (c)
+   ``run_serve`` for each arch (the paged engine, 16 requests of phase
+   5's mixed 16/256 trace, chunk 128) and ``run_family_rows`` for both
+   (6 requests of 256 tokens, 16 new, against the static monolithic
+   baseline); every request must finish. (d) Across each serve run the
+   scan launches exactly ``num_layers`` x (chunk dispatches + monolithic
+   prefills) times and no plain version runs.
 
 The last lines are the kernel table (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -82,6 +113,7 @@ CU_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FLASH_SOURCE = \
     "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 MSGQ_SOURCE = "src/repro_torch/kernels/msgq/csrc/msgq.cu"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 TPU_KERNELS = {
     "paged_decode":
         "src/repro/kernels/paged_attention/paged_attention.py:57",
@@ -91,6 +123,7 @@ TPU_KERNELS = {
         "src/repro/kernels/flash_attention/flash_attention.py:29",
     "msgq_eager": "src/repro/kernels/msgq/msgq.py:27",
     "msgq_one_copy": "src/repro/kernels/msgq/msgq.py:34",
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:26",
 }
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -107,6 +140,28 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: max(1, max |logit|) between the kernel path and the plain path
 MODEL_REL_TOL = 3e-2
 PARK_POS = -(2 ** 30)
+#: hymba-1.5b's sliding window (``configs/hymba_1p5b.py``)
+HYMBA_WINDOW = 2048
+#: SSD scan vs its plain versions: the reference's own kernel tolerances
+#: (float32: the chunked kernel, the chunked einsums and the sequential
+#: recurrence sum in different orders; bfloat16 x: y is rounded to bf16)
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+#: a bf16 model step through the scan kernel vs the same step through the
+#: plain chunked scan, in units of the step's noise floor: the same step
+#: through a second plain scan (the sequential recurrence), which differs
+#: from the chunked one by float32 reassociation alone (~1e-6 in the
+#: scan, as the kernel does), amplified by bf16 rounding over the model's
+#: depth (48 layers for mamba2, against gemma's 18). The tolerance is the
+#: larger of MODEL_REL_TOL and this multiple of the floor. The same
+#: steps run again in float32 (MODEL_F32_REL_TOL), where no such noise
+#: hides a fault
+NOISE_FLOOR_FACTOR = 3.0
+#: a float32 step of a full-depth model through the kernels vs the same
+#: step through the plain versions, relative as MODEL_REL_TOL: both paths
+#: compute in float32 and sum in other orders only (single kernel calls
+#: agree within 1e-4 for the scan, 2e-5 for attention); a fault in the
+#: logic moves the logits by O(1)
+MODEL_F32_REL_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -296,6 +351,24 @@ def phase_kernels(dev, timer):
         specs.append(("paged_mq", "K=1 vs decode", dtype, dict(
             B=16, K=1, H=8, Hkv=1, hd=256, bs=16, lengths=lengths16,
             parked=(3,), hole=(9, 5)), 0, 0.0))
+        # hymba-1.5b's heads (H=25, Gs=5 stored, hd=64) at the serve
+        # phase's widths: its 2048 window (most layers) and none (global
+        # layers 0, 15, 31); then lengths past the window, so it masks
+        for window in (HYMBA_WINDOW, 0):
+            tag = "hymba serve" if window else "hymba global"
+            specs.append(("paged_decode", f"{tag} decode", dtype, dict(
+                B=8, K=0, H=25, Hkv=5, hd=64, bs=16, NB=19,
+                lengths=[17, 40, 100, 257, 270, 290, 300, 303],
+                parked=(2,)), window, 0.0))
+            specs.append(("paged_mq", f"{tag} chunk", dtype, dict(
+                B=2, K=128, H=25, Hkv=5, hd=64, bs=16, NB=19,
+                lengths=[128, 256]), window, 0.0))
+        specs.append(("paged_decode", "hymba past window", dtype, dict(
+            B=3, K=0, H=25, Hkv=5, hd=64, bs=16,
+            lengths=[100, 2100, 2600], parked=(0,)), HYMBA_WINDOW, 0.0))
+        specs.append(("paged_mq", "hymba past window", dtype, dict(
+            B=2, K=128, H=25, Hkv=5, hd=64, bs=16,
+            lengths=[2176, 2600]), HYMBA_WINDOW, 0.0))
 
     table = {k: {"name": k, "route": "cuda", "source": CU_SOURCE,
                  "replaces": TPU_KERNELS[k], "launches": 0,
@@ -334,23 +407,30 @@ def phase_kernels(dev, timer):
             require(same, "paged_mq at K=1 differs from paged_decode")
         row = table[kernel]
         row["max_abs_err"] = max(row["max_abs_err"], max_err)
-        if dtype == torch.bfloat16 and label.startswith("gemma"):
+        # time gemma's path shapes (the table's) and hymba's serve shapes
+        if dtype == torch.bfloat16 and label.startswith(("gemma",
+                                                         "hymba serve")):
+            kw = dict(window=window, softcap=softcap)
             nbytes, flops = needs(case, window)
             t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
             t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
             lib = library_call(case, window, softcap)
-            row.update(
+            t = dict(
                 shape=label, dtype="bfloat16",
-                ms=timer.ms(lambda: ops.paged_attention(*args)),
-                plain_ms=timer.ms(lambda: paged_attention_ref(*args)),
+                ms=timer.ms(lambda: ops.paged_attention(*args, **kw)),
+                plain_ms=timer.ms(lambda: paged_attention_ref(*args, **kw)),
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes=nbytes, bound_flops=flops,
                 library_ms=timer.ms(lib) if lib is not None else None)
-            print(f"time  {kernel:12s} {label:20s} bf16 ms={row['ms']:.4f} "
-                  f"plain_ms={row['plain_ms']:.4f} "
-                  f"library_ms={row['library_ms']} "
-                  f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}: "
+            if label.startswith("gemma"):
+                row.update(t)
+            else:
+                row.setdefault("times", []).append(t)
+            print(f"time  {kernel:12s} {label:20s} bf16 ms={t['ms']:.4f} "
+                  f"plain_ms={t['plain_ms']:.4f} "
+                  f"library_ms={t['library_ms']} "
+                  f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}: "
                   f"{nbytes} bytes, {flops} flops)", flush=True)
     return table
 
@@ -372,6 +452,12 @@ FLASH_CASES = [
     ("window 100", 2, 8, 1, 256, 256, 256, 100, 0),
     ("H=Hkv=8", 2, 8, 8, 256, 256, 256, 0, 0),
     ("B=1 S=2048", 1, 8, 1, 2048, 2048, 256, 0, 0),
+    # hymba-1.5b's monolithic prefill (H=25, Hkv=5, hd=64): its 2048
+    # window (most layers), a global layer, then past the window
+    ("hymba B=4 S=256", 4, 25, 5, 256, 256, 64, 2048, 0),
+    ("hymba B=8 S=256", 8, 25, 5, 256, 256, 64, 2048, 0),
+    ("hymba global B=8 S=256", 8, 25, 5, 256, 256, 64, 0, 0),
+    ("hymba past window S=2304", 1, 25, 5, 2304, 2304, 64, 2048, 0),
 ]
 #: the shape the kernel table reports: a static batch of 8 slots
 FLASH_TABLE_CASE = "path B=8 S=256"
@@ -426,7 +512,8 @@ def phase_flash(dev, timer):
             require(not bool(bad.any()),
                     f"flash {label} {dtype}: disagrees with ref.py")
             if dtype != torch.bfloat16 or not (
-                    label.startswith("path") or label == "B=1 S=2048"):
+                    label.startswith("path")
+                    or label in ("B=1 S=2048", "hymba B=8 S=256")):
                 continue
             nbytes, flops = flash_needs(B, H, Hkv, Sq, Sk, hd, window,
                                         q_offset, q.element_size())
@@ -497,7 +584,7 @@ def phase_model(dev):
         kw = {} if attention is None else {"attention": attention}
         return model.prefill_chunk_paged(
             params, pool, torch.from_numpy(tok).to(dev), tables,
-            torch.full((B,), off, device=dev),
+            torch.arange(B), torch.full((B,), off, device=dev),
             torch.from_numpy(n_valid).to(dev), **kw)
 
     for off in (0, C):
@@ -596,10 +683,16 @@ def monolithic(model, params, cfg):
     return results
 
 
-def profile_step(label, step, step_ms):
+#: the port's attention kernels, by their CUDA names
+ATTENTION_KERNELS = ("paged_decode", "paged_mq", "flash_kernel")
+
+
+def profile_step(label, step, step_ms, names=ATTENTION_KERNELS):
     """Where one step's time goes: device kernel time by name
     (torch.profiler) against the step's CUDA-event time; the rest of the
-    step the device sat idle, waiting for the host to launch work."""
+    step the device sat idle, waiting for the host to launch work.
+    ``attention_kernel_ms`` sums the kernels whose name holds one of
+    ``names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -623,8 +716,7 @@ def profile_step(label, step, step_ms):
               "measured)", flush=True)
         return None
     attn_ms = sum(dev_us(e) for e in kernels
-                  if any(n in e.key for n in ("paged_decode", "paged_mq",
-                                              "flash_kernel"))) / 1e3
+                  if any(n in e.key for n in names)) / 1e3
     launches = sum(e.count for e in kernels)
     out = {"step_ms": step_ms, "device_busy_ms": busy_ms,
            "attention_kernel_ms": attn_ms, "device_launches": launches,
@@ -632,25 +724,46 @@ def profile_step(label, step, step_ms):
            "top": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in
                    sorted(kernels, key=dev_us, reverse=True)[:6]]}
     print(f"profile {label}: step {step_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({launches} kernels), attention kernels "
+          f"{busy_ms:.3f} ms ({launches} kernels), {'/'.join(names)} "
           f"{attn_ms:.3f} ms, idle share {out['idle_share']:.3f}", flush=True)
     for name, ms, n in out["top"]:
         print(f"profile {label}:   {ms:8.3f} ms  x{n:<4d} {name}", flush=True)
     return out
 
 
-def compare(label, logits, ref_logits, cfg):
+def rel_diff(logits, ref_logits, cfg):
+    """max |logit difference| / max(1, max |ref logit|) over the vocab."""
     V = cfg.vocab_size
     a, r = logits[:, :V].float(), ref_logits[:, :V].float()
+    return float((a - r).abs().max()) / max(1.0, float(r.abs().max()))
+
+
+def argmax_agree(logits, ref_logits, cfg) -> int:
+    """Rows whose greedy token (argmax over the vocab) is the same."""
+    V = cfg.vocab_size
+    return int((logits[:, :V].float().argmax(-1)
+                == ref_logits[:, :V].float().argmax(-1)).sum())
+
+
+def compare(label, logits, ref_logits, cfg, tol=MODEL_REL_TOL, floor=None,
+            floor_agree=None):
+    V = cfg.vocab_size
+    a = logits[:, :V].float()
     require(bool(torch.isfinite(a).all()), f"{label}: non-finite logits")
-    rel = float((a - r).abs().max()) / max(1.0, float(r.abs().max()))
-    agree = int((a.argmax(-1) == r.argmax(-1)).sum())
+    rel = rel_diff(logits, ref_logits, cfg)
+    agree = argmax_agree(logits, ref_logits, cfg)
+    rows = a.shape[0]
     print(f"check model {label}: max|dlogit|/max(1,|logit|)={rel:.3e} "
-          f"(tol {MODEL_REL_TOL:g}), argmax agreement {agree}/{a.shape[0]}",
-          flush=True)
-    require(rel <= MODEL_REL_TOL, f"model {label}: kernel path disagrees "
-            "with the plain attention path")
-    return {"rel_err": rel, "argmax_agree": agree, "rows": a.shape[0]}
+          f"(tol {tol:.3g}" + ("" if floor is None else
+                               f"; bf16 noise floor {floor:.3e}, its "
+                               f"argmax agreement {floor_agree}/{rows}")
+          + f"), argmax agreement {agree}/{rows}", flush=True)
+    require(rel <= tol, f"model {label}: kernel path disagrees with the "
+            "plain path")
+    out = {"rel_err": rel, "argmax_agree": agree, "rows": rows, "tol": tol}
+    if floor is not None:
+        out.update(noise_floor=floor, floor_argmax_agree=floor_agree)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -679,7 +792,8 @@ def phase_serve():
     require(counts["mq_launches"] > 0, "multi-query kernel never launched")
     require(counts["ref_calls"] == 0,
             f"plain attention ran {counts['ref_calls']} times on the card")
-    require(counts == res["kernels"], "counter mismatch")
+    require(counts == {k: res["kernels"][k] for k in counts},
+            "counter mismatch")
     print(f"serve: {int(stats['n'])} requests, "
           f"{stats['useful_tokens']:.0f} tokens in {stats['makespan_s']:.3f} "
           f"s: {res['continuous_tok_s']:.2f} tok/s, TTFT p50 "
@@ -1187,6 +1301,459 @@ def phase_threadcomm(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the SSM and hybrid families — the SSD scan kernel, the models,
+# serving
+# ---------------------------------------------------------------------------
+
+#: (label, B, H, S, p, n, seeded initial state); every case on the chunk
+#: grid l = 128 (the configs' ssm_chunk). mamba2: H=32, p=64, n=128;
+#: hymba: H=50, p=64, n=16
+SSD_CASES = [
+    ("mamba2 B=1 S=128", 1, 32, 128, 64, 128, False),
+    ("mamba2 B=2 S=128", 2, 32, 128, 64, 128, False),
+    ("mamba2 B=8 S=128", 8, 32, 128, 64, 128, False),
+    ("mamba2 B=1 S=256", 1, 32, 256, 64, 128, False),
+    ("mamba2 B=2 S=256", 2, 32, 256, 64, 128, False),
+    ("mamba2 B=8 S=256", 8, 32, 256, 64, 128, False),
+    ("hymba B=2 S=256", 2, 50, 256, 64, 16, False),
+    ("ragged B=2 S=200", 2, 32, 200, 64, 128, False),
+    ("initial state B=2 S=256", 2, 32, 256, 64, 128, True),
+    ("path B=2 S=128 state", 2, 32, 128, 64, 128, True),
+]
+#: the shape the kernel table reports: a mamba2 chunk dispatch of 2 rows
+#: resuming a carried state, as the serve phase runs it
+SSD_TABLE_CASE = "path B=2 S=128 state"
+SSD_CHUNK = 128
+
+
+def ssd_inputs(dev, dtype, B, H, S, p, n, state, seed):
+    """x, dt, A, Bm, Cm (and s0) on the card, x and dt as the model hands
+    them: (B, S, H, p) and (B, S, H) tensors passed as (B, H, S, ...)
+    views. dt = 0.1 softplus(N(0, 1)), A = -exp(0.3 N(0, 1)), as the
+    reference's kernel tests draw them."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, p, generator=g)
+    dt = F.softplus(torch.randn(B, S, H, generator=g)) * 0.1
+    A = -torch.exp(torch.randn(H, generator=g) * 0.3)
+    Bm = torch.randn(B, S, n, generator=g) * 0.5
+    Cm = torch.randn(B, S, n, generator=g) * 0.5
+    s0 = torch.randn(B, H, p, n, generator=g) * 0.2 if state else None
+    out = [x.to(dev, dtype).transpose(1, 2), dt.to(dev).transpose(1, 2),
+           A.to(dev), Bm.to(dev), Cm.to(dev)]
+    return out + [None if s0 is None else s0.to(dev)]
+
+
+def ssd_needs(B, H, S, p, n, l, x_item, state):
+    """Bytes (x, dt, A, B, C and the initial state read once, y and the
+    final state written once) and flops (the four products over this
+    run's chunks: causal score pairs x (n + p), the carried term and the
+    fold r x n x p each) of one scan."""
+    nbytes = (2 * B * H * S * p * x_item + 4 * B * H * S + 4 * H
+              + 2 * 4 * B * S * n + (2 if state else 1) * 4 * B * H * p * n)
+    flops = 0
+    for c0 in range(0, S, l):
+        r = min(l, S - c0)
+        pairs = r * (r + 1) // 2
+        flops += 2 * pairs * (n + p) + 4 * r * n * p
+    return nbytes, B * H * flops
+
+
+def phase_ssd(dev, timer):
+    """8(a): the SSD scan kernel against both plain versions, bitwise
+    resume, and its time at the path shape."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_scan, ssd_scan_ref
+
+    row = {"name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
+           "replaces": TPU_KERNELS["ssd_scan"], "launches": 0,
+           "max_abs_err_by_dtype": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = 0.0
+        for label, B, H, S, p, n, state in SSD_CASES:
+            args = ssd_inputs(dev, dtype, B, H, S, p, n, state,
+                              seed=S + B + H + n)
+            before = sops.ssd_launches
+            y, fs = sops.ssd_scan(*args, chunk=SSD_CHUNK, return_state=True)
+            require(sops.ssd_launches == before + 1,
+                    f"ssd {label}: the kernel was not launched")
+            tol = SSD_TOL[dtype]
+            for plain_name, plain in (
+                    ("ssd_chunked_scan", lambda: ssd_chunked_scan(
+                        *args, chunk=SSD_CHUNK, return_state=True)),
+                    ("ssd_scan_ref", lambda: ssd_scan_ref(
+                        *args, return_state=True))):
+                ry, rf = plain()
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(y.float()).all())
+                        and bool(torch.isfinite(fs).all()),
+                        f"ssd {label} {dtype}: non-finite output")
+                errs = []
+                for got, ref, t in ((y.float(), ry.float(), tol),
+                                    (fs, rf, SSD_TOL[torch.float32])):
+                    err = (got - ref).abs()
+                    errs.append(float(err.max()))
+                    require(not bool((err > t + t * ref.abs()).any()),
+                            f"ssd {label} {dtype}: disagrees with "
+                            f"{plain_name} (max abs err {errs[-1]:.3e})")
+                worst = max(worst, *errs)
+                print(f"check ssd_scan {label:24s} {str(dtype):14s} vs "
+                      f"{plain_name:16s} max_abs_err y={errs[0]:.3e} "
+                      f"state={errs[1]:.3e} tol={tol:g} ok", flush=True)
+        row["max_abs_err_by_dtype"][str(dtype).split(".")[-1]] = worst
+    row["max_abs_err"] = max(row["max_abs_err_by_dtype"].values())
+
+    # resume: one call over 256 tokens against 128 + 128, bit for bit
+    for label, H, n in (("mamba2", 32, 128), ("hymba", 50, 16)):
+        x, dt, A, Bm, Cm, _ = ssd_inputs(dev, torch.float32, 2, H, 256, 64,
+                                         n, False, seed=H)
+        y, fs = sops.ssd_scan(x, dt, A, Bm, Cm, chunk=SSD_CHUNK,
+                              return_state=True)
+        h = 128
+        y1, f1 = sops.ssd_scan(x[:, :, :h], dt[:, :, :h], A, Bm[:, :h],
+                               Cm[:, :h], chunk=SSD_CHUNK, return_state=True)
+        y2, f2 = sops.ssd_scan(x[:, :, h:], dt[:, :, h:], A, Bm[:, h:],
+                               Cm[:, h:], f1, chunk=SSD_CHUNK,
+                               return_state=True)
+        torch.cuda.synchronize()
+        same = (torch.equal(torch.cat([y1, y2], 2), y)
+                and torch.equal(f2, fs))
+        print(f"check ssd_scan resume {label}: 256 tokens in one call vs "
+              f"128 + 128 threaded through the state: bitwise {same}",
+              flush=True)
+        require(same, f"ssd_scan resume ({label}) is not bit-exact")
+
+    label, B, H, S, p, n, state = next(c for c in SSD_CASES
+                                       if c[0] == SSD_TABLE_CASE)
+    args = ssd_inputs(dev, torch.float32, B, H, S, p, n, state, seed=1)
+    nbytes, flops = ssd_needs(B, H, S, p, n, SSD_CHUNK, 4, state)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / PEAK_FLOPS[torch.float32]
+    row.update(
+        shape=label, dtype="float32",
+        ms=timer.ms(lambda: sops.ssd_scan(*args, chunk=SSD_CHUNK,
+                                          return_state=True)),
+        plain_ms=timer.ms(lambda: ssd_chunked_scan(*args, chunk=SSD_CHUNK,
+                                                   return_state=True)),
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_bytes=nbytes, bound_flops=flops, library_ms=None,
+        library_note="no single PyTorch call computes the SSD scan",
+        ctas=B * H, smem_bytes=sops.smem_bytes(p, n, SSD_CHUNK))
+    print(f"time  ssd_scan {label:24s} f32 ms={row['ms']:.4f} "
+          f"plain_ms={row['plain_ms']:.4f} library_ms=None "
+          f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}: {nbytes} "
+          f"bytes, {flops} flops), {B * H} CTAs", flush=True)
+    for label, B, H, S, p, n in (("static prefill B=8 S=256", 8, 32, 256,
+                                  64, 128),
+                                 ("hymba chunk B=2 S=128", 2, 50, 128, 64,
+                                  16)):
+        a = ssd_inputs(dev, torch.float32, B, H, S, p, n, True, seed=2)
+        nb, fl = ssd_needs(B, H, S, p, n, SSD_CHUNK, 4, True)
+        ms = timer.ms(lambda: sops.ssd_scan(*a, chunk=SSD_CHUNK,
+                                            return_state=True))
+        row.setdefault("times", []).append(
+            {"shape": label, "ms": ms, "ctas": B * H,
+             "bound_ms": max(1e3 * nb / HBM_BYTES_PER_S,
+                             1e3 * fl / PEAK_FLOPS[torch.float32])})
+        print(f"time  ssd_scan {label:24s} f32 ms={ms:.4f} ({B * H} CTAs, "
+              f"bound {row['times'][-1]['bound_ms']:.5f} ms)", flush=True)
+    return row
+
+
+def require_same_state(cache, before, rows, label):
+    """The carried state of ``rows`` is byte-identical to ``before``."""
+    for k in ("conv", "ssm"):
+        require(torch.equal(cache[k][:, rows], before[k][:, rows]),
+                f"{label}: the {k} state of rows {rows} changed")
+
+
+def phase_family_model(dev, arch):
+    """8(b): one model at full width and depth from seed 0, in bfloat16
+    (the serving dtype) and again in float32, each step through the
+    kernels and again through the plain scan and attention."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch)
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        model = build_model(cfg, ServeConfig(param_dtype=dtype,
+                                             compute_dtype=dtype),
+                            device=dev)
+        params = model.init(0)
+        torch.cuda.synchronize()
+        print(f"model {cfg.name}: {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.num_heads}x{cfg.head_dim} heads (kv "
+              f"{cfg.num_kv_heads}), ssm {cfg.ssm_heads}x{cfg.ssm_head_dim} "
+              f"heads, state {cfg.ssm_state}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.3f} B params, "
+              f"{model.dtype}, built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        res[dtype] = family_steps(model, params, cfg, dev)
+        del model, params
+        torch.cuda.empty_cache()
+    return res
+
+
+def family_steps(model, params, cfg, dev):
+    """The 8(b) steps of one model: a monolithic prefill (B=4, S=256),
+    slot chunks at pos0 0 and 128 and a slot decode step, paged chunks at
+    pos0 0 and 128 and a paged decode step. Each step runs on the kernel
+    path, whose cache carries on, and on each plain path from a copy of
+    the cache taken before it. In float32 the kernel path is held to the
+    plain path within MODEL_F32_REL_TOL; in bfloat16 each scan step is
+    held within the larger of MODEL_REL_TOL and NOISE_FLOOR_FACTOR x its
+    noise floor (the plain path with the sequential scan)."""
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_scan, ssd_scan_ref
+
+    arch = f"{cfg.name} {str(model.dtype).split('.')[-1]}"
+    attn = cfg.uses_attention
+    bf16 = model.dtype == torch.bfloat16
+    plain_mono = {"scan": ssd_chunked_scan}
+    plain_paged = {"scan": ssd_chunked_scan}
+    if attn:
+        plain_mono["attention"] = plain_flash
+        plain_paged["attention"] = paged_attention_ref
+
+    def sequential(*a, chunk, return_state):
+        return ssd_scan_ref(*a, return_state=return_state)
+
+    def clone(cache):
+        return None if cache is None else {k: v.clone()
+                                           for k, v in cache.items()}
+
+    def step(label, fn, cache, plain):
+        """``fn(cache, **overrides)`` -> logits on every path; check."""
+        paths = {"plain": plain}
+        if bf16:
+            paths["floor"] = {**plain, "scan": sequential}
+        copies = {name: clone(cache) for name in paths}
+        out = fn(cache)
+        outs = {name: fn(copies[name], **kw) for name, kw in paths.items()}
+        if not bf16:
+            return out, compare(label, out, outs["plain"], cfg,
+                                tol=MODEL_F32_REL_TOL)
+        floor = rel_diff(outs["floor"], outs["plain"], cfg)
+        return out, compare(
+            label, out, outs["plain"], cfg,
+            tol=max(MODEL_REL_TOL, NOISE_FLOOR_FACTOR * floor), floor=floor,
+            floor_agree=argmax_agree(outs["floor"], outs["plain"], cfg))
+
+    rng = np.random.default_rng(3)
+    V, C = cfg.vocab_size, cfg.ssm_chunk
+    res = {}
+
+    def on(a):
+        return torch.as_tensor(np.asarray(a)).to(dev)
+
+    S, W = 256, 256 + 48
+    tok = on(rng.integers(0, V, size=(4, S)))
+    _, res["prefill"] = step(
+        f"{arch} monolithic prefill (B=4, S=256)",
+        lambda _, **kw: model.prefill(params, tok, W, **kw)[0], None,
+        plain_mono)
+
+    # slot chunks at pos0 0 and 128 (row 1's second chunk partial: 100 of
+    # 128), then a slot decode step with row 1 parked
+    n_last = C * 25 // 32
+    prompts = rng.integers(0, V, size=(2, 2 * C))
+    cache = model.init_cache(2, W)
+    for pos0, n_valid in ((0, [C, C]), (C, [C, n_last])):
+        args = (on(prompts[:, pos0:pos0 + C]), on([pos0, pos0]),
+                on(n_valid))
+        lg, res[f"slot_chunk_{pos0}"] = step(
+            f"{arch} slot chunk (B=2, C={C}, pos0={pos0})",
+            lambda c, **kw: model.prefill_chunk(params, c, *args, **kw),
+            cache, {"scan": ssd_chunked_scan})
+    before = clone(cache)
+    nxt = lg.argmax(-1, keepdim=True)
+    model.decode_step(params, cache, nxt, on([2 * C, PARK_POS]))
+    require_same_state(cache, before, [1], f"{arch} slot decode")
+
+    # paged: 4 request rows, chunk rows aimed at rows 2 and 0; rows 1 and
+    # 3 sit outside every chunk, then rows 1 and 3 are parked in decode
+    bs, R = 16, 4
+    NB = -(-(2 * C + 16) // bs)
+    tables = torch.from_numpy(rng.permutation(R * NB).astype(
+        np.int32).reshape(R, NB)).to(dev)
+    pool = model.init_paged_cache(R * NB, bs, num_rows=R)
+    rows = [2, 0]
+    untouched = clone(pool)
+    chunk_args = None
+    for pos0, n_valid in ((0, [C, C]), (C, [C, n_last])):
+        chunk_args = (on(prompts[:, pos0:pos0 + C]), tables[rows],
+                      torch.tensor(rows), on([pos0, pos0]), on(n_valid))
+        lg, res[f"paged_chunk_{pos0}"] = step(
+            f"{arch} paged chunk (B=2, C={C}, pos0={pos0})",
+            lambda c, **kw: model.prefill_chunk_paged(params, c,
+                                                      *chunk_args, **kw),
+            pool, plain_paged)
+    require_same_state(pool, untouched, [1, 3], f"{arch} paged chunks")
+    nxt = torch.zeros((R, 1), dtype=torch.int64, device=dev)
+    nxt[rows] = lg.argmax(-1, keepdim=True)
+    positions = on([C + n_last, PARK_POS, 2 * C, PARK_POS])
+    ref_pool = clone(pool)
+    before = clone(pool)
+    dec = model.decode_step_paged(params, pool, nxt, positions, tables)
+    kw = {"attention": paged_attention_ref} if attn else {}
+    ref_dec = model.decode_step_paged(params, ref_pool, nxt, positions,
+                                      tables, **kw)
+    res["paged_decode"] = compare(
+        f"{arch} paged decode (rows 0 and 2)", dec[[0, 2]], ref_dec[[0, 2]],
+        cfg, tol=MODEL_REL_TOL if bf16 else MODEL_F32_REL_TOL)
+    require_same_state(pool, before, [1, 3], f"{arch} paged decode")
+    print(f"check {arch}: parked rows and rows outside the chunks kept "
+          "their carried state byte for byte", flush=True)
+
+    if bf16 and not attn:
+        # mamba2's step profile: a chunk dispatch of 2 rows and a decode
+        # step of 4 rows (re-running a step rewrites the same state rows
+        # from the same inputs)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        state = clone(pool)
+        for _ in range(2):
+            ev[0].record()
+            model.prefill_chunk_paged(params, pool, *chunk_args)
+            ev[1].record()
+            model.decode_step_paged(params, pool, nxt, positions, tables)
+            ev[2].record()
+            for k, v in state.items():
+                pool[k].copy_(v)
+        torch.cuda.synchronize()
+        res["chunk_step_ms"] = ev[0].elapsed_time(ev[1])
+        res["decode_step_ms"] = ev[1].elapsed_time(ev[2])
+        print(f"model step time ({arch}, kernel path): paged chunk (B=2, "
+              f"C={C}) {res['chunk_step_ms']:.3f} ms, paged decode (B={R}) "
+              f"{res['decode_step_ms']:.3f} ms", flush=True)
+        names = ("ssd_kernel",) + ATTENTION_KERNELS
+        res["chunk_profile"] = profile_step(
+            f"{arch} paged chunk",
+            lambda: model.prefill_chunk_paged(params, pool, *chunk_args),
+            res["chunk_step_ms"], names)
+        res["decode_profile"] = profile_step(
+            f"{arch} paged decode",
+            lambda: model.decode_step_paged(params, pool, nxt, positions,
+                                            tables),
+            res["decode_step_ms"], names)
+    return res
+
+
+def require_path_launches(counts, cfg, label):
+    """8(d): the scan launched once per layer per chunk dispatch and per
+    monolithic prefill; attention kernels ran where the family attends;
+    no plain version ran."""
+    L = cfg.num_layers
+    want = L * (counts["chunk_calls"] + counts["prefill_calls"])
+    require(counts["chunk_calls"] > 0, f"{label}: no chunk dispatch ran")
+    require(counts["ssd_launches"] == want,
+            f"{label}: ssd_scan launched {counts['ssd_launches']} times for "
+            f"{counts['chunk_calls']} chunk dispatches + "
+            f"{counts['prefill_calls']} monolithic prefills x {L} layers")
+    if cfg.uses_attention:
+        require(counts["decode_launches"] > 0 and counts["mq_launches"] > 0,
+                f"{label}: a paged-attention kernel never launched")
+        require(counts["flash_launches"] == L * counts["prefill_calls"],
+                f"{label}: flash launches {counts['flash_launches']} for "
+                f"{counts['prefill_calls']} prefills x {L} layers")
+    else:
+        require(counts["decode_launches"] == counts["mq_launches"]
+                == counts["flash_launches"] == 0,
+                f"{label}: an attention kernel ran in an attention-free "
+                "model")
+    require(counts["ref_calls"] == counts["flash_ref_calls"]
+            == counts["ssd_ref_calls"] == 0,
+            f"{label}: a plain version ran on the card")
+
+
+def phase_family_serve():
+    """8(c), (d): run_serve per arch, then run_family_rows for both."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+
+    archs = ("mamba2-370m", "hymba-1.5b")
+    out = {"serve": {}, "launches": {}}
+    for arch in archs:
+        cfg = get_config(arch)
+        res = launch.run_serve(arch, device="cuda", requests=16, slots=8,
+                               prompt_len=(16, 256), max_new=(4, 48),
+                               rate=50.0, prefill_chunk=128,
+                               max_prefill_per_step=2, block_size=16, seed=0)
+        counts = res["kernels"]
+        stats = res["continuous"]
+        require(res["prefill_chunk"] == 128,
+                f"{arch}: chunk {res['prefill_chunk']}, expected 128")
+        require(stats.get("n") == 16.0, f"{arch}: served {stats.get('n')} "
+                "of 16")
+        for rid, toks in enumerate(res["outputs"]):
+            require(len(toks) > 0 and all(0 <= t < cfg.vocab_size
+                                          for t in toks),
+                    f"{arch} request {rid}: no token or out of vocab")
+        require_path_launches(counts, cfg, f"{arch} run_serve")
+        out["serve"][arch] = {k: res[k] for k in (
+            "continuous_tok_s", "ttft_p50_ms", "ttft_p95_ms",
+            "state_bytes_per_slot")}
+        out["serve"][arch]["makespan_s"] = stats["makespan_s"]
+        out["launches"][f"{arch} run_serve"] = counts
+        print(f"serve {arch}: 16 requests, {stats['useful_tokens']:.0f} "
+              f"tokens in {stats['makespan_s']:.3f} s: "
+              f"{res['continuous_tok_s']:.2f} tok/s, TTFT p50 "
+              f"{res['ttft_p50_ms']:.2f} ms p95 {res['ttft_p95_ms']:.2f} ms, "
+              f"state_bytes_per_slot {res['state_bytes_per_slot']}, "
+              f"max_memory_allocated {res.get('max_memory_allocated')} "
+              "bytes", flush=True)
+        out["serve"][arch]["max_memory_allocated"] = res.get(
+            "max_memory_allocated")
+        print(f"serve {arch} kernels: " + json.dumps(counts), flush=True)
+        torch.cuda.empty_cache()
+
+    rows = launch.run_family_rows(archs, smoke=False, device="cuda",
+                                  requests=6, slots=4, prompt_len=256,
+                                  max_new=16, prefill_chunk=128,
+                                  block_size=16, seed=0)
+    for arch, row in zip(archs, rows):
+        cfg = get_config(arch)
+        require("skipped" not in row, f"{arch}: family row skipped")
+        require(row["n"] == 6.0, f"{arch} family row: {row['n']} of 6")
+        require_path_launches(row["kernels"], cfg, f"{arch} family row")
+        out["launches"][f"{arch} family row"] = row["kernels"]
+        out["serve"][f"{arch} family row"] = {k: row[k] for k in (
+            "continuous_tok_s", "ttft_p50_s", "ttft_p95_s",
+            "state_bytes_per_slot", "static_tok_identical",
+            "static_equal_token_share", "prefill_chunk")}
+        print(f"family {row['family']}: {row['continuous_tok_s']:.2f} "
+              f"tok/s, TTFT p50 {1e3 * row['ttft_p50_s']:.2f} ms p95 "
+              f"{1e3 * row['ttft_p95_s']:.2f} ms, chunk "
+              f"{row['prefill_chunk']}, state_bytes_per_slot "
+              f"{row['state_bytes_per_slot']}, static_tok_identical "
+              f"{row['static_tok_identical']} (equal share "
+              f"{row['static_equal_token_share']:.4f})", flush=True)
+        print(f"family {row['family']} kernels: "
+              + json.dumps(row["kernels"]), flush=True)
+    return out
+
+
+def phase_families(dev):
+    """Phase 8: (a) the scan kernel, (b) both models, (c)/(d) serving."""
+    timer = Timer(dev)
+    row = phase_ssd(dev, timer)
+    del timer
+    torch.cuda.empty_cache()
+    models = {arch: phase_family_model(dev, arch)
+              for arch in ("mamba2-370m", "hymba-1.5b")}
+    serve = phase_family_serve()
+    row["launches"] = sum(c["ssd_launches"]
+                          for c in serve["launches"].values())
+    row["launches_by_run"] = {k: c["ssd_launches"]
+                              for k, c in serve["launches"].items()}
+    print("families: " + json.dumps({"models": models,
+                                     "serve": serve["serve"]}), flush=True)
+    return row, serve["launches"]
+
+
 def main() -> None:
     require((SRC / "repro_torch").is_dir(),
             "src/repro_torch not found: run from the root of a checkout")
@@ -1225,6 +1792,8 @@ def main() -> None:
     _, counts = phase_engines()
     torch.cuda.empty_cache()
     table.update(phase_threadcomm(dev))
+    torch.cuda.empty_cache()
+    table["ssd_scan"], family_launches = phase_families(dev)
 
     # launches: the --engine both run, which drives all three kernels;
     # the paged serve phase's own counts stand beside them
@@ -1234,6 +1803,12 @@ def main() -> None:
     table["paged_decode"]["launches_paged_serve"] = \
         serve_counts["decode_launches"]
     table["paged_mq"]["launches_paged_serve"] = serve_counts["mq_launches"]
+    # hymba's runs in phase 8 drive the three attention kernels too
+    hymba = [c for k, c in family_launches.items() if k.startswith("hymba")]
+    for name, key in (("paged_decode", "decode_launches"),
+                      ("paged_mq", "mq_launches"),
+                      ("flash_attention", "flash_launches")):
+        table[name]["launches_hymba"] = sum(c[key] for c in hymba)
     print("model: " + json.dumps(model), flush=True)
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)

@@ -2,8 +2,9 @@
 
 Each module exports ``CONFIG`` (the exact published config) and
 ``SMOKE_CONFIG`` (a reduced same-family config for CPU tests). The port
-serves gemma-2b so far; every other architecture of the reference
-registry raises, naming the later slice that ports it.
+serves gemma-2b (dense), mamba2-370m (SSM) and hymba-1.5b (hybrid); every
+other architecture of the reference registry raises, naming the later
+slice that ports it.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from repro_torch.config import ModelConfig
 
 _ARCH_MODULES = {
     "gemma-2b": "gemma_2b",
+    "mamba2-370m": "mamba2_370m",
+    "hymba-1.5b": "hymba_1p5b",
 }
 
 #: architectures the reference serves that this port does not yet, with
@@ -25,13 +28,12 @@ _LATER = {
     "internvl2-76b": "the dense-family slice (patch_stub frontend)",
     "olmoe-1b-7b": "the model-families slice (MoE)",
     "dbrx-132b": "the model-families slice (MoE)",
-    "mamba2-370m": "the model-families slice (SSM, with the ssd_scan kernel)",
-    "hymba-1.5b": "the model-families slice (hybrid, with the ssd_scan "
-                  "kernel)",
     "whisper-tiny": "the model-families slice (encoder-decoder)",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)
+#: every architecture of the reference registry, ported or not
+REFERENCE_ARCH_NAMES = ARCH_NAMES + tuple(_LATER)
 
 
 def _load(arch: str):

@@ -17,16 +17,24 @@ and a greedy parity check (static vs continuous vs paged on one batch of
 the longest prompt). It reports useful-token throughput, latency and TTFT
 percentiles, KV accounting, the comparison flags and the kernel launch
 counts; ``--json`` writes them out. :func:`run_serve` drives the paged
-continuous engine alone.
+continuous engine alone. :func:`run_family_rows` (the CLI's
+``--config``) drives each named family through the paged chunked engine
+and holds its tokens to the family's static monolithic baseline.
 
 On the card (the default):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
       --engine both --requests 16 --slots 8 --prompt-len 16,256 \\
       --prefill-chunk 64 --kv-block-size 16 --json serve_torch.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --engine both --prompt-len 16,256
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --config mamba2-370m,hymba-1.5b --prompt-len 256 --max-new-hi 16
 On the CPU, at the smoke config (the plain attention path):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
       --smoke --device cpu --engine both --requests 4 --slots 2 \\
       --prompt-len 16,40
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --config families
 """
 
 from __future__ import annotations
@@ -42,15 +50,23 @@ import numpy as np
 import torch
 
 from repro_torch.config import ServeConfig
-from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
+from repro_torch.configs import (ARCH_NAMES, REFERENCE_ARCH_NAMES, get_config,
+                                 get_smoke_config)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import transformer
 from repro_torch.models.registry import build_model
 from repro_torch.serve import (ContinuousEngine, ServeRequest, StaticEngine,
                                make_trace)
 from repro_torch.serve.engine import not_ported
 from repro_torch.serve.scheduler import latency_stats_over
+
+#: registry families the ``--config`` sweep covers by default: one per
+#: serving structure (dense, MoE, SSM, hybrid, enc-dec), as the
+#: reference's; the port serves dense, SSM and hybrid so far
+FAMILY_ARCHS = ("gemma-2b", "olmoe-1b-7b", "mamba2-370m", "hymba-1.5b",
+                "whisper-tiny")
 
 
 def synthetic_tokens(cfg, batch: int, seq_len: int, seed: int) -> np.ndarray:
@@ -91,18 +107,24 @@ def useful_tokens(row: np.ndarray, eos_id: int) -> int:
 
 
 def kernel_counters() -> Dict[str, int]:
-    """Every launch counter of the port's kernels, and the monolithic
-    prefill calls (each launches the flash kernel once per layer on the
-    card)."""
-    fl = flash_ops.counters()
+    """Every launch counter of the port's model-path kernels, the
+    monolithic prefill calls (on the card each launches the flash kernel
+    once per layer with attention, the SSD scan once per layer with an
+    SSM) and the chunk forwards (each launches the SSD scan once per layer
+    with an SSM)."""
+    fl, sd = flash_ops.counters(), ssd_ops.counters()
     return {**ops.counters(), "flash_launches": fl["flash_launches"],
             "flash_ref_calls": fl["ref_calls"],
-            "prefill_calls": transformer.prefill_calls}
+            "ssd_launches": sd["ssd_launches"],
+            "ssd_ref_calls": sd["ref_calls"],
+            "prefill_calls": transformer.prefill_calls,
+            "chunk_calls": transformer.chunk_calls}
 
 
 def reset_kernel_counters() -> None:
     ops.reset_counters()
     flash_ops.reset_counters()
+    ssd_ops.reset_counters()
     transformer.reset_counters()
 
 
@@ -455,12 +477,15 @@ def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
               prefill_chunk: int = 64, max_prefill_per_step: int = 2,
               block_size: int = 16, seed: int = 0) -> Dict:
     """Build the model, warm the engine, drive the trace; return the
-    result dict (``backend: "torch"``). The kernel counters in it count
-    the measured drive only."""
+    result dict (``backend: "torch"``). The chunk is floored to the
+    family's ``chunk_multiple`` (:func:`effective_chunk`). The kernel
+    counters in it (:func:`kernel_counters`) count the measured drive
+    only."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     dtype = "float32" if smoke else "bfloat16"
     model = build_model(cfg, ServeConfig(param_dtype=dtype,
                                          compute_dtype=dtype), device=device)
+    prefill_chunk = effective_chunk(model.capabilities, prefill_chunk)
     params = model.init(seed)
     plens = ((int(prompt_len),) if isinstance(prompt_len, int)
              else tuple(int(p) for p in prompt_len))
@@ -483,7 +508,7 @@ def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
     if model.device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(model.device)
-    ops.reset_counters()
+    reset_kernel_counters()
     stats = drive_continuous(eng, reqs)
     result: Dict = {
         "backend": "torch",
@@ -498,11 +523,12 @@ def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
         "prefill_chunk": eng.prefill_chunk,
         "max_prefill_per_step": eng.max_prefill_per_step,
         "block_size": block_size, "num_blocks": eng.kv.pool.num_blocks,
+        "state_bytes_per_slot": eng._carried_state_bytes(),
         "continuous_tok_s": stats["tok_s"],
         "ttft_p50_ms": 1e3 * stats["ttft_p50_s"],
         "ttft_p95_ms": 1e3 * stats["ttft_p95_s"],
         "continuous": stats,
-        "kernels": ops.counters(),
+        "kernels": kernel_counters(),
         # eager PyTorch compiles no programs; the field stays for schema
         # parity with the reference's artifact
         "prefill_compiles": None,
@@ -512,6 +538,94 @@ def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
         result["max_memory_allocated"] = torch.cuda.max_memory_allocated(
             model.device)
     return result
+
+
+def run_family_rows(archs=FAMILY_ARCHS, *, smoke: bool = True,
+                    device="cuda", requests: int = 6, slots: int = 4,
+                    prompt_len: int = 24, max_new: int = 4,
+                    prefill_chunk: int = 16, block_size: int = 8,
+                    eos_id: int = -1, seed: int = 0) -> List[Dict]:
+    """Per-family serving rows (``--config``): drive a small same-arrival
+    trace through each family's continuous *paged* chunked engine and
+    report ``continuous_tok_s`` plus token identity against the family's
+    static monolithic baseline, as the reference's. A family the port
+    does not serve yet gives a row whose ``"skipped"`` holds the
+    ``NotImplementedError`` message; a family whose structure forbids the
+    path reports its capability reason. Each served row also carries the
+    share of equal tokens and its kernel counters (zeroed at the start of
+    the family's drive, read after its static baseline)."""
+    rows: List[Dict] = []
+    for arch in archs:
+        try:
+            cfg = get_smoke_config(arch) if smoke else get_config(arch)
+            dtype = "float32" if smoke else "bfloat16"
+            model = build_model(cfg, ServeConfig(
+                param_dtype=dtype, compute_dtype=dtype,
+                attn_chunk_threshold=4096), device=device)
+        except NotImplementedError as exc:
+            rows.append({"family": arch, "skipped": str(exc)})
+            continue
+        caps = model.capabilities
+        row: Dict = {"family": cfg.name, "block": cfg.block,
+                     "chunked_prefill": bool(caps.chunked_prefill),
+                     "paged_decode": bool(caps.paged_decode),
+                     "carried_state": bool(caps.carried_state),
+                     "prefix_cache": bool(caps.prefix_cache),
+                     "kv_migration": bool(caps.kv_migration),
+                     "speculative": bool(caps.speculative)}
+        chunk = effective_chunk(caps, prefill_chunk)
+        if not (chunk and caps.paged_decode):
+            row["skipped"] = caps.reason
+            rows.append(row)
+            continue
+        row["prefill_chunk"] = chunk
+        params = model.init(seed)
+        cache_len = prompt_len + max_new
+        trace = make_trace(requests, prompt_len=prompt_len,
+                           max_new=max_new, arrival="all", seed=seed)
+        reqs = requests_from_trace(cfg, trace, seed=seed)
+        eng = ContinuousEngine(model, params, cache_len=cache_len,
+                               num_slots=slots, eos_id=eos_id,
+                               prefill_chunk=chunk, kv_layout="paged",
+                               block_size=block_size, device=model.device)
+        _sync(model.device)
+        reset_kernel_counters()
+        stats = drive_continuous(eng, reqs)
+        row["n"] = stats["n"]
+        row["continuous_tok_s"] = stats["tok_s"]
+        row["ttft_p50_s"] = stats.get("ttft_p50_s")
+        row["ttft_p95_s"] = stats.get("ttft_p95_s")
+        row["state_bytes_per_slot"] = eng._carried_state_bytes()
+        # static monolithic baseline on the same prompts: the greedy
+        # tokens must be identical (the family-parity contract)
+        batch = {k: np.concatenate([r.batch[k] for r in reqs])
+                 for k in reqs[0].batch}
+        s_out = StaticEngine(model, params, cache_len=cache_len,
+                             eos_id=eos_id, device=model.device).generate(
+            batch, max_new)
+        _sync(model.device)
+        row["kernels"] = kernel_counters()
+        cont = _rows(reqs)
+        static = [s_out[j, :r.generated] for j, r in enumerate(reqs)]
+        row["static_tok_identical"] = _identical(static, cont)
+        row["static_equal_token_share"] = _equal_share(static, cont)
+        row["outputs"] = [r.tolist() for r in cont]
+        rows.append(row)
+    return rows
+
+
+def print_family_rows(rows: List[Dict]) -> None:
+    for row in rows:
+        if "skipped" in row:
+            print(f"{row['family']:>14}: skipped ({row['skipped']})",
+                  flush=True)
+            continue
+        print(f"{row['family']:>14}: {row['continuous_tok_s']:8.1f} tok/s  "
+              f"chunk {row['prefill_chunk']}  "
+              f"state_bytes/slot {row['state_bytes_per_slot']}  "
+              f"token_identical={row['static_tok_identical']} "
+              f"(equal share {row['static_equal_token_share']:.3f})",
+              flush=True)
 
 
 ARMS = ("static", "continuous_monolithic", "continuous",
@@ -553,6 +667,11 @@ def print_traffic(result: Dict) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="gemma-2b", choices=list(ARCH_NAMES))
+    ap.add_argument("--config", default=None, metavar="NAME[,NAME...]",
+                    help="per-family serving rows: drive each named "
+                         "registry config (or 'families' = one per "
+                         "serving structure) through the continuous paged "
+                         "engine instead of the engine comparison")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--engine", default="both",
@@ -573,6 +692,25 @@ def main(argv=None):
     ap.add_argument("--json", default=None, metavar="PATH")
     args = ap.parse_args(argv)
     plens = tuple(int(p) for p in args.prompt_len.split(","))
+    if args.config is not None:
+        archs = (FAMILY_ARCHS if args.config in ("families", "all")
+                 else tuple(x for x in args.config.split(",") if x))
+        for a in archs:
+            if a not in REFERENCE_ARCH_NAMES:
+                ap.error(f"--config: unknown arch {a!r} "
+                         f"(known: {sorted(REFERENCE_ARCH_NAMES)})")
+        rows = run_family_rows(
+            archs, smoke=args.smoke, device=args.device,
+            requests=args.requests, slots=args.slots, prompt_len=plens[0],
+            max_new=args.max_new_hi, prefill_chunk=args.prefill_chunk,
+            block_size=args.kv_block_size, eos_id=args.eos_id,
+            seed=args.seed)
+        print_family_rows(rows)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump({"backend": "torch", "families": rows}, f,
+                          indent=1)
+        return
     result = run_traffic(
         args.arch, smoke=args.smoke, device=args.device,
         requests=args.requests, slots=args.slots,

@@ -2,8 +2,9 @@
 
 The bundle carries plain functions closed over the config, the device,
 the dtypes and the serving knobs, for both KV layouts (slot and paged).
-The port serves the dense family; every other family raises, naming the
-slice of the port that brings it, as does a ring-buffer ServeConfig.
+The port serves the dense, SSM and hybrid families; MoE and
+encoder-decoder models raise, naming the slice of the port that brings
+them, as does a ring-buffer ServeConfig.
 """
 
 from __future__ import annotations
@@ -39,14 +40,12 @@ class Capabilities(NamedTuple):
 
 _LATER_FAMILIES = {
     BLOCK_MOE: "the model-families slice (MoE, dropless routing)",
-    BLOCK_SSM: "the model-families slice (SSM, with the ssd_scan kernel)",
-    BLOCK_HYBRID: "the model-families slice (hybrid, with the ssd_scan "
-                  "kernel)",
 }
 
 
 def derive_capabilities(cfg: ModelConfig) -> Capabilities:
-    """Map config structure to serving capabilities: the dense case."""
+    """Map config structure to serving capabilities (the reference's, for
+    the families the port serves)."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             "encoder-decoder models arrive with the model-families slice of "
@@ -55,6 +54,17 @@ def derive_capabilities(cfg: ModelConfig) -> Capabilities:
         raise NotImplementedError(
             "the patch_stub frontend arrives with the dense-family slice of "
             "the port")
+    if cfg.block in (BLOCK_SSM, BLOCK_HYBRID):
+        return Capabilities(
+            carried_state=True, state_leaves=("conv", "ssm"),
+            prefix_cache=False, kv_migration=False,
+            chunk_multiple=cfg.ssm_chunk, speculative=False,
+            reason="recurrent carried state is per-request, not in KV "
+                   "blocks: prefix caching and KV-block migration would "
+                   "silently drop it; chunk boundaries must fall on "
+                   "ssm_chunk multiples for bit-exact scan resume; "
+                   "speculative rollback cannot rewind carried state "
+                   "advanced through rejected draft tokens")
     if cfg.block != BLOCK_DENSE:
         raise NotImplementedError(
             f"block family {cfg.block!r} arrives with "

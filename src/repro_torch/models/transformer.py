@@ -1,5 +1,5 @@
-"""Dense decoder-only transformer: the port of the serving entry points of
-``src/repro/models/transformer.py``.
+"""Decoder-only LM of the dense, SSM and hybrid families: the port of the
+serving entry points of ``src/repro/models/transformer.py``.
 
 Paged layout (the paged continuous engine):
 
@@ -27,6 +27,16 @@ column: the reference's writes drop out-of-range slots, where
 rows, chunk padding) write their k/v there and store position -1, which
 keeps the column invisible — without a host sync.
 
+The SSM and hybrid families add the recurrent carried state of each row:
+``"conv"`` ``(L, rows, k-1, conv_dim)`` (compute dtype) and ``"ssm"``
+``(L, rows, h, p, n)`` float32, in the slot cache (one row per cache row)
+and beside the paged pool (one row per request row, threaded through the
+chunk steps by ``rows``). An attention-free cache (mamba2) has no
+``k``/``v``/``pos``. The hybrid block (hymba) runs attention and the SSM
+on the same normed input and averages their RMS-normed outputs. Decode
+keeps the state of parked rows; a chunk at ``pos0 == 0`` starts from
+zeros by a select, so a recycled row's stale state never leaks in.
+
 Every step writes its cache **in place**: PyTorch has no buffer donation,
 so where the reference returns a new cache the port updates the one it
 was given and returns only the logits. Only valid query tokens write
@@ -35,18 +45,20 @@ visible entries: parked rows (negative positions), chunk padding
 leave them byte-identical.
 
 Layers run as a Python loop. Paged attention goes through
-``kernels.paged_attention.ops.paged_attention``, and monolithic prefill
-on the card through ``kernels.flash_attention.ops.flash_attention``,
-unless the caller hands another function of the same signature in
-``attention`` (the plain version, for a comparison on the card). On the
-CPU, monolithic prefill mirrors the reference: kv repeated, then
-``full_attention`` or, above ``attn_chunk_threshold``,
-``chunked_attention``. Slot decode and slot chunks attend in plain
-PyTorch on both devices, as the reference computes them outside any
+``kernels.paged_attention.ops.paged_attention``, monolithic prefill on
+the card through ``kernels.flash_attention.ops.flash_attention``, and
+every SSD scan (monolithic prefill and chunks) through
+``kernels.ssd_scan.ops.ssd_scan``, unless the caller hands another
+function of the same signature in ``attention`` or ``scan`` (the plain
+versions, for a comparison on the card). On the CPU, monolithic prefill
+mirrors the reference: kv repeated, then ``full_attention`` or, above
+``attn_chunk_threshold``, ``chunked_attention``. Slot decode and slot
+chunks attend in plain PyTorch on both devices, and the one-token SSM
+decode is plain PyTorch, as the reference computes them outside any
 Pallas kernel.
 
-Ring-buffer caches (prompts longer than the cache) arrive with a later
-slice and raise here.
+Ring-buffer caches (prompts longer than the cache, with attention)
+arrive with a later slice and raise here.
 """
 
 from __future__ import annotations
@@ -56,19 +68,73 @@ from typing import Any, Dict, List
 
 import torch
 
-from repro_torch.config import ModelConfig, ServeConfig
+from repro_torch.config import (BLOCK_DENSE, BLOCK_HYBRID, BLOCK_SSM,
+                                ModelConfig, ServeConfig)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers as L
+from repro_torch.models import mamba
 
 #: monolithic prefill calls since the last :func:`reset_counters`; on the
-#: card each launches the flash kernel once per layer
+#: card each launches the flash kernel (attention families) and the SSD
+#: scan kernel (SSM families) once per layer
 prefill_calls = 0
+#: chunk forwards (slot or paged) since the last :func:`reset_counters`;
+#: on the card each launches the SSD scan kernel once per layer (SSM
+#: families)
+chunk_calls = 0
 
 
 def reset_counters() -> None:
-    global prefill_calls
-    prefill_calls = 0
+    global prefill_calls, chunk_calls
+    prefill_calls = chunk_calls = 0
+
+
+def has_state(cfg: ModelConfig) -> bool:
+    """Whether the family carries recurrent (conv + SSM) state."""
+    return cfg.block in (BLOCK_SSM, BLOCK_HYBRID)
+
+
+def _combine(cfg, p, h, a_out, s_out):
+    """The block's residual update from its attention and SSM outputs
+    (either may be None), then the MLP of the dense and hybrid blocks."""
+    if cfg.block == BLOCK_SSM:
+        h = h + s_out
+    elif cfg.block == BLOCK_HYBRID:
+        a_out = L.rmsnorm(a_out, p["attn_out_norm"], eps=cfg.norm_eps)
+        s_out = L.rmsnorm(s_out, p["ssm_out_norm"], eps=cfg.norm_eps)
+        h = h + 0.5 * (a_out + s_out)
+    else:
+        h = h + a_out
+    if cfg.block in (BLOCK_DENSE, BLOCK_HYBRID):
+        h = h + L.mlp_apply(p["mlp"], L.apply_norm(h, p["ln2"], cfg), cfg)
+    return h
+
+
+def _bcast(mask, like):
+    """A (B,) mask shaped to broadcast against ``like`` (B, ...)."""
+    return mask.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def _ssm_decode(cfg, p, xn, state, live):
+    """One-token SSM step; rows that are not ``live`` (parked) keep their
+    state, by a select."""
+    out, st = mamba.ssm_decode_step(p["ssm"], xn, state, cfg)
+    return out, {k: torch.where(_bcast(live, v), v.to(state[k].dtype),
+                                state[k]) for k, v in st.items()}
+
+
+def _ssm_chunk(cfg, p, xn, state, pos0, n_valid, scan):
+    """One chunk of the SSM: a row at ``pos0 == 0`` starts from zeros (a
+    select, not a multiply, so a stale row's garbage cannot leak into a
+    fresh prompt)."""
+    fresh = pos0 == 0
+    state = {k: torch.where(_bcast(fresh, v), torch.zeros_like(v), v)
+             for k, v in state.items()}
+    out, st = mamba.ssm_apply_chunk(p["ssm"], xn, cfg, state, n_valid,
+                                    scan=scan)
+    return out, {k: v.to(state[k].dtype) for k, v in st.items()}
 
 
 def kv_store_heads(cfg: ModelConfig, tp: int) -> int:
@@ -112,19 +178,34 @@ def _logits(cfg, params, hidden, compute_dtype):
     return logits
 
 
+def _state_leaves(cfg, rows: int, *, device, dtype):
+    """Carried-state leaves of ``rows`` rows: conv (L, rows, k-1,
+    conv_dim) in ``dtype``, ssm (L, rows, h, p, n) float32."""
+    Lc, di, n = cfg.num_layers, cfg.ssm_d_inner, cfg.ssm_state
+    return {"conv": torch.zeros((Lc, rows, cfg.ssm_conv - 1, di + 2 * n),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((Lc, rows, cfg.ssm_heads, cfg.ssm_head_dim,
+                                n), dtype=torch.float32, device=device)}
+
+
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
                      device, dtype, num_rows: int = 0
                      ) -> Dict[str, torch.Tensor]:
     """Global KV block pool: k/v ``(L, P, bs, Gs, hd)``. Table entry ``i`` of
     a request maps its tokens ``[i*bs, (i+1)*bs)`` onto one pool block
-    shared across all layers, so positions are structural. ``num_rows``
-    sizes the per-row carried-state leaves of the recurrent families; the
-    dense family has none, so it is accepted and unused."""
-    del num_rows
-    gs = kv_store_heads(cfg, 1)
-    shape = (cfg.num_layers, num_blocks, block_size, gs, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    shared across all layers, so positions are structural. Recurrent
+    carried state is not block-addressable: the SSM and hybrid families
+    add conv/ssm leaves ``(L, num_rows, ...)``, one row per engine request
+    row. An attention-free model has no k/v."""
+    c: Dict[str, torch.Tensor] = {}
+    if cfg.uses_attention:
+        gs = kv_store_heads(cfg, 1)
+        shape = (cfg.num_layers, num_blocks, block_size, gs, cfg.head_dim)
+        c["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if has_state(cfg):
+        c.update(_state_leaves(cfg, num_rows, device=device, dtype=dtype))
+    return c
 
 
 def _write_targets(tables, qpos, wvalid, bs):
@@ -164,19 +245,56 @@ def _paged_attn(cfg, p, xn, k_pool, v_pool, tables, qpos, lengths, targets,
     return L.attn_output(p, ctx, xn.dtype)
 
 
+def _row_indices(rows, num_rows: int, device):
+    """The chunk rows' state rows: (gather, dst, src). ``gather`` clamps
+    (a padding row reads a real row's state and is never written back);
+    ``dst``/``src`` select the rows in range, so an out-of-range row writes
+    nothing (the reference's drop mode). Decided on the host: ``rows``
+    is a sequence, array or CPU tensor (a CUDA tensor is read back, one
+    sync)."""
+    r = torch.as_tensor(rows).cpu().long()
+    keep = ((r >= 0) & (r < num_rows)).nonzero().flatten()
+    return (r.clamp(0, num_rows - 1).to(device), r[keep].to(device),
+            keep.to(device))
+
+
 def _paged_backbone(cfg, params, x, cache, tables, qpos, wvalid, lengths,
-                    attention):
-    """The dense branch of the reference's paged backbone, as a loop over
-    layers. Returns the final-normed hidden states (B, C, d)."""
-    bs = cache["k"].shape[2]
-    targets = _write_targets(tables, qpos, wvalid, bs)
+                    attention, scan, chunk=None):
+    """The reference's paged backbone as a loop over layers. KV goes
+    through the block tables; the carried state (SSM and hybrid) is
+    row-aligned: in decode (``chunk`` None) it advances full width in
+    place, parked rows keeping theirs; in a chunk, ``chunk = (rows, pos0,
+    n_valid)``, the chunk rows' state is gathered at ``rows``, zeroed for
+    fresh prompts, advanced and scattered back. Returns the final-normed
+    hidden states (B, C, d)."""
+    if cfg.uses_attention:
+        targets = _write_targets(tables, qpos, wvalid, cache["k"].shape[2])
+    if has_state(cfg) and chunk is not None:
+        rows, pos0, n_valid = chunk
+        gather, dst, src = _row_indices(rows, cache["conv"].shape[1],
+                                        x.device)
     h = x
     for i, (p_l, flag) in enumerate(zip(params["blocks"], layer_flags(cfg))):
         xn = L.apply_norm(h, p_l["ln1"], cfg)
-        h = h + _paged_attn(cfg, p_l["attn"], xn, cache["k"][i],
-                            cache["v"][i], tables, qpos, lengths, targets,
-                            flag, attention)
-        h = h + L.mlp_apply(p_l["mlp"], L.apply_norm(h, p_l["ln2"], cfg), cfg)
+        a_out = s_out = None
+        if cfg.uses_attention:
+            a_out = _paged_attn(cfg, p_l["attn"], xn, cache["k"][i],
+                                cache["v"][i], tables, qpos, lengths,
+                                targets, flag, attention)
+        if has_state(cfg):
+            leaves = {k: cache[k][i] for k in ("conv", "ssm")}
+            if chunk is None:
+                s_out, st = _ssm_decode(cfg, p_l, xn, leaves, qpos[:, 0] >= 0)
+                for k, v in st.items():
+                    leaves[k].copy_(v)
+            else:
+                state = {k: v.index_select(0, gather)
+                         for k, v in leaves.items()}
+                s_out, st = _ssm_chunk(cfg, p_l, xn, state, pos0, n_valid,
+                                       scan)
+                for k, v in st.items():
+                    leaves[k].index_copy_(0, dst, v.index_select(0, src))
+        h = _combine(cfg, p_l, h, a_out, s_out)
     return L.apply_norm(h, params["final_norm"], cfg)
 
 
@@ -186,26 +304,31 @@ def decode_step_paged(cfg, params, cache, tokens, positions, block_tables,
 
     tokens (B,1) int, positions (B,) int, block_tables (B,NB) int32 ->
     logits (B,Vp) float32; ``cache`` is updated in place. A negative
-    (parked) position writes nothing and yields a garbage row the engine
-    discards."""
+    (parked) position writes nothing, keeps its row's carried state, and
+    yields a garbage row the engine discards. The batch is every request
+    row (row-aligned with the carried state)."""
     x = embed_tokens(cfg, params, tokens, compute_dtype)
     qpos = positions.long()[:, None]                  # (B, 1)
     wvalid = qpos >= 0
     lengths = (positions.long() + 1).to(torch.int32)
     h = _paged_backbone(cfg, params, x, cache, block_tables, qpos, wvalid,
-                        lengths, attention)
+                        lengths, attention, None)
     return _logits(cfg, params, h[:, 0], compute_dtype)
 
 
-def prefill_chunk_paged(cfg, params, cache, tokens, block_tables, pos0,
+def prefill_chunk_paged(cfg, params, cache, tokens, block_tables, rows, pos0,
                         n_valid, *, compute_dtype,
-                        attention=ops.paged_attention):
+                        attention=ops.paged_attention, scan=ssd_ops.ssd_scan):
     """Fixed-shape chunked prompt deposit through block tables.
 
-    tokens (B,C) int; block_tables (B,NB); pos0, n_valid (B,) int ->
-    logits at each row's last valid position (B,Vp) float32; ``cache`` is
-    updated in place. Padding rows carry an all ``-1`` table and
-    ``n_valid == 0``: nothing is written and their logits are garbage."""
+    tokens (B,C) int; block_tables (B,NB); rows (B,) each chunk row's
+    engine request row (on the host: a sequence, array or CPU tensor);
+    pos0, n_valid (B,) int -> logits at each row's last valid position
+    (B,Vp) float32; ``cache`` is updated in place. Padding rows carry an
+    all ``-1`` table, ``n_valid == 0`` and an out-of-range ``rows`` entry:
+    nothing is written and their logits are garbage. ``rows`` matters only
+    to the families with carried state."""
+    global chunk_calls
     B, C = tokens.shape
     dev = tokens.device
     x = embed_tokens(cfg, params, tokens, compute_dtype)
@@ -214,7 +337,8 @@ def prefill_chunk_paged(cfg, params, cache, tokens, block_tables, pos0,
     wvalid = j < n_valid.long()[:, None]
     lengths = (pos0.long() + C).to(torch.int32)
     h = _paged_backbone(cfg, params, x, cache, block_tables, qpos, wvalid,
-                        lengths, attention)
+                        lengths, attention, scan, chunk=(rows, pos0, n_valid))
+    chunk_calls += 1
     last = (n_valid.long() - 1).clamp(0, C - 1)
     hidden = h[torch.arange(B, device=dev), last]
     return _logits(cfg, params, hidden, compute_dtype)
@@ -233,15 +357,21 @@ def ring_buffer_not_ported() -> NotImplementedError:
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device,
                dtype) -> Dict[str, torch.Tensor]:
-    """Empty slot cache for ``batch`` rows of ``cache_len`` tokens: k/v
-    ``(L, batch, cache_len + 1, Gs, hd)`` zeros (the last column is the
-    scratch column) and pos ``(batch, cache_len + 1)`` int32, all -1."""
-    gs = kv_store_heads(cfg, 1)
-    shape = (cfg.num_layers, batch, cache_len + 1, gs, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((batch, cache_len + 1), -1, dtype=torch.int32,
-                              device=device)}
+    """Empty slot cache for ``batch`` rows of ``cache_len`` tokens: with
+    attention, k/v ``(L, batch, cache_len + 1, Gs, hd)`` zeros (the last
+    column is the scratch column) and pos ``(batch, cache_len + 1)`` int32,
+    all -1; with carried state, conv/ssm ``(L, batch, ...)`` zeros."""
+    c: Dict[str, torch.Tensor] = {}
+    if cfg.uses_attention:
+        gs = kv_store_heads(cfg, 1)
+        shape = (cfg.num_layers, batch, cache_len + 1, gs, cfg.head_dim)
+        c["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["pos"] = torch.full((batch, cache_len + 1), -1, dtype=torch.int32,
+                              device=device)
+    if has_state(cfg):
+        c.update(_state_leaves(cfg, batch, device=device, dtype=dtype))
+    return c
 
 
 def _attn_branch(cfg, p, xn, positions, is_global, serve: ServeConfig,
@@ -280,45 +410,58 @@ def _attn_branch(cfg, p, xn, positions, is_global, serve: ServeConfig,
     return L.attn_output(p, ctx, xn.dtype), k, v
 
 
-def block_forward(cfg, p, x, positions, is_global, serve, attention):
-    """One dense block over a whole sequence: returns (x, k, v)."""
-    a_out, k, v = _attn_branch(cfg, p["attn"],
-                               L.apply_norm(x, p["ln1"], cfg), positions,
-                               is_global, serve, attention)
-    x = x + a_out
-    x = x + L.mlp_apply(p["mlp"], L.apply_norm(x, p["ln2"], cfg), cfg)
-    return x, k, v
+def block_forward(cfg, p, x, positions, is_global, serve, attention,
+                  scan):
+    """One block over a whole sequence: returns (x, k, v, state) — k, v
+    None without attention, the carried state None without an SSM."""
+    xn = L.apply_norm(x, p["ln1"], cfg)
+    a_out = s_out = k = v = state = None
+    if cfg.uses_attention:
+        a_out, k, v = _attn_branch(cfg, p["attn"], xn, positions, is_global,
+                                   serve, attention)
+    if has_state(cfg):
+        s_out, state = mamba.ssm_apply(p["ssm"], xn, cfg, return_state=True,
+                                       scan=scan)
+    return _combine(cfg, p, x, a_out, s_out), k, v, state
 
 
-def backbone(cfg, params, x, positions, serve, cache, attention):
+def backbone(cfg, params, x, positions, serve, cache, attention, scan):
     """The blocks over x (B,S,d) at ``positions`` (S,), as a loop over
-    layers; layer i's k/v land in ``cache[...][i, :, :S]``. Returns the
-    final-normed hidden states (B,S,d)."""
+    layers; layer i's k/v land in ``cache[...][i, :, :S]`` and its carried
+    state in ``cache["conv"/"ssm"][i]``. Returns the final-normed hidden
+    states (B,S,d)."""
     S = x.shape[1]
-    gs = cache["k"].shape[3]
     h = x
     for i, (p_l, flag) in enumerate(zip(params["blocks"], layer_flags(cfg))):
-        h, k, v = block_forward(cfg, p_l, h, positions, flag, serve,
-                                attention)
-        cache["k"][i, :, :S] = L.repeat_kv(k, gs).to(cache["k"].dtype)
-        cache["v"][i, :, :S] = L.repeat_kv(v, gs).to(cache["v"].dtype)
+        h, k, v, state = block_forward(cfg, p_l, h, positions, flag, serve,
+                                       attention, scan)
+        if k is not None:
+            gs = cache["k"].shape[3]
+            cache["k"][i, :, :S] = L.repeat_kv(k, gs).to(cache["k"].dtype)
+            cache["v"][i, :, :S] = L.repeat_kv(v, gs).to(cache["v"].dtype)
+        if state is not None:
+            for name, t in state.items():
+                cache[name][i] = t.to(cache[name].dtype)
     return L.apply_norm(h, params["final_norm"], cfg)
 
 
 def prefill(cfg, params, tokens, cache_len: int, *, compute_dtype, serve,
-            attention=flash_ops.flash_attention):
+            attention=flash_ops.flash_attention, scan=ssd_ops.ssd_scan):
     """Run whole prompts: tokens (B,S) int -> (last-position logits (B,Vp)
-    float32, slot cache of ``cache_len`` tokens holding the prompts)."""
+    float32, slot cache of ``cache_len`` tokens holding the prompts and
+    their carried state)."""
     global prefill_calls
     B, S = tokens.shape
-    if S > cache_len:
+    if cfg.uses_attention and S > cache_len:
         raise ring_buffer_not_ported()
     dev = tokens.device
     x = embed_tokens(cfg, params, tokens, compute_dtype)
     positions = torch.arange(S, device=dev)
     cache = init_cache(cfg, B, cache_len, device=dev, dtype=compute_dtype)
-    hidden = backbone(cfg, params, x, positions, serve, cache, attention)
-    cache["pos"][:, :S] = positions.to(torch.int32)
+    hidden = backbone(cfg, params, x, positions, serve, cache, attention,
+                      scan)
+    if cfg.uses_attention:
+        cache["pos"][:, :S] = positions.to(torch.int32)
     prefill_calls += 1
     return _logits(cfg, params, hidden[:, -1], compute_dtype), cache
 
@@ -366,23 +509,37 @@ def _cached_attn(cfg, p, xn, k_cache, v_cache, kpos, qpos, rows, wcol,
                                    xn.dtype)
 
 
-def _slot_backbone(cfg, params, x, cache, qpos, valid):
-    """The dense blocks over the slot cache (in place). Valid queries
-    write column ``qpos % W`` and store ``qpos``; the others write the
-    scratch column ``W`` and store -1. The position row is shared by the
-    layers, so it is written once, before them."""
+def _slot_backbone(cfg, params, x, cache, qpos, valid, scan, chunk=None):
+    """The blocks over the slot cache (in place). Valid queries write
+    column ``qpos % W`` and store ``qpos``; the others write the scratch
+    column ``W`` and store -1. The position row is shared by the layers,
+    so it is written once, before them. The carried state advances per
+    row: in decode (``chunk`` None) parked rows keep theirs; in a chunk,
+    ``chunk = (pos0, n_valid)``, rows at ``pos0 == 0`` start from zeros."""
     B = x.shape[0]
-    W = cache["pos"].shape[1] - 1
-    rows = torch.arange(B, device=x.device)[:, None]
-    wcol = torch.where(valid, torch.remainder(qpos, W), W)
-    cache["pos"][rows, wcol] = torch.where(valid, qpos, -1).to(torch.int32)
-    kpos = cache["pos"].long()
+    if cfg.uses_attention:
+        W = cache["pos"].shape[1] - 1
+        rows = torch.arange(B, device=x.device)[:, None]
+        wcol = torch.where(valid, torch.remainder(qpos, W), W)
+        cache["pos"][rows, wcol] = torch.where(valid, qpos, -1).to(
+            torch.int32)
+        kpos = cache["pos"].long()
     h = x
     for i, (p_l, flag) in enumerate(zip(params["blocks"], layer_flags(cfg))):
         xn = L.apply_norm(h, p_l["ln1"], cfg)
-        h = h + _cached_attn(cfg, p_l["attn"], xn, cache["k"][i],
-                             cache["v"][i], kpos, qpos, rows, wcol, flag)
-        h = h + L.mlp_apply(p_l["mlp"], L.apply_norm(h, p_l["ln2"], cfg), cfg)
+        a_out = s_out = None
+        if cfg.uses_attention:
+            a_out = _cached_attn(cfg, p_l["attn"], xn, cache["k"][i],
+                                 cache["v"][i], kpos, qpos, rows, wcol, flag)
+        if has_state(cfg):
+            leaves = {k: cache[k][i] for k in ("conv", "ssm")}
+            if chunk is None:
+                s_out, st = _ssm_decode(cfg, p_l, xn, leaves, qpos[:, 0] >= 0)
+            else:
+                s_out, st = _ssm_chunk(cfg, p_l, xn, leaves, *chunk, scan)
+            for k, v in st.items():
+                leaves[k].copy_(v)
+        h = _combine(cfg, p_l, h, a_out, s_out)
     return L.apply_norm(h, params["final_norm"], cfg)
 
 
@@ -390,27 +547,31 @@ def decode_step(cfg, params, cache, tokens, positions, *, compute_dtype):
     """Batched one-token decode over a slot cache: tokens (B,1) int,
     positions (B,) int (one per cache row) -> logits (B,Vp) float32;
     ``cache`` is updated in place. A negative (parked) position writes
-    nothing visible and yields a garbage row the engine discards."""
+    nothing visible, keeps its row's carried state, and yields a garbage
+    row the engine discards."""
     x = embed_tokens(cfg, params, tokens, compute_dtype)
     qpos = positions.long()[:, None]                  # (B, 1)
-    h = _slot_backbone(cfg, params, x, cache, qpos, qpos >= 0)
+    h = _slot_backbone(cfg, params, x, cache, qpos, qpos >= 0, None)
     return _logits(cfg, params, h[:, 0], compute_dtype)
 
 
 def prefill_chunk(cfg, params, cache, tokens, pos0, n_valid, *,
-                  compute_dtype):
+                  compute_dtype, scan=ssd_ops.ssd_scan):
     """Fixed-shape chunked prompt deposit into slot-cache rows: tokens
     (B,C) int, pos0 / n_valid (B,) int -> logits at each row's last valid
     position (B,Vp) float32; ``cache`` is updated in place. Padding
-    positions (``j >= n_valid``) write no visible entry and draw no
-    attention weight from valid queries."""
+    positions (``j >= n_valid``) write no visible entry, draw no attention
+    weight from valid queries and leave the carried state as it was."""
+    global chunk_calls
     B, C = tokens.shape
     dev = tokens.device
     x = embed_tokens(cfg, params, tokens, compute_dtype)
     j = torch.arange(C, device=dev)[None, :]
     qpos = pos0.long()[:, None] + j
     h = _slot_backbone(cfg, params, x, cache, qpos,
-                       j < n_valid.long()[:, None])
+                       j < n_valid.long()[:, None], scan,
+                       chunk=(pos0.to(dev), n_valid))
+    chunk_calls += 1
     last = (n_valid.long() - 1).clamp(0, C - 1)
     hidden = h[torch.arange(B, device=dev), last]
     return _logits(cfg, params, hidden, compute_dtype)
@@ -419,8 +580,9 @@ def prefill_chunk(cfg, params, cache, tokens, pos0, n_valid, *,
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device,
                    dtype) -> Dict[str, Any]:
     """Parameters with the reference's init scheme (truncated-normal
-    fan-in weights, 0.02 embedding, zero unit-offset norms), drawn from
-    ``generator`` — the scheme, not the reference's bits."""
+    fan-in weights, 0.02 embedding, zero unit-offset norms, the SSM's own
+    scheme), drawn from ``generator`` — the scheme, not the reference's
+    bits."""
     d, h, hkv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim, cfg.d_ff)
 
@@ -438,15 +600,26 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device,
         "blocks": [],
     }
     for _ in range(cfg.num_layers):
-        params["blocks"].append({
-            "ln1": norm(),
-            "attn": {"wq": dense((d, h, hd), d), "wk": dense((d, hkv, hd), d),
-                     "wv": dense((d, hkv, hd), d),
-                     "wo": dense((h, hd, d), h * hd)},
-            "ln2": norm(),
-            "mlp": {"w_gate": dense((d, f), d), "w_up": dense((d, f), d),
-                    "w_down": dense((f, d), f)},
-        })
+        blk: Dict[str, Any] = {"ln1": norm()}
+        if cfg.uses_attention:
+            blk["attn"] = {"wq": dense((d, h, hd), d),
+                           "wk": dense((d, hkv, hd), d),
+                           "wv": dense((d, hkv, hd), d),
+                           "wo": dense((h, hd, d), h * hd)}
+        if has_state(cfg):
+            blk["ssm"] = mamba.init_ssm(cfg, generator, device, dtype)
+        if cfg.block == BLOCK_HYBRID:
+            # per-branch output norms before the average (hymba)
+            blk["attn_out_norm"] = torch.ones((d,), dtype=dtype,
+                                              device=device)
+            blk["ssm_out_norm"] = torch.ones((d,), dtype=dtype,
+                                             device=device)
+        if cfg.block in (BLOCK_DENSE, BLOCK_HYBRID):
+            blk["ln2"] = norm()
+            blk["mlp"] = {"w_gate": dense((d, f), d),
+                          "w_up": dense((d, f), d),
+                          "w_down": dense((f, d), f)}
+        params["blocks"].append(blk)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((d, cfg.padded_vocab), d)
     return params

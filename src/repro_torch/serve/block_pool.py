@@ -12,7 +12,10 @@ admission gates on free blocks instead of free slots.
 * :class:`PagedKVCache` — the engine-facing cache: the device pool
   (``model.init_paged_cache``), a fixed set of request rows, one block
   table per row, and a device copy of the tables that is rebuilt only
-  after an alloc, free or reset.
+  after an alloc, free or reset. For the SSM and hybrid families the
+  pool also holds each request row's carried state (conv/ssm leaves,
+  row-aligned, ``(L, num_slots, ...)``); an attention-free model's pool
+  holds the state alone.
 
 Host-side length and refcount bookkeeping is ``np.int32``, the dtype of
 the device positions and tables.
@@ -245,8 +248,8 @@ class PagedKVCache:
 
     @property
     def buffers(self):
-        """The pooled cache (k/v: (L, P, bs, Gs, hd)), written in place by
-        the model's steps."""
+        """The pooled cache (k/v: (L, P, bs, Gs, hd); conv/ssm: (L,
+        num_slots, ...)), written in place by the model's steps."""
         return self._buf
 
     # -- accounting --------------------------------------------------------
@@ -261,6 +264,7 @@ class PagedKVCache:
 
     @property
     def kv_bytes(self) -> int:
+        """Device bytes of every leaf, the carried state included."""
         return int(sum(t.numel() * t.element_size()
                        for t in self._buf.values()))
 

@@ -28,12 +28,20 @@ rows. Two KV layouts:
   and decode reads through them (:func:`decode_step_paged`, the decode
   kernel).
 
+The SSM and hybrid families carry recurrent state per row (the model's
+conv/ssm leaves in either pool): the engine follows the reference's
+capability checks (``Capabilities``: a chunk is floored to
+``chunk_multiple`` and raises when nothing is left), hands the paged
+chunk step each job's request row (``rows``, on the host), and prices
+the state in admission (``_carried_state_bytes``).
+
 Rows that are free or still prefilling ride along in decode parked (a
-far-negative position): they write nothing visible and their logits are
-dropped. The caches are updated in place by the model's steps. Sampling
-is greedy ``argmax``; a request with ``temperature > 0`` draws from its
-own ``torch.Generator`` seeded from ``(seed, rid)`` — deterministic
-within the port, not the reference's bits. Each micro-step syncs with
+far-negative position): they write nothing visible, keep their carried
+state, and their logits are dropped. The caches are updated in place by
+the model's steps. Sampling is greedy ``argmax``; a request with
+``temperature > 0`` draws from its own ``torch.Generator`` seeded from
+``(seed, rid)`` — deterministic within the port, not the reference's
+bits. Each micro-step syncs with
 the host once, to read the sampled tokens.
 
 Not ported yet, and raising ``NotImplementedError`` naming the slice
@@ -193,9 +201,25 @@ class ContinuousEngine:
         self.eos_id = eos_id
         self.kv_layout = kv_layout
         self.max_prefill_per_step = max(1, int(max_prefill_per_step))
-        # 0 = monolithic prefill (slot layout only)
-        self.prefill_chunk = (min(int(prefill_chunk), self.cache_len)
-                              if prefill_chunk else 0)
+        #: structural serving capabilities (registry.derive_capabilities)
+        self.capabilities = caps = model.capabilities
+        chunk = int(prefill_chunk) if prefill_chunk else 0
+        if chunk:
+            chunk = min(chunk, self.cache_len)
+            mult = int(caps.chunk_multiple)
+            if mult > 1:
+                # recurrent families resume bit-exactly only when chunk
+                # boundaries fall on ssm_chunk multiples: clamp down
+                chunk = (chunk // mult) * mult
+                if chunk == 0:
+                    raise ValueError(
+                        f"prefill_chunk={prefill_chunk} (after the "
+                        f"cache_len={cache_len} clamp) is below this "
+                        f"family's chunk_multiple={mult}; chunk boundaries "
+                        f"must fall on multiples of {mult} for bit-exact "
+                        "recurrent-state resume")
+        #: 0 = monolithic prefill (slot layout only)
+        self.prefill_chunk = chunk
         paged = kv_layout == "paged"
         if paged:
             if not self.prefill_chunk:
@@ -215,7 +239,8 @@ class ContinuousEngine:
         self.scheduler = scheduler or CellQueueScheduler(
             num_cells=4 * num_slots,
             prefill_chunk_bytes=4 * self.prefill_chunk,
-            block_bytes=4 * int(block_size) if paged else 0)
+            block_bytes=4 * int(block_size) if paged else 0,
+            state_bytes=self._carried_state_bytes())
         #: partially-deposited requests, FIFO; each micro-step serves the
         #: first ``max_prefill_per_step`` of them with one fused dispatch
         self._prefilling: Deque[_PrefillJob] = deque()
@@ -223,6 +248,18 @@ class ContinuousEngine:
         self.peak_live = 0
         self._resident_tok_sum = 0
         self._reserved_tok_sum = 0
+
+    def _carried_state_bytes(self) -> int:
+        """Per-request bytes of carried (non-KV) state: the scheduler
+        prices one extra interthread handoff per admission for it (the
+        state row travels with the request, unlike pool-resident KV)."""
+        caps = self.capabilities
+        if not caps.carried_state:
+            return 0
+        buf = self.kv.buffers
+        total = sum(t.numel() * t.element_size()
+                    for name, t in buf.items() if name in caps.state_leaves)
+        return int(total) // max(1, self.kv.num_slots)
 
     def _fresh_state(self) -> None:
         """Per-row decode state, on the host: next input token, next
@@ -387,8 +424,11 @@ class ContinuousEngine:
                 torch.as_tensor(n_valid).to(dev))
         if self.kv_layout == "paged":
             tables = torch.as_tensor(self.kv.table_rows(slots)).to(dev)
+            # the rows of the carried state stay on the host: the model
+            # decides which state rows to write there, without a sync
             logits = self.model.prefill_chunk_paged(
-                self.params, self.kv.buffers, args[0], tables, *args[1:])
+                self.params, self.kv.buffers, args[0], tables,
+                torch.as_tensor(slots), *args[1:])
         else:
             rows = self.kv.rows_at(slots)
             logits = self.model.prefill_chunk(self.params, rows, *args)

@@ -4,7 +4,9 @@ serving pools (the reference's ``serve/kv_cache.py``).
 The decode state of every in-flight request lives in one cache of
 fixed-capacity *slots*, one row per request: the model's slot cache
 (``model.init_cache(num_slots, cache_len)``: k/v ``(L, num_slots, W + 1,
-Gs, hd)``, pos ``(num_slots, W + 1)``). Requests are admitted by
+Gs, hd)``, pos ``(num_slots, W + 1)``, and for the SSM and hybrid
+families the carried state conv/ssm ``(L, num_slots, ...)``; an
+attention-free cache holds the state alone). Requests are admitted by
 allocating a slot and depositing their prefilled cache into it (or by
 blanking it and streaming the prompt in chunk by chunk); they retire by
 freeing the slot, whose rows the next occupant overwrites.
@@ -45,8 +47,9 @@ class LeaseLeakWarning(UserWarning):
     can't pass silently."""
 
 
-#: the slot axis of each cache leaf (k/v are layer-major)
-_SLOT_AXIS = {"k": 1, "v": 1, "pos": 0}
+#: the slot axis of each cache leaf (k/v and the carried state are
+#: layer-major)
+_SLOT_AXIS = {"k": 1, "v": 1, "pos": 0, "conv": 1, "ssm": 1}
 
 
 class SlotKVCache:
@@ -58,6 +61,7 @@ class SlotKVCache:
         self.cache_len = int(cache_len)
         self.num_slots = int(num_slots)
         self._buf = model.init_cache(num_slots, cache_len)
+        self._device = next(iter(self._buf.values())).device
         self._free: List[int] = list(range(num_slots - 1, -1, -1))
         self._owner: List[Optional[object]] = [None] * num_slots
         self._last_owner: List[Optional[object]] = [None] * num_slots
@@ -71,7 +75,7 @@ class SlotKVCache:
         reference's gather does (their rows are never written back)."""
         idx = torch.as_tensor(np.clip(np.asarray(slots, np.int64), 0,
                                       self.num_slots - 1),
-                              device=self._buf["pos"].device)
+                              device=self._device)
         return {k: b.index_select(_SLOT_AXIS[k], idx)
                 for k, b in self._buf.items()}
 
@@ -83,9 +87,8 @@ class SlotKVCache:
         keep = np.flatnonzero((slots >= 0) & (slots < self.num_slots))
         if keep.size == 0:
             return
-        dev = self._buf["pos"].device
-        dst = torch.as_tensor(slots[keep], device=dev)
-        src = torch.as_tensor(keep, device=dev)
+        dst = torch.as_tensor(slots[keep], device=self._device)
+        src = torch.as_tensor(keep, device=self._device)
         for k, b in self._buf.items():
             ax = _SLOT_AXIS[k]
             b.index_copy_(ax, dst, rows[k].index_select(ax, src).to(b.dtype))
@@ -133,7 +136,8 @@ class SlotKVCache:
     @property
     def buffers(self) -> Dict[str, torch.Tensor]:
         """The pool's cache (k/v: (L, num_slots, W+1, Gs, hd), pos:
-        (num_slots, W+1)), written in place by the model's steps."""
+        (num_slots, W+1); conv/ssm: (L, num_slots, ...)), written in place
+        by the model's steps."""
         return self._buf
 
     @property
@@ -163,9 +167,9 @@ class SlotKVCache:
     # -- chunked prefill (incremental deposit) -----------------------------
     def reset_slot(self, slot: int) -> None:
         """Blank a live slot before streaming a prompt into it chunk by
-        chunk: positions to -1, k/v to zeros. A chunked deposit *appends*
-        entries, so the previous occupant's must not alias as valid
-        history."""
+        chunk: positions to -1, k/v and the carried state to zeros. A
+        chunked deposit *appends* entries, so the previous occupant's must
+        not alias as valid history."""
         if self._owner[slot] is None:
             raise SlotError(f"reset of free slot {slot}")
         for k, b in self._buf.items():

@@ -87,7 +87,7 @@ class CellQueueScheduler:
     def __init__(self, num_cells: int = 16,
                  cell_size: int = protocol.DEFAULT_CELL_SIZE,
                  itemsize: int = 4, prefill_chunk_bytes: int = 0,
-                 block_bytes: int = 0):
+                 block_bytes: int = 0, state_bytes: int = 0):
         if num_cells < 1:
             raise ValueError("need at least one cell")
         self.num_cells = int(num_cells)
@@ -101,6 +101,14 @@ class CellQueueScheduler:
         # >0: the deposit target is a paged pool — chunked prompts pay the
         # per-block table surcharge on top of the chunked handoff
         self.block_bytes = int(block_bytes)
+        # >0: the model carries per-request non-KV state (SSM/hybrid
+        # recurrent state) of this many bytes per row; each admission pays
+        # one extra interthread handoff for installing it, priced once in
+        # _classify
+        self.state_bytes = int(state_bytes)
+        self._state_cost_s = (
+            protocol.interthread_latency(self.state_bytes, self.host_model)
+            if self.state_bytes > 0 else 0.0)
         self.cells_free = int(num_cells)
         self._cellq: Deque[ServeRequest] = deque()      # buffered (eager)
         self._overflow: Deque[ServeRequest] = deque()   # eager, pool full
@@ -147,7 +155,8 @@ class CellQueueScheduler:
         req.nbytes = int(req.batch["tokens"].size) * self.itemsize
         req.protocol = protocol.select_protocol(
             req.nbytes, interthread=True, cell=self.cell_size)
-        req.admit_cost_s = self._price(req.nbytes, req.protocol)
+        req.admit_cost_s = (self._price(req.nbytes, req.protocol)
+                            + self._state_cost_s)
         req.cells = (max(1, math.ceil(req.nbytes / self.cell_size))
                      if req.protocol in EAGER_CLASS else 0)
         self.modeled_admit_cost_s += req.admit_cost_s
@@ -174,7 +183,8 @@ class CellQueueScheduler:
             # the rendezvous discipline, and their accounting says so
             self.modeled_admit_cost_s -= req.admit_cost_s
             req.protocol = "one_copy"
-            req.admit_cost_s = self._price(req.nbytes, "one_copy")
+            req.admit_cost_s = (self._price(req.nbytes, "one_copy")
+                                + self._state_cost_s)
             self.modeled_admit_cost_s += req.admit_cost_s
         req.cells = 0
         self._rendezvous.append(req)
@@ -264,15 +274,22 @@ class TraceEntry:
 
 
 def make_trace(n_requests: int, *, prompt_len, max_new, rate: float = 100.0,
-               seed: int = 0) -> List[TraceEntry]:
-    """Poisson arrival trace (exponential gaps at ``rate`` req/s).
-    ``max_new`` is an int or an inclusive ``(lo, hi)`` range sampled per
-    request. ``prompt_len`` is an int or a sequence cycled across
-    requests — e.g. ``(16, 256)``. The numpy draws follow the reference's
-    order, so one seed gives the reference's poisson trace."""
+               arrival: str = "poisson", seed: int = 0) -> List[TraceEntry]:
+    """Arrival trace: ``arrival`` is ``"poisson"`` (exponential gaps at
+    ``rate`` req/s) or ``"all"`` (everything at t=0). ``max_new`` is an
+    int or an inclusive ``(lo, hi)`` range sampled per request.
+    ``prompt_len`` is an int or a sequence cycled across requests — e.g.
+    ``(16, 256)``. The numpy draws follow the reference's order, so one
+    seed gives the reference's trace."""
     rng = np.random.default_rng(seed)
-    gaps = rng.exponential(1.0 / rate, size=n_requests)
-    times = np.cumsum(gaps) - gaps[0]
+    if arrival == "poisson":
+        gaps = rng.exponential(1.0 / rate, size=n_requests)
+        times = np.cumsum(gaps) - gaps[0]
+    elif arrival == "all":
+        times = np.zeros(n_requests)
+    else:
+        raise ValueError(f"unknown arrival kind {arrival!r} (poisson or "
+                         "all)")
     if isinstance(max_new, int):
         news = np.full(n_requests, max_new)
     else:

@@ -222,8 +222,8 @@ def test_unported_paths_raise_naming_the_slice(bundles):
         with pytest.raises(NotImplementedError, match=what):
             launch.run_traffic(smoke=True, device="cpu", **{flag: True})
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        get_config("mamba2-370m")
+    with pytest.raises(NotImplementedError, match="olmoe"):
+        get_config("olmoe-1b-7b")
 
 
 def test_entry_points_raise_without_a_card(bundles, monkeypatch):

@@ -68,7 +68,8 @@ def _run_both(models, kind, pool, *args):
     else:
         tokens, tables, pos0, n_valid = args
         rows = np.arange(len(pos0), dtype=np.int32)
-        port = model.prefill_chunk_paged(params, tpool, *targs)
+        port = model.prefill_chunk_paged(params, tpool, *targs[:2],
+                                         torch.as_tensor(rows), *targs[2:])
         ref, jpool = jmodel.prefill_chunk_paged(
             jparams, jpool, *jargs[:2], jnp.asarray(rows), *jargs[2:])
     return (port.numpy(), np.asarray(ref),
@@ -163,7 +164,8 @@ def test_chunks_then_decode_track_reference(models):
         pos0, nv = np.array([off], np.int32), np.array([n], np.int32)
         port = model.prefill_chunk_paged(
             params, tpool, torch.as_tensor(tok), torch.as_tensor(tables),
-            torch.as_tensor(pos0), torch.as_tensor(nv))
+            torch.zeros(1, dtype=torch.int64), torch.as_tensor(pos0),
+            torch.as_tensor(nv))
         ref, jpool = jmodel.prefill_chunk_paged(
             jparams, jpool, jnp.asarray(tok), jnp.asarray(tables), rows,
             jnp.asarray(pos0), jnp.asarray(nv))
