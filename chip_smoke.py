@@ -8,26 +8,36 @@ Phases (any failure exits non-zero and prints no result):
 1. Environment: Python, torch and CUDA versions, ``nvcc --version``,
    the card's name and power limit.
 2. Build: every kernel (``src/repro_torch/kernels/*/csrc/*.cu``: both
-   paged-attention kernels, the flash-attention kernel, both msgq
-   message copies, eager and 1-copy, and the SSD chunk scan) compiled by
-   nvcc for sm_90a, one nvcc per source, all at once.
+   paged-attention kernels and their combine pass, the flash-attention
+   kernel, both msgq message copies, eager and 1-copy, and the SSD chunk
+   scan) compiled by nvcc for sm_90a, one nvcc per source, all at once;
+   ptxas's registers and spills, and the spill bytes summed by source.
 3. Kernels vs their plain versions (``ref.py``) on the card, in float32
    and bfloat16. Paged attention at gemma-2b's head shapes (H=8, Hkv=1,
    hd=256, bs=16) — long decode rows, chunks at pos0 0/64/192, and the
    serve phase's own batch and table widths — plus a GQA case with a
    window and a softcap, and hymba-1.5b's head shapes (H=25, Hkv=5,
    hd=64) at the serve phase's decode batch (8) and chunk (2 x 128) with
-   its 2048 window and without it (global layers), and past the window.
-   Flash attention at the monolithic prefill's shapes (B=1 and 8 at S=16
-   and 256, B=4 at S=256), a ragged length, a q_offset continuation, a
+   its 2048 window and without it (global layers), and past the window;
+   then both paged kernels at the split boundaries of their launch plan
+   (``ops.plan``), at hymba's heads and at hd 128 (H=16, Hkv=2): lengths
+   at a split's edge and one either side, a split wholly of -1 entries, a
+   split wholly before the window, tables of 163 entries against lengths
+   up to 300. Every paged case runs twice and must agree bit for bit
+   (the combine pass merges the splits in a fixed order). Flash
+   attention at the monolithic prefill's shapes (B=1 and 8 at S=16 and
+   256, B=4 at S=256), a ragged length, a q_offset continuation, a
    window, an H = Hkv case and B=1 at S=2048; then hymba's prefill (B=4
    and 8 at S=256, window 2048 and a global layer) and past its window.
    Each kernel's time (CUDA events, median of 30, L2 flushed and the
-   card kept busy by a spin before each launch), its bound (bytes this run's data needs over 3.35 TB/s, or
-   flops over the peak for the dtype), the plain version's time and the
-   time of ``F.scaled_dot_product_attention`` on the same data (pages
-   gathered up front, or kv heads repeated up front; a yardstick only,
-   the port never calls it).
+   card kept busy by a spin before each launch), its bound (bytes this
+   run's data needs over 3.35 TB/s, or flops over the peak for the
+   dtype) and its share of that bound, the paged kernels' launch plan
+   (and their times with the split aimed at 2, 4 and 8 CTAs an SM), the
+   plain version's time and the time of
+   ``F.scaled_dot_product_attention`` on the same data (pages gathered up
+   front, or kv heads repeated up front; a yardstick only, the port never
+   calls it).
 4. Model: full-width gemma-2b in bfloat16 from seed 0; one paged prefill
    chunk, one paged decode step and one monolithic prefill (B=4, S=256),
    each kernel path vs the same step through the plain attention; a
@@ -86,7 +96,9 @@ Phases (any failure exits non-zero and prints no result):
    ``run_serve`` for each arch (the paged engine, 16 requests of phase
    5's mixed 16/256 trace, chunk 128) and ``run_family_rows`` for both
    (6 requests of 256 tokens, 16 new, against the static monolithic
-   baseline); every request must finish. (d) Across each serve run the
+   baseline), then hymba's row again in float32 (does its chunked stream
+   part from the monolithic one without bf16 rounding?); every request
+   must finish. (d) Across each serve run the
    scan launches exactly ``num_layers`` x (chunk dispatches + monolithic
    prefills) times and no plain version runs.
 
@@ -223,11 +235,12 @@ class Timer:
 # ---------------------------------------------------------------------------
 
 def make_case(dev, dtype, *, B, K, H, Hkv, hd, bs, lengths, parked=(),
-              hole=None, padding=(), NB=0, seed=0):
+              hole=None, padding=(), NB=0, dead=(), seed=0):
     """Pool, tables and q on the card. ``lengths`` are attention lengths;
     ``parked`` rows get a valid table and a parked (far negative) length,
     ``padding`` rows an all -1 table, ``hole`` = (row, entry) a -1 entry
-    inside a live range; ``NB`` widens the tables (trailing -1)."""
+    inside a live range, ``dead`` = [(row, lo, hi)] -1 over entries
+    ``[lo, hi)``; ``NB`` widens the tables (trailing -1)."""
     rng = np.random.default_rng(seed)
     lengths = np.asarray(lengths, np.int64)
     nbs = [-(-max(int(n), 1) // bs) for n in lengths]
@@ -245,6 +258,8 @@ def make_case(dev, dtype, *, B, K, H, Hkv, hd, bs, lengths, parked=(),
         tables[b] = -1
     if hole is not None:
         tables[hole[0], hole[1]] = -1
+    for b, lo, hi in dead:
+        tables[b, lo:hi] = -1
     kp = torch.from_numpy(rng.standard_normal((P, bs, Hkv, hd),
                                               dtype=np.float32))
     vp = torch.from_numpy(rng.standard_normal((P, bs, Hkv, hd),
@@ -319,6 +334,41 @@ def library_call(case, window=0, softcap=0.0):
     return lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask)
 
 
+def split_edge_specs(dtype):
+    """Cases at the split boundaries of the kernels' launch plan
+    (``ops.plan``), at hymba-1.5b's heads (H=25, Hkv=5, hd=64) and at hd
+    128 (H=16, Hkv=2), on 40-entry tables: lengths at a split's edge and
+    one either side, a split wholly of -1 entries, a split wholly before
+    the window; then tables far wider (NB=163) than the longest length
+    (300)."""
+    from repro_torch.kernels.paged_attention import ops
+
+    specs, NB, bs = [], 40, 16
+    for tag, H, Hkv, hd in (("hymba", 25, 5, 64), ("hd128", 16, 2, 128)):
+        for kernel, B, K in (("paged_decode", 8, 0),
+                             ("paged_mq", 3, 64 if hd == 128 else 128)):
+            pl = ops.plan(B, max(K, 1), H, Hkv, bs, NB)
+            edge = pl.eps * bs                    # tokens of one split
+            base = dict(B=B, K=K, H=H, Hkv=Hkv, hd=hd, bs=bs, NB=NB)
+            # edges from the first at or past K (every query sees a token)
+            near = [n * edge + d for n in range(1, NB) for d in (-1, 0, 1)
+                    if n * edge - 1 >= max(K, 1)]
+            specs.append((kernel, f"{tag} split edges", dtype,
+                          dict(base, lengths=near[:B]), 0, 0.0))
+            full = [NB * bs - 1 - b for b in range(B)]
+            specs.append((kernel, f"{tag} -1 split", dtype,
+                          dict(base, lengths=full, dead=[
+                              (b, pl.eps, 2 * pl.eps) for b in range(B)]),
+                          0, 0.0))
+            specs.append((kernel, f"{tag} split pre-window", dtype,
+                          dict(base, lengths=full), edge // 2, 0.0))
+            specs.append((kernel, f"{tag} wide table", dtype,
+                          dict(base, NB=163, lengths=np.linspace(
+                              max(K, 1), 300, B).astype(np.int64),
+                              parked=(0,) if K == 0 else ()), 0, 0.0))
+    return specs
+
+
 def phase_kernels(dev, timer):
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -369,12 +419,14 @@ def phase_kernels(dev, timer):
         specs.append(("paged_mq", "hymba past window", dtype, dict(
             B=2, K=128, H=25, Hkv=5, hd=64, bs=16,
             lengths=[2176, 2600]), HYMBA_WINDOW, 0.0))
+        specs += split_edge_specs(dtype)
 
     table = {k: {"name": k, "route": "cuda", "source": CU_SOURCE,
                  "replaces": TPU_KERNELS[k], "launches": 0,
                  "max_abs_err": 0.0} for k in ("paged_decode", "paged_mq")}
-    for kernel, label, dtype, kw, window, softcap in specs:
-        case = make_case(dev, dtype, seed=len(label) + kw["B"], **kw)
+    for kernel, label, dtype, kw_case, window, softcap in specs:
+        case = make_case(dev, dtype, seed=len(label) + kw_case["B"],
+                         **kw_case)
         args = [case[k] for k in ("q", "k_pages", "v_pages", "block_tables",
                                   "lengths")]
         before = ops.counters()
@@ -384,18 +436,27 @@ def phase_kernels(dev, timer):
                     "paged_mq": "mq_launches"}[kernel]
         require(after[launched] == before[launched] + 1,
                 f"{label}: {kernel} was not launched")
+        again = ops.launch(*args, window=window, softcap=softcap)
         ref = paged_attention_ref(*args, window=window, softcap=softcap)
         torch.cuda.synchronize()
         live = case["live"]
         require(bool(torch.isfinite(out.float()).all()),
                 f"{kernel} {label} {dtype}: non-finite output")
+        require(torch.equal(out, again),
+                f"{kernel} {label} {dtype}: two launches differ")
         err = (out[live].float() - ref[live].float()).abs()
         tol = TOL[dtype]
         bad = err > tol + tol * ref[live].float().abs()
         max_err = float(err.max())
-        print(f"check {kernel:12s} {label:20s} {str(dtype):14s} "
+        q = case["q"]
+        pl = ops.plan(q.shape[0], q.shape[1] if q.dim() == 4 else 1,
+                      q.shape[-2], kw_case["Hkv"], kw_case["bs"],
+                      case["block_tables"].shape[1])
+        print(f"check {kernel:12s} {label:22s} {str(dtype):14s} "
               f"max_abs_err={max_err:.3e} tol={tol:g} "
-              f"{'ok' if not bad.any() else 'MISMATCH'}", flush=True)
+              f"{'ok' if not bad.any() else 'MISMATCH'}, deterministic, "
+              f"{pl.splits} splits x {pl.row_tiles} row tiles x "
+              f"{pl.warps} warps", flush=True)
         require(not bool(bad.any()),
                 f"{kernel} {label} {dtype}: disagrees with ref.py")
         if label == "K=1 vs decode":          # out came from paged_mq
@@ -416,22 +477,32 @@ def phase_kernels(dev, timer):
             t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
             lib = library_call(case, window, softcap)
             t = dict(
-                shape=label, dtype="bfloat16",
+                shape=label, dtype="bfloat16", plan=pl._asdict(),
                 ms=timer.ms(lambda: ops.paged_attention(*args, **kw)),
                 plain_ms=timer.ms(lambda: paged_attention_ref(*args, **kw)),
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes=nbytes, bound_flops=flops,
                 library_ms=timer.ms(lib) if lib is not None else None)
+            t["bound_share"] = t["bound_ms"] / t["ms"]
+            # the split target of ops.plan: two, four (the default) and
+            # eight CTAs an SM
+            t["ms_by_target_ctas"] = {
+                n: timer.ms(lambda: ops.launch(*args, target_ctas=n, **kw))
+                for n in (2 * 132, 4 * 132, 8 * 132)}
             if label.startswith("gemma"):
                 row.update(t)
             else:
                 row.setdefault("times", []).append(t)
-            print(f"time  {kernel:12s} {label:20s} bf16 ms={t['ms']:.4f} "
+            print(f"time  {kernel:12s} {label:22s} bf16 ms={t['ms']:.4f} "
                   f"plain_ms={t['plain_ms']:.4f} "
                   f"library_ms={t['library_ms']} "
                   f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}: "
-                  f"{nbytes} bytes, {flops} flops)", flush=True)
+                  f"{nbytes} bytes, {flops} flops), bound share "
+                  f"{t['bound_share']:.4f}, "
+                  f"{pl.grid * kw_case['Hkv'] * q.shape[0]} CTAs; by split "
+                  f"target (CTAs): {json.dumps(t['ms_by_target_ctas'])}",
+                  flush=True)
     return table
 
 
@@ -1710,29 +1781,36 @@ def phase_family_serve():
         print(f"serve {arch} kernels: " + json.dumps(counts), flush=True)
         torch.cuda.empty_cache()
 
-    rows = launch.run_family_rows(archs, smoke=False, device="cuda",
-                                  requests=6, slots=4, prompt_len=256,
-                                  max_new=16, prefill_chunk=128,
-                                  block_size=16, seed=0)
-    for arch, row in zip(archs, rows):
+    kw = dict(smoke=False, device="cuda", requests=6, slots=4,
+              prompt_len=256, max_new=16, prefill_chunk=128, block_size=16,
+              seed=0)
+    rows = launch.run_family_rows(archs, **kw)
+    # hymba's row again in float32: does the chunked stream part from the
+    # static monolithic one without bf16 rounding?
+    rows += launch.run_family_rows(("hymba-1.5b",), dtype="float32", **kw)
+    for arch, row in zip(archs + ("hymba-1.5b",), rows):
         cfg = get_config(arch)
-        require("skipped" not in row, f"{arch}: family row skipped")
-        require(row["n"] == 6.0, f"{arch} family row: {row['n']} of 6")
-        require_path_launches(row["kernels"], cfg, f"{arch} family row")
-        out["launches"][f"{arch} family row"] = row["kernels"]
-        out["serve"][f"{arch} family row"] = {k: row[k] for k in (
+        name = f"{arch} family row" + (" f32" if row.get("dtype")
+                                       == "float32" else "")
+        require("skipped" not in row, f"{name}: skipped")
+        require(row["n"] == 6.0, f"{name}: {row['n']} of 6")
+        require_path_launches(row["kernels"], cfg, name)
+        out["launches"][name] = row["kernels"]
+        out["serve"][name] = {k: row[k] for k in (
             "continuous_tok_s", "ttft_p50_s", "ttft_p95_s",
             "state_bytes_per_slot", "static_tok_identical",
-            "static_equal_token_share", "prefill_chunk")}
-        print(f"family {row['family']}: {row['continuous_tok_s']:.2f} "
+            "static_equal_token_share", "prefill_chunk", "dtype")}
+        print(f"family {row['family']} {row['dtype']}: "
+              f"{row['continuous_tok_s']:.2f} "
               f"tok/s, TTFT p50 {1e3 * row['ttft_p50_s']:.2f} ms p95 "
               f"{1e3 * row['ttft_p95_s']:.2f} ms, chunk "
               f"{row['prefill_chunk']}, state_bytes_per_slot "
               f"{row['state_bytes_per_slot']}, static_tok_identical "
               f"{row['static_tok_identical']} (equal share "
               f"{row['static_equal_token_share']:.4f})", flush=True)
-        print(f"family {row['family']} kernels: "
+        print(f"family {row['family']} {row['dtype']} kernels: "
               + json.dumps(row["kernels"]), flush=True)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1776,10 +1854,16 @@ def main() -> None:
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.build_seconds:.1f} s)", flush=True)
+    spills = {}
     for name, log in _build.build_log.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+            if "bytes spill stores" in line:
+                spills[name] = spills.get(name, 0) + int(
+                    line.split("bytes spill stores")[0].split()[-1])
+    print("ptxas spill store bytes by source: " + json.dumps(spills),
+          flush=True)
 
     timer = Timer(dev)
     table = phase_kernels(dev, timer)

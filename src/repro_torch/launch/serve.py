@@ -44,7 +44,7 @@ import json
 import shutil
 import subprocess
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -544,7 +544,8 @@ def run_family_rows(archs=FAMILY_ARCHS, *, smoke: bool = True,
                     device="cuda", requests: int = 6, slots: int = 4,
                     prompt_len: int = 24, max_new: int = 4,
                     prefill_chunk: int = 16, block_size: int = 8,
-                    eos_id: int = -1, seed: int = 0) -> List[Dict]:
+                    eos_id: int = -1, seed: int = 0,
+                    dtype: Optional[str] = None) -> List[Dict]:
     """Per-family serving rows (``--config``): drive a small same-arrival
     trace through each family's continuous *paged* chunked engine and
     report ``continuous_tok_s`` plus token identity against the family's
@@ -553,14 +554,16 @@ def run_family_rows(archs=FAMILY_ARCHS, *, smoke: bool = True,
     ``NotImplementedError`` message; a family whose structure forbids the
     path reports its capability reason. Each served row also carries the
     share of equal tokens and its kernel counters (zeroed at the start of
-    the family's drive, read after its static baseline)."""
+    the family's drive, read after its static baseline). ``dtype`` is the
+    parameter and compute dtype: float32 at the smoke configs and
+    bfloat16 at full width unless given."""
     rows: List[Dict] = []
     for arch in archs:
         try:
             cfg = get_smoke_config(arch) if smoke else get_config(arch)
-            dtype = "float32" if smoke else "bfloat16"
+            dt = dtype or ("float32" if smoke else "bfloat16")
             model = build_model(cfg, ServeConfig(
-                param_dtype=dtype, compute_dtype=dtype,
+                param_dtype=dt, compute_dtype=dt,
                 attn_chunk_threshold=4096), device=device)
         except NotImplementedError as exc:
             rows.append({"family": arch, "skipped": str(exc)})
@@ -579,6 +582,7 @@ def run_family_rows(archs=FAMILY_ARCHS, *, smoke: bool = True,
             rows.append(row)
             continue
         row["prefill_chunk"] = chunk
+        row["dtype"] = dt
         params = model.init(seed)
         cache_len = prompt_len + max_new
         trace = make_trace(requests, prompt_len=prompt_len,

@@ -418,3 +418,18 @@ def test_run_family_rows_matches_reference():
         assert k["ssd_ref_calls"] == L * (k["prefill_calls"]
                                           + k["chunk_calls"])
         assert k["ssd_launches"] == 0
+
+
+def test_run_family_rows_dtype():
+    """``dtype`` sets a row's parameter and compute dtype (float32 at the
+    smoke configs by default): hymba's smoke row in bfloat16 still serves
+    every request and reports its share of tokens equal to the static
+    baseline."""
+    from repro_torch.launch.serve import run_family_rows
+    (f32,) = run_family_rows(("hymba-1.5b",), smoke=True, device="cpu")
+    (bf16,) = run_family_rows(("hymba-1.5b",), smoke=True, device="cpu",
+                              dtype="bfloat16")
+    assert f32["dtype"] == "float32" and f32["static_tok_identical"]
+    assert bf16["dtype"] == "bfloat16" and bf16["n"] == 6.0
+    assert 0.0 <= bf16["static_equal_token_share"] <= 1.0
+    assert bf16["state_bytes_per_slot"] < f32["state_bytes_per_slot"]
