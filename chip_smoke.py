@@ -11,7 +11,9 @@ Phases (any failure exits non-zero and prints no result):
    paged-attention kernels and their combine pass, the flash-attention
    kernel, both msgq message copies, eager and 1-copy, and the SSD chunk
    scan) compiled by nvcc for sm_90a, one nvcc per source, all at once;
-   ptxas's registers and spills, and the spill bytes summed by source.
+   ptxas's registers and spills, and the spill bytes summed by source
+   (phases 3 and 8(a) print them again per instantiation of the flash
+   kernel and the scan, demangled, and carry them in the kernel table).
 3. Kernels vs their plain versions (``ref.py``) on the card, in float32
    and bfloat16. Paged attention at gemma-2b's head shapes (H=8, Hkv=1,
    hd=256, bs=16) — long decode rows, chunks at pos0 0/64/192, and the
@@ -28,7 +30,9 @@ Phases (any failure exits non-zero and prints no result):
    attention at the monolithic prefill's shapes (B=1 and 8 at S=16 and
    256, B=4 at S=256), a ragged length, a q_offset continuation, a
    window, an H = Hkv case and B=1 at S=2048; then hymba's prefill (B=4
-   and 8 at S=256, window 2048 and a global layer) and past its window.
+   and 8 at S=256, window 2048 and a global layer), past its window, and
+   B=2 at S=200 (R = 5 rows that fill no whole 64-row tile); every flash
+   case runs twice and must agree bit for bit.
    Each kernel's time (CUDA events, median of 30, L2 flushed and the
    card kept busy by a spin before each launch), its bound (bytes this
    run's data needs over 3.35 TB/s, or flops over the peak for the
@@ -41,7 +45,9 @@ Phases (any failure exits non-zero and prints no result):
 4. Model: full-width gemma-2b in bfloat16 from seed 0; one paged prefill
    chunk, one paged decode step and one monolithic prefill (B=4, S=256),
    each kernel path vs the same step through the plain attention; a
-   profile of one static prefill and one slot decode step.
+   profile of one static prefill and one slot decode step. A profile
+   fails when a ported kernel launched in the step (by its counter) but
+   shows no device time under its CUDA name.
 5. Serve: ``repro_torch.launch.serve.run_serve`` — the paged continuous
    engine answering 16 requests of a mixed 16/256-token Poisson trace —
    with the launch counters zeroed just before and read just after.
@@ -80,10 +86,13 @@ Phases (any failure exits non-zero and prints no result):
    B=2 S=256, a ragged S=200 and a seeded initial state, every case on
    the chunk grid l=128 with the model's strided views; one call over 256
    tokens against two calls over 128 + 128 threaded through the state,
-   bitwise; the kernel's time at the path shape (a mamba2 chunk dispatch:
-   B=2, S=128, with a carried state) beside its bound, the plain
-   version's time and no library call (no single PyTorch call computes
-   the scan). (b) Each model at its published widths and full depth in
+   bitwise; two rows alone against the same rows inside a batch of 8
+   (the kernel splits each (b, h) over CTAs by columns of p, narrower at
+   small batch), bitwise; the kernel's time at the path shape (a mamba2
+   chunk dispatch: B=2, S=128, with a carried state; at least one CTA an
+   SM) beside its bound, its CTAs, column slice and shared memory, the
+   plain version's time and no library call (no single PyTorch call
+   computes the scan). (b) Each model at its published widths and full depth in
    bfloat16 from seed 0: a monolithic prefill (B=4, S=256), a slot chunk
    and a paged chunk at pos0 0 and 128, a slot and a paged decode step,
    each through the kernels and again through the plain versions (scan
@@ -228,6 +237,52 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: what ptxas said
+# ---------------------------------------------------------------------------
+
+def ptxas_report(source: str):
+    """Registers and spill bytes of each kernel ptxas compiled from
+    ``source`` in this run's build (``_build.build_log``, ``-Xptxas
+    -v``), printed one line a kernel; the names demangled by c++filt
+    where the toolkit has it. None when the library came from the cache
+    (a checkout's first run always builds)."""
+    from repro_torch.kernels import _build
+
+    if source not in _build.build_log:
+        print(f"ptxas {source}: not built in this run (the library was "
+              "cached): registers and spills not reported", flush=True)
+        return None
+    rows, cur = [], None
+    for line in _build.build_log[source].splitlines():
+        if "Compiling entry function" in line:
+            cur = {"function": line.split("'")[1], "registers": None,
+                   "spill_store_bytes": None, "spill_load_bytes": None}
+            rows.append(cur)
+        elif cur is not None and "bytes spill stores" in line:
+            w = line.replace(",", "").split()
+            cur["spill_store_bytes"] = int(w[w.index("spill") - 2])
+            cur["spill_load_bytes"] = int(w[w.index("loads") - 3])
+        elif cur is not None and "Used" in line and "registers" in line:
+            w = line.replace(",", "").split()
+            cur["registers"] = int(w[w.index("registers") - 1])
+    names = [r["function"] for r in rows]
+    filt = shutil.which("c++filt")
+    if filt and names:
+        res = subprocess.run([filt], input="\n".join(names), text=True,
+                             capture_output=True, check=False)
+        if res.returncode == 0 and len(res.stdout.splitlines()) == len(rows):
+            for r, name in zip(rows, res.stdout.splitlines()):
+                r["function"] = name.replace("(anonymous namespace)::", "")
+    for r in rows:
+        print(f"ptxas {source} {r['function']}: {r['registers']} registers, "
+              f"{r['spill_store_bytes']} bytes spill stores, "
+              f"{r['spill_load_bytes']} bytes spill loads", flush=True)
+    require(bool(rows), f"ptxas printed nothing for {source}: its registers "
+            "and spills are unknown")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -529,6 +584,8 @@ FLASH_CASES = [
     ("hymba B=8 S=256", 8, 25, 5, 256, 256, 64, 2048, 0),
     ("hymba global B=8 S=256", 8, 25, 5, 256, 256, 64, 0, 0),
     ("hymba past window S=2304", 1, 25, 5, 2304, 2304, 64, 2048, 0),
+    # R = 5 with S * R not a multiple of the kernel's 64-row tile
+    ("hymba ragged B=2 S=200", 2, 25, 5, 200, 200, 64, 2048, 0),
 ]
 #: the shape the kernel table reports: a static batch of 8 slots
 FLASH_TABLE_CASE = "path B=8 S=256"
@@ -552,7 +609,8 @@ def phase_flash(dev, timer):
     row = {"name": "flash_attention", "route": "cuda",
            "source": FLASH_SOURCE,
            "replaces": TPU_KERNELS["flash_attention"], "launches": 0,
-           "max_abs_err_by_dtype": {}}
+           "max_abs_err_by_dtype": {},
+           "ptxas": ptxas_report(Path(FLASH_SOURCE).name)}
     times = []
     for dtype in (torch.float32, torch.bfloat16):
         worst = 0.0
@@ -564,7 +622,8 @@ def phase_flash(dev, timer):
             kw = dict(causal=True, window=window, q_offset=q_offset)
             before = flash_ops.flash_launches
             out = flash_ops.flash_attention(q, k, v, **kw)
-            require(flash_ops.flash_launches == before + 1,
+            again = flash_ops.flash_attention(q, k, v, **kw)
+            require(flash_ops.flash_launches == before + 2,
                     f"flash {label}: the kernel was not launched")
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
                 v.transpose(1, 2)
@@ -577,11 +636,14 @@ def phase_flash(dev, timer):
             bad = err > tol + tol * ref.float().abs()
             max_err = float(err.max())
             worst = max(worst, max_err)
+            same = torch.equal(out, again)
             print(f"check flash_attention {label:18s} {str(dtype):14s} "
                   f"max_abs_err={max_err:.3e} tol={tol:g} "
-                  f"{'ok' if not bad.any() else 'MISMATCH'}", flush=True)
+                  f"{'ok' if not bad.any() else 'MISMATCH'}, two launches "
+                  f"bitwise {same}", flush=True)
             require(not bool(bad.any()),
                     f"flash {label} {dtype}: disagrees with ref.py")
+            require(same, f"flash {label} {dtype}: two launches differ")
             if dtype != torch.bfloat16 or not (
                     label.startswith("path")
                     or label in ("B=1 S=2048", "hymba B=8 S=256")):
@@ -758,19 +820,35 @@ def monolithic(model, params, cfg):
 ATTENTION_KERNELS = ("paged_decode", "paged_mq", "flash_kernel")
 
 
+def launch_counts():
+    """Each ported kernel's launch counter, by the CUDA name that the
+    profiler shows for it."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {"paged_decode": paged_ops.decode_launches,
+            "paged_mq": paged_ops.mq_launches,
+            "flash_kernel": flash_ops.flash_launches,
+            "ssd_kernel": ssd_ops.ssd_launches}
+
+
 def profile_step(label, step, step_ms, names=ATTENTION_KERNELS):
     """Where one step's time goes: device kernel time by name
     (torch.profiler) against the step's CUDA-event time; the rest of the
     step the device sat idle, waiting for the host to launch work.
     ``attention_kernel_ms`` sums the kernels whose name holds one of
-    ``names``."""
+    ``names``. Fails when a kernel of ``names`` launched in the step (by
+    its counter) and the profiler shows no device time under its name: a
+    renamed kernel must not read as 0 ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", 0)
@@ -788,9 +866,18 @@ def profile_step(label, step, step_ms, names=ATTENTION_KERNELS):
         return None
     attn_ms = sum(dev_us(e) for e in kernels
                   if any(n in e.key for n in names)) / 1e3
+    by_name = {n: sum(dev_us(e) for e in kernels if n in e.key) / 1e3
+               for n in names}
+    for n in names:
+        require(not launched.get(n) or by_name[n] > 0,
+                f"profile {label}: {n} launched {launched.get(n)} times but "
+                "the profiler shows no device time under that name")
     launches = sum(e.count for e in kernels)
     out = {"step_ms": step_ms, "device_busy_ms": busy_ms,
-           "attention_kernel_ms": attn_ms, "device_launches": launches,
+           "attention_kernel_ms": attn_ms, "kernel_ms_by_name": by_name,
+           "ported_launches": {n: launched[n] for n in names
+                               if n in launched},
+           "device_launches": launches,
            "idle_share": max(0.0, 1.0 - busy_ms / step_ms),
            "top": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in
                    sorted(kernels, key=dev_us, reverse=True)[:6]]}
@@ -1438,7 +1525,8 @@ def phase_ssd(dev, timer):
 
     row = {"name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
            "replaces": TPU_KERNELS["ssd_scan"], "launches": 0,
-           "max_abs_err_by_dtype": {}}
+           "max_abs_err_by_dtype": {},
+           "ptxas": ptxas_report(Path(SSD_SOURCE).name)}
     for dtype in (torch.float32, torch.bfloat16):
         worst = 0.0
         for label, B, H, S, p, n, state in SSD_CASES:
@@ -1494,10 +1582,32 @@ def phase_ssd(dev, timer):
               flush=True)
         require(same, f"ssd_scan resume ({label}) is not bit-exact")
 
+    # the column split changes no bit: 2 rows alone (narrow slices, to
+    # fill the card) against the same rows inside a batch of 8 (wider)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, H, n in (("mamba2", 32, 128), ("hymba", 50, 16)):
+        x, dt, A, Bm, Cm, s0 = ssd_inputs(dev, torch.float32, 8, H, 256, 64,
+                                          n, True, seed=H + 1)
+        y8, f8 = sops.ssd_scan(x, dt, A, Bm, Cm, s0, chunk=SSD_CHUNK,
+                               return_state=True)
+        y2, f2 = sops.ssd_scan(x[:2], dt[:2], A, Bm[:2], Cm[:2], s0[:2],
+                               chunk=SSD_CHUNK, return_state=True)
+        torch.cuda.synchronize()
+        small = sops.plan(2, H, 64, n, SSD_CHUNK)
+        big = sops.plan(8, H, 64, n, SSD_CHUNK)
+        same = torch.equal(y2, y8[:2]) and torch.equal(f2, f8[:2])
+        print(f"check ssd_scan column split {label}: B=2 ({small.ctas} CTAs "
+              f"of {small.cols} columns) vs the same rows in B=8 "
+              f"({big.ctas} CTAs of {big.cols}): bitwise {same}", flush=True)
+        require(same, f"ssd_scan column split ({label}) changes the result")
+
     label, B, H, S, p, n, state = next(c for c in SSD_CASES
                                        if c[0] == SSD_TABLE_CASE)
     args = ssd_inputs(dev, torch.float32, B, H, S, p, n, state, seed=1)
     nbytes, flops = ssd_needs(B, H, S, p, n, SSD_CHUNK, 4, state)
+    shape = sops.plan(B, H, p, n, SSD_CHUNK)
+    require(shape.ctas >= sms, f"ssd_scan {label}: {shape.ctas} CTAs on "
+            f"{sms} SMs")
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * flops / PEAK_FLOPS[torch.float32]
     row.update(
@@ -1510,11 +1620,14 @@ def phase_ssd(dev, timer):
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bound_bytes=nbytes, bound_flops=flops, library_ms=None,
         library_note="no single PyTorch call computes the SSD scan",
-        ctas=B * H, smem_bytes=sops.smem_bytes(p, n, SSD_CHUNK))
+        ctas=shape.ctas, cols_per_cta=shape.cols,
+        smem_bytes=shape.smem_bytes)
     print(f"time  ssd_scan {label:24s} f32 ms={row['ms']:.4f} "
           f"plain_ms={row['plain_ms']:.4f} library_ms=None "
           f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}: {nbytes} "
-          f"bytes, {flops} flops), {B * H} CTAs", flush=True)
+          f"bytes, {flops} flops), {shape.ctas} CTAs of {shape.cols} "
+          f"columns, {shape.smem_bytes} B of shared memory a CTA on {sms} "
+          "SMs", flush=True)
     for label, B, H, S, p, n in (("static prefill B=8 S=256", 8, 32, 256,
                                   64, 128),
                                  ("hymba chunk B=2 S=128", 2, 50, 128, 64,
@@ -1523,12 +1636,15 @@ def phase_ssd(dev, timer):
         nb, fl = ssd_needs(B, H, S, p, n, SSD_CHUNK, 4, True)
         ms = timer.ms(lambda: sops.ssd_scan(*a, chunk=SSD_CHUNK,
                                             return_state=True))
+        sh = sops.plan(B, H, p, n, SSD_CHUNK)
         row.setdefault("times", []).append(
-            {"shape": label, "ms": ms, "ctas": B * H,
+            {"shape": label, "ms": ms, "ctas": sh.ctas,
+             "cols_per_cta": sh.cols, "smem_bytes": sh.smem_bytes,
              "bound_ms": max(1e3 * nb / HBM_BYTES_PER_S,
                              1e3 * fl / PEAK_FLOPS[torch.float32])})
-        print(f"time  ssd_scan {label:24s} f32 ms={ms:.4f} ({B * H} CTAs, "
-              f"bound {row['times'][-1]['bound_ms']:.5f} ms)", flush=True)
+        print(f"time  ssd_scan {label:24s} f32 ms={ms:.4f} ({sh.ctas} CTAs "
+              f"of {sh.cols} columns, {sh.smem_bytes} B, bound "
+              f"{row['times'][-1]['bound_ms']:.5f} ms)", flush=True)
     return row
 
 

@@ -3,9 +3,10 @@
 Every ``csrc/*.cu`` under ``repro_torch/kernels`` is compiled by ``nvcc``
 for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into its own
 shared library with a plain C interface, under ``build/kernels/`` at the
-repository root, keyed by a hash of the sources and the flags, so a
-changed source rebuilds and an unchanged one loads the cached file. All
-sources compile in parallel, one ``nvcc`` each.
+repository root, keyed by a hash of the source, of every header
+(``*.cuh``) under ``repro_torch/kernels`` and of the flags, so a changed
+source or header rebuilds and an unchanged one loads the cached file.
+All sources compile in parallel, one ``nvcc`` each.
 
 Each C entry point returns ``cudaGetLastError()`` right after its
 launch; :func:`check` raises on anything but 0. Nothing here imports
@@ -53,8 +54,14 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def headers() -> List[Path]:
+    return sorted(_PKG.rglob("*.cuh"))
+
+
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for hdr in headers():
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

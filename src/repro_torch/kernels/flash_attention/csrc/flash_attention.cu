@@ -7,56 +7,92 @@
 // GQA by index (query head h reads kv head h * Hkv / H, as the Pallas
 // index map does), scale 1/sqrt(hd), causal mask k_pos <= q_offset + i,
 // sliding window k_pos > q_pos - window when window > 0, running max / sum /
-// accumulator in float32, p cast to the input dtype before the p.v product,
-// output acc / max(l, 1e-30).
+// accumulator in float32, p cast to the input dtype before the p.v product
+// (the sum l is taken over the unrounded p), output acc / max(l, 1e-30).
 //
 // Where it departs from the Pallas kernel:
-//   * Ragged lengths are allowed: the tail tiles are masked (zero-filled
-//     rows, keys past Sk masked to -1e30), where the Pallas kernel asserts
-//     that Sq and Sk divide the block sizes.
+//   * Ragged lengths are allowed: queries past Sq are zero rows that are
+//     never stored, keys past Sk are zero-filled by the copy and masked.
 //   * Strided operands: q, k, v and the output are addressed through
 //     (batch, head, position) strides with a contiguous head dimension, so
 //     the model's (B, S, H, hd) activations are read and written in place,
 //     with no transpose copies.
-//   * Tiles that lie wholly above the causal diagonal or wholly outside
-//     the window are skipped, so the work and the bytes read follow the
-//     mask. A query row that can see no key at all (not on any serving
-//     path: q_offset + i >= Sk with a window) gets zeros, where the Pallas
-//     kernel gives the mean of the masked tiles' values.
+//   * A CTA walks only the key stages its queries can see (causal range
+//     and window), so the work and the bytes read follow the mask. A query
+//     row that can see no key at all (not on any serving path: q_offset +
+//     i < 0, or a window past Sk) gets zeros, where the Pallas kernel gives
+//     the mean of the masked tiles' values.
 //
-// What bounds it on this card: at the serving shapes (hd = 256, prompts of
-// 16 to 2048 tokens) the causal flops over 989 TFLOP/s and the q/k/v/o
-// bytes over 3.35 TB/s are within a factor of a few of each other; a
-// kernel on the CUDA cores (no tensor cores) is bound by its own FMA and
-// shared-memory issue rate far above both. The design keeps the card busy
-// and the work proportional to the mask:
-//   * One CTA per (64-query tile, query head, batch row): B * H * ceil(Sq
-//     / 64) CTAs, launched latest tile first so the longest causal rows
-//     start first.
-//   * 256 threads as a 16 x 16 grid. Thread (ty, tx) owns query rows
-//     ty*4 .. ty*4+3 and score columns tx + 16 j (j < 4) of each 64-key
-//     tile, and accumulator columns tx + 16 c (c < hd / 16): the scores,
-//     the running m / l and the accumulator live in registers; the row max
-//     and sum are 16-lane shuffles.
-//   * q, k and v tiles are staged in shared memory as float32 with 16-byte
-//     vector loads (k and q rows padded by one float, so the score loop
-//     reads them without bank conflicts); p goes through shared memory to
-//     the p.v product. At hd = 256 that is 209 KB, set with
-//     cudaFuncSetAttribute.
-// Not yet done (later work): tensor cores (mma.sync / wgmma) for q.k and
-// p.v, cp.async or TMA double buffering, and sharing one staged K/V tile
-// across the query heads of an MQA group.
+// What bounds it on this card: at the serving shapes (gemma-2b: 8 query
+// heads on one kv head, hd 256; hymba-1.5b: 25 on 5, hd 64; prompts of 16
+// to 2048 tokens) the q/k/v/o bytes over 3.35 TB/s and the causal flops
+// over 989 TFLOP/s are within a factor of a few of each other; what a
+// CTA waits on is its chain of stages. The design is the one of the paged
+// kernels (paged_attention.cu), on contiguous K/V:
+//   1. A CTA's 64 rows are (query, head) pairs of one kv group, row
+//      rr = (j - j0) * R + h_local with R = H / Hkv, so each staged K/V
+//      tile feeds every query head of the group (gemma: 8 queries x 8
+//      heads a CTA; hymba: 12.8 queries x 5 heads). The work items (row
+//      tile, kv group, batch row) run latest row tile first, so the
+//      longest causal rows start first, and are handed to blocks in
+//      layers of one block an SM, every other layer reversed: an SM's
+//      second block is short when its first is long. Each row is masked
+//      by its own query position, so a 16-row fragment may span several
+//      queries (at R = 5 up to four).
+//   2. bf16 runs on tensor cores: mma.sync.m16n8k16 (bf16 operands, f32
+//      accumulators), four warps of 16 rows each; ldmatrix loads Q and K
+//      fragments, ldmatrix.trans loads V for P.V (hopper.cuh). Q is staged
+//      once; K and V stay bf16 in shared memory.
+//   3. K and V move by 16-byte cp.async copies into a ring of stages of
+//      32 keys (two stages at hd 256 and 128, four at hd 64): the next
+//      stages are in flight while one computes. Keys past Sk are
+//      zero-filled by the copy itself (src-size 0).
+//   4. The scores, the running max and sum and the accumulator live in
+//      registers (the mma fragment layout); the row max and sum are quad
+//      shuffles, so a stage needs one barrier, not three. A warp skips the
+//      per-key masks of a stage that all its rows see whole, and the
+//      accumulator's rescale when no row's max moved.
+//   5. p is rounded to bf16 before p.v, the sum l taken over the
+//      unrounded p, as the Pallas kernel does.
+//   6. The output leaves through the Q tile in 16-byte pieces, a warp
+//      writing whole rows.
+// float32 inputs take the same structure (tiling, ring, fragment layout)
+// with both products on CUDA cores in full float32: TF32 would not hold
+// the float32 tolerance.
+//
+// Shared-memory tiles are swizzled: 16-byte chunk c of row r sits at
+// chunk c ^ (r & 7), so the eight rows an ldmatrix reads fall in eight
+// different bank groups.
+//
+// Left for later: wgmma with TMA loads and an mbarrier pipeline, and
+// persistent CTAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kBQ = 64;        // query rows of a tile
-constexpr int kBK = 64;        // keys of a tile
+constexpr int kTile = 32;            // keys of K (and of V) in a stage
+constexpr int kWarps = 4;            // 16 rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;   // (query, head) rows of a CTA
+constexpr int kPStride = kTile + 1;  // float32 path: p scratch row stride
+
+// Ring depth: enough stages for about 32 KB of K and V in flight, and at
+// least two (deeper rings cost hymba's hd-64 prefill CTAs an SM and time:
+// PERF.md).
+template <typename T, int HD>
+struct Ring {
+  static constexpr int kStageBytes = 2 * kTile * HD * (int)sizeof(T);
+  static constexpr int kStages =
+      32768 / kStageBytes > 2 ? 32768 / kStageBytes : 2;
+};
 
 struct Params {
   const void* q;  // (B, H, Sq, hd) through strides q_s*
@@ -66,216 +102,234 @@ struct Params {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
       o_ss;
   int B, H, Hkv, Sq, Sk, causal, window, q_offset;
+  int row_tiles, sms;  // row tiles of a kv group; the card's SMs
   float scale;
 };
 
-__device__ __forceinline__ void unpack16(const uint4& u, const float*,
-                                         float* o) {
-  o[0] = __uint_as_float(u.x);
-  o[1] = __uint_as_float(u.y);
-  o[2] = __uint_as_float(u.z);
-  o[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack16(const uint4& u, const __nv_bfloat16*,
-                                         float* o) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 is the top half of an f32
-    o[2 * i] = __uint_as_float(w[i] << 16);
-    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-// p rounded to the input dtype, as the Pallas kernel casts it before p.v.
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Stage `rows` rows of HD contiguous elements (row stride `src_stride`)
-// into dst (kBQ x dst_stride float32); rows [rows, 64) are zero-filled.
+// Rows f0 .. f0 + kRows - 1 of kv group g's (query, head) rows of batch
+// row b (row f: query f / R, head g * R + f % R); rows past Sq * R are
+// zero-filled.
 template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, int dst_stride,
-                                      const T* src, long long src_stride,
-                                      int rows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVpr = HD / kVec;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < kBQ * kVpr; idx += kThreads) {
-    const int r = idx / kVpr;
-    const int c = idx - r * kVpr;
-    float f[kVec];
-    if (r < rows) {
-      const uint4 u = __ldg(
-          reinterpret_cast<const uint4*>(src + (long long)r * src_stride) + c);
-      unpack16(u, src, f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) f[e] = 0.f;
-    }
-    float* d = dst + r * dst_stride + c * kVec;
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) d[e] = f[e];
+__device__ __forceinline__ void load_q(T* qs, const Params& p, int b, int g,
+                                       int f0) {
+  constexpr int kChunk = 16 / (int)sizeof(T), kCpr = HD / kChunk;
+  const int R = p.H / p.Hkv, rows = p.Sq * R;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb;
+  for (int idx = threadIdx.x; idx < kRows * kCpr; idx += kThreads) {
+    const int r = idx / kCpr, c = idx % kCpr;
+    const int f = f0 + r;
+    const bool ok = f < rows;
+    const int j = f / R, h = g * R + (f - j * R);
+    const long long off = ok ? h * p.q_sh + j * p.q_ss + c * kChunk : 0;
+    cp_async16(qs + swz<T, HD>(r, c), q + off, ok);
   }
+}
+
+// Keys k0 .. k0 + kTile - 1 of kv group g; keys at or past Sk are
+// zero-filled.
+template <typename T, int HD>
+__device__ __forceinline__ void load_kv(T* ks, T* vs, const Params& p, int b,
+                                        int g, int k0) {
+  constexpr int kChunk = 16 / (int)sizeof(T), kCpr = HD / kChunk;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sh;
+  for (int idx = threadIdx.x; idx < kTile * kCpr; idx += kThreads) {
+    const int r = idx / kCpr, c = idx % kCpr;
+    const int pos = k0 + r;
+    const bool ok = pos < p.Sk;
+    cp_async16(ks + swz<T, HD>(r, c),
+               kp + (ok ? pos * p.k_ss + c * kChunk : 0), ok);
+    cp_async16(vs + swz<T, HD>(r, c),
+               vp + (ok ? pos * p.v_ss + c * kChunk : 0), ok);
+  }
+}
+
+template <typename T, int HD>
+constexpr size_t smem_bytes() {
+  return sizeof(T) * (size_t)(kRows + Ring<T, HD>::kStages * 2 * kTile) * HD +
+         (sizeof(T) == 4 ? sizeof(float) * kRows * kPStride : 0);
 }
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
-  constexpr int QS = HD + 1;  // padded row stride of the q and k tiles
-  constexpr int PS = kBK + 1; // padded row stride of the p tile
-  constexpr int NC = HD / 16; // accumulator columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;            // kBQ x QS
-  float* k_s = q_s + kBQ * QS;  // kBK x QS
-  float* v_s = k_s + kBK * QS;  // kBK x HD
-  float* p_s = v_s + kBK * HD;  // kBQ x PS
+  constexpr int kStages = Ring<T, HD>::kStages;
+  extern __shared__ __align__(16) char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ring = qs + kRows * HD;  // stage st: K at ring + 2 st kTile HD, then V
+  float* ps = reinterpret_cast<float*>(ring + kStages * 2 * kTile * HD);
 
-  const int iq = gridDim.x - 1 - blockIdx.x;  // latest (longest) tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int g = h * p.Hkv / p.H;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = iq * kBQ;
-  const int nrows = min(kBQ, p.Sq - q0);
+  // work items m = 0, 1, ... run longest first (latest row tile first);
+  // blocks are handed out in layers of one block an SM, every other layer
+  // reversed, so an SM's second block is a short one when its first is
+  // long
+  const int G = p.Hkv * p.B, n_items = p.row_tiles * G;
+  const int layer = blockIdx.x / p.sms, pos = blockIdx.x % p.sms;
+  const int width = min(p.sms, n_items - layer * p.sms);
+  const int item = layer * p.sms + (layer & 1 ? width - 1 - pos : pos);
+  const int rt = p.row_tiles - 1 - item / G;
+  const int g = item % G % p.Hkv, b = item % G / p.Hkv;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int R = p.H / p.Hkv, rows = p.Sq * R;
+  const int f0 = rt * kRows;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh +
-                (long long)q0 * p.q_ss;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sh;
-  stage<T, HD>(q_s, QS, qg, p.q_ss, nrows);
-
-  // the key range this tile's queries can see
-  const int qpos_lo = p.q_offset + q0;
-  const int qpos_hi = qpos_lo + nrows - 1;
+  // the keys the tile's queries can see: [k_begin, k_end)
+  const int qpos_lo = p.q_offset + f0 / R;
+  const int qpos_hi = p.q_offset + (min(f0 + kRows, rows) - 1) / R;
   int k_end = p.Sk;
   if (p.causal) k_end = min(k_end, qpos_hi + 1);
   int k_begin = 0;
   if (p.window > 0) k_begin = max(0, qpos_lo - p.window + 1);
-  const int t_begin = k_begin / kBK;
-  const int t_end = k_end > k_begin ? (k_end + kBK - 1) / kBK : t_begin;
+  const int t_begin = k_begin / kTile;
+  const int n_tiles =
+      k_end > k_begin ? (k_end + kTile - 1) / kTile - t_begin : 0;
 
-  float m[4], l[4], acc[4][NC];
+  int qpos[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  for (int i = 0; i < 2; ++i)
+    qpos[i] = p.q_offset + (f0 + w * 16 + gid + 8 * i) / R;
+  // the warp's first and last query position
+  const int wq_lo = p.q_offset + (f0 + w * 16) / R;
+  const int wq_hi = p.q_offset + (f0 + w * 16 + 15) / R;
 
-  for (int it = t_begin; it < t_end; ++it) {
-    const int k0 = it * kBK;
-    const int nk = min(kBK, p.Sk - k0);
-    __syncthreads();  // the previous tile's readers are done with k/v/p
-    stage<T, HD>(k_s, QS, kg + (long long)k0 * p.k_ss, p.k_ss, nk);
-    stage<T, HD>(v_s, HD, vg + (long long)k0 * p.v_ss, p.v_ss, nk);
-    __syncthreads();
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-    float s[4][4];
+  if (n_tiles > 0) {
+    load_q<T, HD>(qs, p, b, g, f0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    const float* qr = q_s + (ty * 4) * QS;
-    const float* kr = k_s + tx * QS;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = qr[i * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = kr[j * 16 * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < n_tiles) {
+        T* ks = ring + 2 * st * kTile * HD;
+        load_kv<T, HD>(ks, ks + kTile * HD, p, b, g, (t_begin + st) * kTile);
+      }
+      cp_async_commit();
     }
+    for (int it = 0; it < n_tiles; ++it) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // stage it landed; stage it - 1 is free again
+      const int nx = it + kStages - 1;
+      if (nx < n_tiles) {
+        T* ks = ring + 2 * (nx % kStages) * kTile * HD;
+        load_kv<T, HD>(ks, ks + kTile * HD, p, b, g, (t_begin + nx) * kTile);
+      }
+      cp_async_commit();
 
-    // mask, then the online softmax of each row (16 lanes share a row)
+      const T* ks = ring + 2 * (it % kStages) * kTile * HD;
+      const int k0 = (t_begin + it) * kTile;
+      float s[kTile / 8][4];
+      qk<HD, kTile>(s, qs, ks, w, lane);
+
+      // scale and masks; each row by its own query position, unless
+      // every row of the warp sees every key of the stage
+      uint32_t ok = 0;
+      float mx[2] = {kNegInf, kNegInf};
+      const bool whole = k0 + kTile <= p.Sk &&
+                         (!p.causal || k0 + kTile - 1 <= wq_lo) &&
+                         (p.window <= 0 || k0 > wq_hi - p.window);
+      if (whole) {
+        ok = (1u << (kTile / 2)) - 1;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int qpos = p.q_offset + q0 + r;
-      float mx = kNegInf;
+        for (int n = 0; n < kTile / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kpos = k0 + c;
-        bool ok = c < nk;
-        if (p.causal) ok = ok && kpos <= qpos;
-        if (p.window > 0) ok = ok && kpos > qpos - p.window;
-        s[i][j] = ok ? s[i][j] * p.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] *= p.scale;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < kTile / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const int pos = k0 + 8 * n + 2 * tq + (e & 1);
+            bool see = pos < p.Sk;
+            if (p.causal) see = see && pos <= qpos[i];
+            if (p.window > 0) see = see && pos > qpos[i] - p.window;
+            s[n][e] = see ? s[n][e] * p.scale : kNegInf;
+            if (see) ok |= 1u << (4 * n + e);
+            mx[i] = fmaxf(mx[i], s[n][e]);
+          }
+        }
+      }
+      // online softmax in registers; a row's four lanes form a quad
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]));
+        corr[i] = expf(m[i] - m_new);
+        m[i] = m_new;
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
+      for (int n = 0; n < kTile / 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        sum += e;
-        p_s[r * PS + tx + 16 * j] = round_to(e, static_cast<const T*>(nullptr));
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float pe =
+              (ok >> (4 * n + e)) & 1u ? expf(s[n][e] - m[i]) : 0.f;
+          s[n][e] = pe;
+          sum[i] += pe;
+        }
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(sum[i]);
+      // rescale only when some row's max moved (x * 1 is x, bit for bit)
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-    // acc += p @ v (keys past Sk have p = 0 or a zero value row)
-    const float* pr = p_s + (ty * 4) * PS;
-    for (int t = 0; t < nk; ++t) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = pr[i * PS + t];
-      const float* vr = v_s + t * HD + tx;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = vr[16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+        for (int n = 0; n < HD / 8; ++n) {
+          o[n][0] *= corr[0];
+          o[n][1] *= corr[0];
+          o[n][2] *= corr[1];
+          o[n][3] *= corr[1];
+        }
       }
+      pv<HD, kTile>(o, s, ks + kTile * HD, ps, w, lane);
+    }
+    cp_async_wait<0>();
+  }
+
+  // epilogue: the normalised rows go through the Q tile (free once every
+  // warp is past its last q.k) so that the output leaves in 16-byte
+  // pieces, a warp writing whole rows, rather than 4-byte ones scattered
+  // over 16 rows
+  constexpr int kChunk = 16 / (int)sizeof(T), kCpr = HD / kChunk;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = w * 16 + gid + 8 * i;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const int col = 8 * n + 2 * tq;
+      store2(qs + swz<T, HD>(r, col / kChunk) + col % kChunk,
+             o[n][2 * i] / den, o[n][2 * i + 1] / den);
     }
   }
-
-  T* og = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= nrows) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = og + (long long)(q0 + r) * p.o_ss + tx;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) store(orow + 16 * c, acc[i][c] / denom);
+  __syncthreads();
+  T* out = static_cast<T*>(p.out) + b * p.o_sb;
+  for (int idx = threadIdx.x; idx < kRows * kCpr; idx += kThreads) {
+    const int r = idx / kCpr, c = idx % kCpr;
+    const int f = f0 + r;
+    if (f >= rows) continue;
+    const int j = f / R, h = g * R + (f - j * R);
+    *reinterpret_cast<uint4*>(out + h * p.o_sh + j * p.o_ss + c * kChunk) =
+        *reinterpret_cast<const uint4*>(qs + swz<T, HD>(r, c));
   }
-}
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         ((size_t)kBQ * (HD + 1) + (size_t)kBK * (HD + 1) +
-          (size_t)kBK * HD + (size_t)kBQ * (kBK + 1));
 }
 
 template <typename T, int HD>
 cudaError_t launch(const Params& p, void* stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
+  constexpr size_t smem = smem_bytes<T, HD>();
+  // once per instantiation, not on every launch: the call costs host
+  // time
+  static const cudaError_t attr = cudaFuncSetAttribute(
       flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, p.B);
-  flash_kernel<T, HD><<<grid, kThreads, smem,
+  if (attr != cudaSuccess) return attr;
+  const long long items = (long long)p.row_tiles * p.Hkv * p.B;
+  flash_kernel<T, HD><<<(unsigned)items, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }
@@ -303,9 +357,10 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                int Hkv, int Sq, int Sk, int hd, int causal,
                                int window, int q_offset, float scale,
                                void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0 ||
-      B > 65535 || H > 65535)
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
+  const long long row_tiles = ((long long)Sq * (H / Hkv) + kRows - 1) / kRows;
+  if (row_tiles * Hkv * B > 2147483647LL) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.out = out;
   p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
@@ -315,7 +370,9 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
   p.B = B; p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
   p.causal = causal; p.window = window; p.q_offset = q_offset;
   p.scale = scale;
+  p.row_tiles = (int)row_tiles;
+  p.sms = sm_count();
   if (dtype == 0) return (int)launch_hd<float>(p, hd, stream);
-  if (dtype == 1) return (int)launch_hd<__nv_bfloat16>(p, hd, stream);
+  if (dtype == 1) return (int)launch_hd<bf16>(p, hd, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,11 @@ Follows the reference wrapper's contract
 the kernel takes (batch, head, position) strides. Tensors on the CPU take
 the plain version (``ref.py``); tensors on the card launch the
 hand-written CUDA kernel, or raise. There is no fallback from one to the
-other.
+other. On the card a call is one launch over (row tiles, Hkv, B): a
+CTA's ``ROWS_PER_CTA`` rows are (query, head) pairs of one kv group, so
+one staged K/V tile serves every query head of the group
+(``ref.flash_attention_tiled_ref`` follows the same arithmetic on the
+CPU).
 
 The module counts what it ran, in plain integers: ``flash_launches`` (one
 per kernel launch) and ``ref_calls`` (one per plain-version call).
@@ -29,9 +33,13 @@ flash_launches = 0
 ref_calls = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is instantiated for (its accumulator tile is
-#: ``hd / 16`` columns a thread)
+#: head dims the kernel is instantiated for (its accumulator is ``hd /
+#: 8`` mma tiles a warp)
 HEAD_DIMS = (64, 128, 256)
+#: (query, head) rows of a CTA and keys of a K/V ring stage (``kRows``
+#: and ``kTile`` in the CUDA source)
+ROWS_PER_CTA = 64
+TILE_KEYS = 32
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 

@@ -1,10 +1,15 @@
-"""Plain PyTorch flash attention: the twin of the reference oracle
-``src/repro/kernels/flash_attention/ref.py``.
+"""Plain PyTorch flash attention.
 
-Dense softmax over the whole score matrix, in float32. The CPU tests run
-it through ``ops.flash_attention``; ``chip_smoke.py`` holds the CUDA
-kernel against it on the card. Nothing on the main path calls it when a
-card is present.
+* :func:`flash_attention_ref` — the twin of the reference oracle
+  ``src/repro/kernels/flash_attention/ref.py``: dense softmax over the
+  whole score matrix, in float32. The CPU tests run it through
+  ``ops.flash_attention``; ``chip_smoke.py`` holds the CUDA kernel
+  against it on the card. Nothing on the main path calls it when a card
+  is present.
+* :func:`flash_attention_tiled_ref` — the CUDA kernel's arithmetic step
+  by step (its CTAs' rows, the key stages each walks, the online softmax
+  with p rounded before p.v), so the CPU tests can hold the kernel's
+  design against the reference.
 """
 
 from __future__ import annotations
@@ -39,3 +44,75 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def visible_keys(Sq: int, Sk: int, R: int, f0: int, f1: int, *,
+                 causal: bool = True, window: int = 0, q_offset: int = 0):
+    """Keys ``[k_begin, k_end)`` that (query, head) rows ``f0 .. f1 - 1``
+    of a kv group (row ``f`` is query ``f // R``) can see: up to the last
+    row's position, from the first row's window start. Mirrors the CUDA
+    kernel's per-CTA range."""
+    qlo = q_offset + f0 // R
+    qhi = q_offset + (min(f1, Sq * R) - 1) // R
+    k_end = min(Sk, qhi + 1) if causal else Sk
+    k_begin = max(0, qlo - window + 1) if window > 0 else 0
+    return k_begin, k_end
+
+
+def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
+                              window: int = 0, q_offset: int = 0,
+                              rows_per_cta: int = 64, tile_keys: int = 32):
+    """The CUDA kernel's arithmetic in float32: one CTA per (row tile,
+    kv group g, batch row b), its rows the (query, head) pairs ``rr = (j -
+    j0) * R + h_local`` of group g (``R = H / Hkv``); each CTA walks the
+    stages of ``tile_keys`` keys that hold its :func:`visible_keys`, with
+    keys past Sk zero and every row masked by its own query position; the
+    online softmax rounds p to q's dtype before p.v and sums l over the
+    unrounded p. Rows that see no key come out as zeros (where
+    :func:`flash_attention_ref` gives the mean of the values). Same
+    arguments and result as :func:`flash_attention_ref`."""
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    R, M = H // Hkv, rows_per_cta
+    rows = Sq * R
+    scale = 1.0 / math.sqrt(hd)
+    out = torch.zeros((B, H, Sq, hd), device=q.device)
+    for b in range(B):
+        for g in range(Hkv):
+            for f0 in range(0, rows, M):
+                f = torch.arange(f0, min(f0 + M, rows))
+                j, h = f // R, g * R + f % R
+                qpos = (q_offset + j)[:, None].to(q.device)
+                qr = q[b, h, j].float()
+                k_begin, k_end = visible_keys(Sq, Sk, R, f0, f0 + M,
+                                              causal=causal, window=window,
+                                              q_offset=q_offset)
+                mm = torch.full((len(f),), NEG_INF, device=q.device)
+                ll = torch.zeros(len(f), device=q.device)
+                oo = torch.zeros((len(f), hd), device=q.device)
+                if k_end > k_begin:
+                    for k0 in range(k_begin // tile_keys * tile_keys, k_end,
+                                    tile_keys):
+                        pos = torch.arange(k0, k0 + tile_keys,
+                                           device=q.device)
+                        kt = torch.zeros((tile_keys, hd), device=q.device)
+                        vt = torch.zeros((tile_keys, hd), device=q.device)
+                        n = min(tile_keys, Sk - k0)
+                        kt[:n] = k[b, g, k0:k0 + n].float()
+                        vt[:n] = v[b, g, k0:k0 + n].float()
+                        x = qr @ kt.T * scale
+                        see = (pos < Sk)[None].expand_as(x)
+                        if causal:
+                            see = see & (pos[None] <= qpos)
+                        if window > 0:
+                            see = see & (pos[None] > qpos - window)
+                        x = torch.where(see, x, torch.full_like(x, NEG_INF))
+                        m_new = torch.maximum(mm, x.amax(-1))
+                        corr = torch.exp(mm - m_new)
+                        p = torch.where(see, torch.exp(x - m_new[:, None]),
+                                        torch.zeros_like(x))
+                        ll = ll * corr + p.sum(-1)
+                        oo = oo * corr[:, None] + p.to(q.dtype).float() @ vt
+                        mm = m_new
+                out[b, h, j] = oo / ll.clamp(min=1e-30)[:, None]
+    return out.to(q.dtype)

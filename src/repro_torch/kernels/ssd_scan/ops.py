@@ -21,7 +21,10 @@ returned as its ``(B, H, S, p)`` view.
 
 Tensors on the CPU take the plain version (``ref.ssd_chunked_scan``);
 tensors on the card launch the hand-written CUDA kernel
-(``csrc/ssd_scan.cu``), or raise. There is no fallback from one to the
+(``csrc/ssd_scan.cu``), or raise. On the card a call is one launch, over
+CTAs that each take a slice of p's columns of one (b, h); the library
+picks the slice width from the shapes and the card's SM count
+(:func:`plan`), and the result does not depend on it, bit for bit. There is no fallback from one to the
 other. The module counts what it ran, in plain integers: ``ssd_launches``
 (one per kernel launch) and ``ref_calls`` (one per plain-version call).
 :func:`reset_counters` zeroes them.
@@ -30,6 +33,7 @@ other. The module counts what it ran, in plain integers: ``ssd_launches``
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -61,14 +65,36 @@ def _lib():
         lib.ssd_scan.restype = _I
         lib.ssd_smem_bytes.argtypes = [_I, _I, _I]
         lib.ssd_smem_bytes.restype = ctypes.c_longlong
+        lib.ssd_plan.argtypes = [_I, _I, _I, _I, _I, _P]
+        lib.ssd_plan.restype = None
     return lib
 
 
+class Plan(NamedTuple):
+    """One launch's shape: each CTA takes ``cols`` columns of p of one
+    (b, h); ``ctas`` CTAs in all, each with ``smem_bytes`` of shared
+    memory."""
+    cols: int
+    ctas: int
+    smem_bytes: int
+
+
+def plan(B: int, H: int, p: int, n: int, chunk: int) -> Plan:
+    """The launch's shape at these widths on the current card, as the
+    library picks it: the widest column slice (64, 32 or 16) that still
+    gives at least one CTA per SM. Needs the built library."""
+    out = (ctypes.c_longlong * 3)()
+    _lib().ssd_plan(B, H, p, n, chunk, out)
+    return Plan(*(int(v) for v in out))
+
+
 def smem_bytes(p: int, n: int, chunk: int) -> int:
-    """Shared memory one CTA takes (bytes), as the kernel's library sizes
-    it: the l x l score matrix is tiled by row blocks, so mamba2's widths
-    fit in a Hopper CTA. A launch that needs more than a CTA may have
-    fails with the library's error. Needs the built library."""
+    """Shared memory one CTA takes (bytes) at the widest column slice p
+    can take, as the kernel's library sizes it: the l x l score matrix
+    is formed by row blocks in the buffer of their C rows, so mamba2's
+    widths fit in a Hopper CTA. A launch that needs more than a CTA may
+    have (or l or n above 128) fails with the library's error. Needs the
+    built library."""
     return int(_lib().ssd_smem_bytes(p, n, chunk))
 
 

@@ -16,7 +16,11 @@ Resuming across two calls is held to 1e-5 on the CPU: the plain
 version's einsums may block their sums differently at different lengths,
 so bit-exactness is not its contract. The kernel's is: the ``cuda``
 tests hold the CUDA kernel to the plain version and check that a split
-scan resumes bit for bit on the card; they skip without one.
+scan resumes bit for bit on the card, and that the kernel's split of
+each (b, h) over CTAs by columns of p changes no bit; they skip without
+one. On the CPU the column split is held through the plain version: each
+slice of p's columns, scanned from its own slice of the state, gives the
+unsplit call's columns.
 """
 
 import jax
@@ -173,6 +177,29 @@ def test_strided_views_and_chunk_grid():
     np.testing.assert_allclose(f.numpy(), fp.numpy(), atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("B,H,S,p,n,chunk,cols", [
+    (2, 3, 100, 64, 16, 32, 16), (1, 2, 64, 16, 8, 16, 4),
+    (2, 4, 128, 32, 16, 32, 8), (1, 2, 70, 24, 8, 16, 16)])
+def test_column_slices_match_the_unsplit_scan(B, H, S, p, n, chunk, cols):
+    """The kernel splits each (b, h) over CTAs by columns of p: y[..., j]
+    and state row j depend only on x[..., j], state row j and the shared
+    dt, B and C. Each slice, scanned from its own state slice, gives the
+    unsplit call's final state bit for bit and its y within 1e-6 (the
+    plain version's einsums block their sums by width), the last slice
+    ragged where cols does not divide p."""
+    x, dt, A, Bm, Cm, s0 = _t(_inputs(B, H, S, p, n, seed=p + n,
+                                      state=True))
+    y, f = ops.ssd_scan(x, dt, A, Bm, Cm, s0, chunk=chunk,
+                        return_state=True)
+    parts = [ops.ssd_scan(x[..., j:j + cols], dt, A, Bm, Cm,
+                          s0[:, :, j:j + cols], chunk=chunk,
+                          return_state=True) for j in range(0, p, cols)]
+    ys = torch.cat([py for py, _ in parts], -1)
+    fs = torch.cat([pf for _, pf in parts], 2)
+    assert torch.equal(fs, f)
+    np.testing.assert_allclose(ys.numpy(), y.numpy(), atol=1e-6, rtol=1e-6)
+
+
 def test_wrapper_rejects_other_devices_and_sizes_smem():
     x, dt, A, Bm, Cm = _t(_inputs(1, 1, 8, 4, 4))
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -212,7 +239,8 @@ def test_cuda_kernel_matches_plain(cuda_device, B, H, S, p, n, chunk, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,n,H", [(16, 8, 3), (64, 128, 4), (64, 16, 5)])
+@pytest.mark.parametrize("p,n,H", [(16, 8, 3), (64, 128, 4), (64, 16, 5),
+                                   (64, 128, 32), (64, 16, 50)])
 def test_cuda_resume_is_bitwise(cuda_device, p, n, H):
     """One call over 256 tokens against two calls over 128 + 128 threaded
     through the returned state: y and the final state bit for bit."""
@@ -245,3 +273,23 @@ def test_cuda_shared_memory_fits_and_oversize_raises(cuda_device):
     t = [a.to(cuda_device) for a in _t(_inputs(1, 1, 128, 64, 256))]
     with pytest.raises(RuntimeError, match="CUDA error"):
         ops.ssd_scan(*t, chunk=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,n", [(32, 128), (50, 16)])
+def test_cuda_column_split_changes_no_bit(cuda_device, H, n):
+    """At mamba2's heads a 2-row call fills the card with CTAs of a
+    narrow column slice, an 8-row call takes wider slices; the 2 rows
+    inside the 8 give the same y and final state bit for bit."""
+    x, dt, A, Bm, Cm, s0 = [a.to(cuda_device) for a in
+                            _t(_inputs(8, H, 256, 64, n, seed=H,
+                                       state=True))]
+    small, big = ops.plan(2, H, 64, n, 128), ops.plan(8, H, 64, n, 128)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert small.ctas >= sms and small.cols < big.cols
+    y8, f8 = ops.ssd_scan(x, dt, A, Bm, Cm, s0, chunk=128,
+                          return_state=True)
+    y2, f2 = ops.ssd_scan(x[:2], dt[:2], A, Bm[:2], Cm[:2], s0[:2],
+                          chunk=128, return_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y2, y8[:2]) and torch.equal(f2, f8[:2])
