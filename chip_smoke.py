@@ -62,16 +62,31 @@ Phases (any failure exits non-zero and prints no result):
    single messages of 64 B to 4 MiB (bench_p2p's sizes) and ragged ones
    in f32, bf16 and int32, auto and both forced protocols; rounds of 8
    ranks (a ring, a partial round), 0 elements to 256 KiB a rank, and
-   the halo exchange's strided planes at 128^3 and 256^3 — then each
-   kernel's time at its path shape (an eager 4 KiB ring round, the
-   1-copy 64 KiB halo round of 128^3) beside its byte bound, the plain
-   version and one ``index_select`` by the inverse permutation, and the
-   host-inclusive time of one 64-byte message.
+   the halo exchange's strided planes at 128^3 and 256^3, through the
+   eager kernel (4 and 16 KiB cells: the latter the staged 1-copy
+   variant) and the 1-copy direct copy, on the
+   bulk (16-byte) and vector paths; round programs (every folded
+   schedule of (b), one of every combine, chunk rounds of both segment
+   combines) in f32 / bf16 / int32 with -0.0, NaN, tiny negatives and
+   overflowing int32 sums, and in f16 / f64 / int64, each in ONE launch,
+   against ``msgq_program_ref`` — then the empty kernel's time (the
+   floor of a launch under this timer), each kernel's time at its path
+   shape (an eager 4 KiB ring round, the 1-copy 64 KiB halo round of
+   128^3) beside its byte bound, the plain version and one
+   ``index_select`` by the inverse permutation, the three copies at the
+   4 KiB and 64 KiB rounds, a 256 KiB-a-rank round and a 4 MiB message
+   (GB/s and share of 3.35 TB/s), and the host-inclusive time of one
+   64-byte message.
    (b) The Comm API on a 2 x 4 threadcomm at 1024 and 65536 f32 a rank:
    every allreduce schedule, hierarchical and hierarchical_tree against
    psum (rtol 1e-5), the bf16 wire, barriers, p2p rings, and the
    ireduce_scatter -> iallreduce -> iallgather pipeline on a "grad" CUDA
-   stream, each with the msgq launches its schedule implies. (c) The
+   stream, each with the msgq launches its schedule implies (a folded
+   collective: one launch; hierarchical_tree: two). Every folded
+   collective is also held bitwise to the same collective run round by
+   round on the card (``by_rounds``: ``msgq_round`` and the torch ops of
+   each step), with the device (CUDA events, L2 flushed) and
+   host-inclusive times of both and of the native psum / pmax. (c) The
    PETSc case study: the slab-decomposed 27-point MatMult at 128^3 and
    256^3 on 8 unified ranks against the single-rank oracle (max abs err
    <= 1e-4 x max|y|, two 1-copy launches each) and CG(10) at 128^3
@@ -222,13 +237,15 @@ class Timer:
         self.flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
                                  device=dev)
 
-    def ms(self, fn, iters: int = 30) -> float:
+    def ms(self, fn, iters: int = 30, spin: int = SPIN_CYCLES) -> float:
+        """``spin``: cycles of the spin, longer than the host takes to
+        issue ``fn`` (a collective of many rounds needs more)."""
         for _ in range(3):
             fn()
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
-            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(spin)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -1100,10 +1117,13 @@ def host_ms(fn, iters: int = 10) -> float:
 
 def held_to_ref(errs, name, out, ref, what):
     """Hold one copy of kernel ``name`` to ref.py bitwise, and keep the
-    largest |out - ref| in ``errs[name]`` for the kernels line."""
+    largest |out - ref| over finite values in ``errs[name]`` for the
+    kernels line."""
     err = 0.0
     if out.shape == ref.shape and out.numel():
-        err = float((out.double() - ref.double()).abs().max())
+        diff = (out.double() - ref.double()).abs()
+        diff = diff[torch.isfinite(diff)]
+        err = float(diff.max()) if diff.numel() else 0.0
     errs[name] = max(errs[name], err)
     require(bitwise(out, ref), f"{what}: differs from ref.py (max abs err "
             f"{err:.3e})")
@@ -1111,12 +1131,123 @@ def held_to_ref(errs, name, out, ref, what):
 
 #: the kernel a protocol launches, by ``ops.is_eager``
 KERNEL = {True: "msgq_eager", False: "msgq_one_copy"}
+#: (label, protocol, eager cell bytes): the eager kernel with the comm
+#: layer's 4 KiB cell, the 1-copy kernel's direct copy, and the staged
+#: 1-copy variant (global -> shared -> global by bulk copies), which is
+#: the eager kernel with a 16 KiB cell
+VARIANTS = (("eager", "eager", 4096), ("one_copy", "one_copy", 4096),
+            ("staged (eager, 16 KiB cells)", "eager", 16384))
+
+
+def special(g, shape, dtype, dev):
+    """A message with the edge cases of its dtype: -0.0, NaN and tiny
+    negatives (floats), the extremes whose sums overflow (int32)."""
+    x = message(g, shape, dtype, dev)
+    flat = x.view(-1)
+    k = flat.numel()
+    idx = torch.randperm(k, generator=g).to(dev)
+    if dtype.is_floating_point:
+        flat[idx[: k // 6]] = -0.0
+        flat[idx[k // 6: k // 6 + 2]] = float("nan")
+        flat[idx[-(k // 6):]] *= -1e-30
+    elif dtype == torch.int32:
+        flat[idx[: k // 4]] = torch.tensor([2 ** 31 - 1, -2 ** 31], device=dev,
+                                           dtype=dtype).repeat(k)[: k // 4]
+    return x
+
+
+def programs(dev, elems):
+    """Round programs of the 2 x 4 threadcomm on slabs of ``elems``: each
+    folded schedule as the collectives build it (over all 8 ranks, and the
+    thread reduce/bcast over two families of 4), one of every combine,
+    and, where 8 chunks tile a slab, the ring and chunk rounds of both
+    segment combines."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import schedules as sch
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.kernels.msgq.program import Program, Round
+
+    region = make_mesh(*MESH, device=dev).region(MESH[1])
+    axes = MESH[1]
+    ring = [(i, (i + 1) % 8) for i in range(8)]
+    part = [(0, 3), (5, 1), (2, 2), (7, 0)]
+    c = elems // 8
+    # rank r sends chunk r mod 3 and combines into its chunk (r + 1) mod 3
+    chunked = [((s % 3) * c, ((d + 1) % 3) * c, c) for s, d in ring]
+    progs = {
+        "barrier": Program(coll._rounds(region, axes,
+                                        sch.dissemination_rounds(8), "max")),
+        "recursive_doubling": Program(coll._rounds(
+            region, axes, sch.recursive_doubling_rounds(8), "add")),
+        "reduce_bcast": Program(coll._reduce_bcast_rounds(region, axes, 8)),
+        "thread reduce (root 3)": Program(coll._rounds(
+            region, "thread", sch.binomial_reduce_rounds(4, 3), "add")),
+        "thread bcast (root 3)": Program(coll._rounds(
+            region, "thread", sch.binomial_bcast_rounds(4, 3), "replace")),
+        "every combine": Program([
+            Round(ring, "copy"), Round(part, "add"), Round(ring, "max"),
+            Round(part, "replace"), Round([(1, 1), (6, 6)], "mask")]),
+    }
+    if elems % 8 == 0:
+        progs["ring"] = Program(coll._ring_rounds(region, axes, 8, c))
+        progs["chunk rounds"] = Program([
+            Round(ring, "copy"), Round(ring, "add", chunked),
+            Round(ring, "replace", chunked)])
+    return progs
+
+
+def check_programs(dev, g, errs):
+    """Every program (each combine; f32 / bf16 / int32 with -0.0, NaN,
+    tiny negatives and overflowing sums, and f16 / f64 / int64) in ONE
+    launch of each kernel and the staged variant, on both paths,
+    bitwise against ``msgq_program_ref`` on the same card tensors."""
+    from repro_torch.kernels.msgq import ops as mq
+    from repro_torch.kernels.msgq.ref import msgq_program_ref
+
+    paths, count, names = set(), 0, set()
+    # 16-byte chunks, 5-element ones, a ragged slab, the bandwidth end
+    for elems in (1024, 40, 37, 65536):
+        progs = programs(dev, elems)
+        names |= set(progs)
+        for dtype in (torch.float32, torch.bfloat16, torch.int32,
+                      torch.float16, torch.float64, torch.int64):
+            if elems == 65536 and dtype.itemsize > 4:
+                continue
+            x = special(g, (8, elems), dtype, dev)
+            for name, prog in progs.items():
+                if name == "barrier" and dtype != torch.float32:
+                    continue
+                ref = msgq_program_ref(x, prog)
+                for label, proto, cell in VARIANTS:
+                    before = mq.counters()
+                    out = mq.msgq_program(x, prog, proto=proto,
+                                          cell_elems=cell // x.element_size())
+                    torch.cuda.synchronize()
+                    eager = mq.is_eager(proto)
+                    require(msgq_delta(before, mq.counters())
+                            == ((1, 0) if eager else (0, 1)),
+                            f"program {name}: not one launch")
+                    paths.add(mq.last_path)
+                    held_to_ref(errs, KERNEL[eager], out, ref,
+                                f"program {name} ({elems} x {dtype}, "
+                                f"{label}, "
+                                f"{mq.last_path})")
+                    count += 1
+    require(paths == {"bulk", "vector", "direct"},
+            f"programs took the paths {sorted(paths)}")
+    print(f"check msgq_program: {count} programs ({', '.join(sorted(names))}; 37 "
+          "to 65536 elements a rank; f32/bf16/int32 with -0.0, NaN, tiny "
+          "negatives and int32 overflow, f16/f64/int64; eager, 1-copy "
+          "direct and staged; paths bulk, vector and direct): bitwise "
+          "equal to msgq_program_ref", flush=True)
 
 
 def phase_msgq(dev, timer):
-    """7a: both msgq kernels against the plain version, bitwise, then
-    their times at the path shapes and the host-inclusive latency of one
-    64-byte message."""
+    """7a: both msgq kernels against the plain version, bitwise (single
+    messages, rounds on both paths and the staged variant, round
+    programs of every combine), then their times at the path shapes and
+    the bandwidth end, the empty-kernel floor, and the host-inclusive
+    latency of one 64-byte message."""
     from repro_torch.core import protocol
     from repro_torch.kernels.msgq import ops as mq
     from repro_torch.kernels.msgq.ref import msgq_copy_ref, msgq_round_ref
@@ -1154,37 +1285,48 @@ def phase_msgq(dev, timer):
     R = 8
     ring = [(i, (i + 1) % R) for i in range(R)]
     partial = [(0, 3), (5, 1), (2, 2), (7, 0)]      # 4-7 receive nothing
-    rounds = 0
+    rounds, paths = 0, set()
     for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.uint8):
         for shape in ((R,), (R, 0), (R, 3), (R, 17), (R, 1024), (R, 5000),
                       (R, 16384), (R, 65536)):
             x = message(g, shape, dtype, dev)
             for pairs in (ring, partial):
-                for proto in ("eager", "one_copy"):
-                    out = mq.msgq_round(x, pairs, proto=proto)
+                for label, proto, cell in VARIANTS:
+                    out = mq.msgq_round(x, pairs, proto=proto, cell_elems=(
+                        1024 if cell == 4096 else cell // x.element_size()))
                     torch.cuda.synchronize()
+                    paths.add(mq.last_path)
                     require(out.data_ptr() != x.data_ptr() or x.numel() == 0,
                             "msgq_round wrote into its input")
                     held_to_ref(errs, KERNEL[mq.is_eager(proto)], out,
                                 msgq_round_ref(x, pairs),
-                                f"msgq_round {shape} {dtype} {proto}")
+                                f"msgq_round {shape} {dtype} {proto} "
+                                f"({label}, {mq.last_path})")
                     rounds += 1
     # strided slabs: the halo exchange's boundary planes, read in place
     # (MatMult's at 128^3 and 256^3)
     for shape in ((R, 4, 33, 7), (R, 16, 128, 128), (R, 16, 256, 256)):
         x = message(g, shape, torch.float32, dev)
         for edge in (x[:, :1], x[:, -1:]):
-            for proto in ("eager", "one_copy"):
-                out = mq.msgq_round(edge, ring, proto=proto)
+            for label, proto, cell in VARIANTS:
+                out = mq.msgq_round(edge, ring, proto=proto,
+                                    cell_elems=cell // 4)
                 torch.cuda.synchronize()
+                paths.add(mq.last_path)
                 held_to_ref(errs, KERNEL[mq.is_eager(proto)], out,
                             msgq_round_ref(edge, ring),
-                            f"msgq_round strided edge of {shape} {proto}")
+                            f"msgq_round strided edge of {shape} {proto} "
+                            f"({label}, {mq.last_path})")
                 rounds += 1
+    require(paths == {"bulk", "vector", "direct"},
+            f"rounds took the paths {sorted(paths)}")
     print(f"check msgq_round: {rounds} rounds of 8 ranks (a ring and a "
           "partial round; 0 to 256 KiB a rank; f32/bf16/int32/uint8; "
-          "strided halo planes of 128^3 and 256^3), both kernels: bitwise "
-          f"equal to ref.py (max abs err {json.dumps(errs)})", flush=True)
+          "strided halo planes of 128^3 and 256^3; eager, 1-copy direct "
+          "and staged; paths bulk, vector and direct), both kernels: "
+          f"bitwise equal to ref.py (max abs err {json.dumps(errs)})",
+          flush=True)
+    check_programs(dev, g, errs)
 
     rows = {}
     eager_x = message(g, (R, 1024), torch.float32, dev)
@@ -1192,38 +1334,52 @@ def phase_msgq(dev, timer):
     # the ring as one gather: out[d] = x[inverse[d]]
     inverse = torch.tensor([s for s, _ in sorted(ring, key=lambda p: p[1])],
                            device=dev)
+    floor_ms = timer.ms(lambda: torch.cuda._sleep(0))
+    print(f"time  empty kernel (the floor of one launch under this timer): "
+          f"{floor_ms:.4f} ms", flush=True)
     for name, label, x, proto in (
             ("msgq_eager", "4 KiB ring round, 8 ranks", eager_x,
              "eager_fast"),
             ("msgq_one_copy", "64 KiB halo round (128^3), 8 ranks", halo,
              "one_copy")):
         nbytes = 2 * x.shape[0] * x[0].numel() * x.element_size()
+        mq.msgq_round(x, ring, proto=proto)
         row = {"name": name, "route": "cuda", "source": MSGQ_SOURCE,
                "replaces": TPU_KERNELS[name], "launches": 0,
                "max_abs_err": errs[name], "shape": label,
-               "dtype": "float32",
+               "dtype": "float32", "path": mq.last_path,
                "ms": timer.ms(lambda: mq.msgq_round(x, ring, proto=proto)),
                "plain_ms": timer.ms(lambda: msgq_round_ref(x, ring)),
                "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
                "bound_by": "bytes", "bound_bytes": nbytes,
-               "library_ms": timer.ms(lambda: x.index_select(0, inverse))}
+               "library_ms": timer.ms(lambda: x.index_select(0, inverse)),
+               "empty_kernel_ms": floor_ms}
         rows[name] = row
         print(f"time  {name:13s} {label:34s} ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} "
-              f"bound_ms={row['bound_ms']:.6f} (bytes: {nbytes})",
-              flush=True)
-    # the two protocols side by side (Fig. 3's bandwidth end included)
+              f"bound_ms={row['bound_ms']:.6f} (bytes: {nbytes}; path "
+              f"{row['path']})", flush=True)
+    # the copies side by side, the bandwidth end included
     big = message(g, (1, 1 << 20), torch.float32, dev)         # 4 MiB
+    wide = message(g, (R, 65536), torch.float32, dev)      # 256 KiB a rank
+    bandwidth = {}
     for label, x, pairs in (("4 KiB ring round", eager_x, ring),
                             ("64 KiB halo round", halo, ring),
+                            ("256 KiB-a-rank ring round", wide, ring),
                             ("4 MiB message", big, [(0, 0)])):
         nbytes = 2 * x.shape[0] * x[0].numel() * x.element_size()
-        line = []
-        for proto in ("eager", "one_copy"):
-            ms = timer.ms(lambda: mq.msgq_round(x, pairs, proto=proto))
-            line.append(f"{proto} {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)")
+        line, bandwidth[label] = [], {}
+        for key, proto, cell in VARIANTS:
+            ms = timer.ms(lambda: mq.msgq_round(x, pairs, proto=proto,
+                                                cell_elems=cell // 4))
+            gbs = nbytes / ms / 1e6
+            bandwidth[label][key] = {"ms": ms, "GB_s": gbs,
+                                     "hbm_share": gbs * 1e9 / HBM_BYTES_PER_S}
+            line.append(f"{key} {ms:.4f} ms ({gbs:.1f} GB/s, "
+                        f"{gbs * 1e9 / HBM_BYTES_PER_S:.3f} of 3.35 TB/s)")
         print(f"time  protocols at {label}: " + ", ".join(line), flush=True)
+    rows["msgq_one_copy"]["bandwidth"] = bandwidth
 
     one = message(g, (1, 16), torch.float32, dev)       # a 64-byte message
     latency = {}
@@ -1258,9 +1414,101 @@ def phase_msgq(dev, timer):
     return rows
 
 
+@functools.lru_cache(maxsize=None)
+def local_mask(R: int, n: int, ranks: tuple, dev) -> torch.Tensor:
+    """bool (R,): whose local rank (stacked rank mod n) is in ``ranks``,
+    made once on the card (as the parent's ``Region.rank_mask``)."""
+    return torch.isin(torch.arange(R) % n, torch.tensor(ranks)).to(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def local_ranks(R: int, n: int, dev) -> torch.Tensor:
+    return (torch.arange(R) % n).to(dev)
+
+
+def by_rounds(schedule, v, fams, n, root=0):
+    """A collective as it ran before the fold, built here: one msgq_round
+    launch a round (``ppermute``'s protocol and cell) and the torch op of
+    its step, on v (fams * n, ...) stacked process-major (``fams``
+    families of n)."""
+    from repro_torch.core import protocol
+    from repro_torch.core import schedules as sch
+    from repro_torch.kernels.msgq import ops as mq
+
+    R = v.shape[0]
+
+    def exchange(u, rnd):
+        item = u.element_size()
+        return mq.msgq_round(
+            u, [(f * n + s, f * n + d) for f in range(fams) for s, d in rnd],
+            proto=protocol.select_protocol(u[0].numel() * item),
+            cell_elems=max(1, protocol.DEFAULT_CELL_SIZE // item))
+
+    def view(mask, u):
+        return mask.reshape((R,) + (1,) * (u.dim() - 1))
+
+    def reduce(u, r):
+        for rnd in sch.binomial_reduce_rounds(n, r):
+            u = u + exchange(u, rnd)
+        return u
+
+    def bcast(u, r):
+        for rnd in sch.binomial_bcast_rounds(n, r):
+            received = exchange(u, rnd)
+            is_dst = local_mask(R, n, tuple(d for _, d in rnd), v.device)
+            u = torch.where(view(is_dst, u), received, u)
+        return u
+
+    if schedule == "barrier":
+        for rnd in sch.dissemination_rounds(n):
+            v = torch.maximum(v, exchange(v, rnd))
+        return v
+    if schedule == "reduce":
+        return reduce(v, root)
+    if schedule == "bcast":
+        return bcast(v, root)
+    if schedule == "recursive_doubling":
+        for rnd in sch.recursive_doubling_rounds(n):
+            v = v + exchange(v, rnd)
+        return v
+    if schedule == "reduce_bcast":
+        v = reduce(v, 0)
+        v = torch.where(view(local_mask(R, n, (0,), v.device), v), v,
+                        torch.zeros_like(v))
+        return bcast(v, 0)
+    flat = v.reshape(R, -1)                             # the ring
+    numel = flat.shape[1]
+    if numel % n:
+        flat = F.pad(flat, (0, (-numel) % n))
+    chunks = flat.reshape(R, n, -1)
+    c = chunks.shape[2]
+    rank = local_ranks(R, n, v.device)
+    ring = sch.ring_rounds(n)[0]
+
+    def at(idx):
+        return (idx % n).view(R, 1, 1).expand(R, 1, c)
+
+    for t in range(n - 1):
+        blk = chunks.gather(1, at(rank - t))[:, 0]
+        chunks = chunks.scatter_add(1, at(rank - t - 1),
+                                    exchange(blk, ring)[:, None])
+    for t in range(n - 1):
+        blk = chunks.gather(1, at(rank - t + 1))[:, 0]
+        chunks = chunks.scatter(1, at(rank - t), exchange(blk, ring)[:, None])
+    return chunks.reshape(R, -1)[:, :numel].reshape(v.shape)
+
+
+#: a spin (GPU cycles, ~10 ms) longer than the host takes to issue a
+#: collective's 14 rounds one by one, so the events time device work
+COLLECTIVE_SPIN = 20_000_000
+
+
 def phase_collectives(dev, path):
     """7b: the Comm API's collectives on a 2 x 4 threadcomm, each against
-    psum (rtol 1e-5) and each with the msgq launches it implies."""
+    psum (rtol 1e-5) and each with the msgq launches it implies; every
+    folded collective also bitwise against the same collective run round
+    by round on the card (``by_rounds``), with the device and
+    host-inclusive times of both and of the native psum / pmax."""
     from repro_torch.core import threadcomm_init
     from repro_torch.core.compat import make_mesh
 
@@ -1270,10 +1518,19 @@ def phase_collectives(dev, path):
                           process_axes=("proc",), thread_axes=("thread",))
     g = torch.Generator().manual_seed(11)
     times = {}
+    timer = Timer(dev)
     with tc.start(), cpu.start():
         tcm, pcm = tc.thread_comm(), tc.process_comm()
         ring = [(i, (i + 1) % tc.size) for i in range(tc.size)]
         tring = [(i, (i + 1) % 4) for i in range(4)]
+
+        def token(c, v):
+            return v[:, 0, 0] + c.device_rank()
+
+        def tree_by_rounds(v):
+            y = by_rounds("reduce", v, 2, 4)
+            return by_rounds("bcast", pcm.allreduce(y), 2, 4)
+
         for nelem in (1024, 65536):
             x = torch.rand(tc.size, nelem, generator=g).to(dev)
             want = x.sum(0, keepdim=True).expand(tc.size, nelem)
@@ -1284,42 +1541,49 @@ def phase_collectives(dev, path):
             chunk = (lambda n: (n, 0)) if nelem // 8 * 4 <= 4096 else \
                 (lambda n: (0, n))
             # (label, op on a comm, msgq launches (eager, 1-copy), the
-            # expected result; None: the same op on the CPU's plain path)
+            # expected result (None: the same op on the CPU's plain path),
+            # the same op round by round (None: not folded))
             cases = [
-                ("allreduce psum", lambda c, v: c.allreduce(v), (0, 0), want),
+                ("allreduce psum", lambda c, v: c.allreduce(v), (0, 0), want,
+                 None),
                 ("allreduce recursive_doubling", lambda c, v: c.allreduce(
-                    v, schedule="recursive_doubling"), k(3), want),
+                    v, schedule="recursive_doubling"), k(1), want,
+                 lambda v: by_rounds("recursive_doubling", v, 1, 8)),
                 ("allreduce ring", lambda c, v: c.allreduce(
-                    v, schedule="ring"), chunk(14), want),
+                    v, schedule="ring"), chunk(1), want,
+                 lambda v: by_rounds("ring", v, 1, 8)),
                 ("allreduce reduce_bcast", lambda c, v: c.allreduce(
-                    v, schedule="reduce_bcast"), k(6), want),
+                    v, schedule="reduce_bcast"), k(1), want,
+                 lambda v: by_rounds("reduce_bcast", v, 1, 8)),
                 ("allreduce hierarchical", lambda c, v: c.allreduce(
-                    v, schedule="hierarchical"), (0, 0), want),
+                    v, schedule="hierarchical"), (0, 0), want, None),
                 ("allreduce hierarchical_tree", lambda c, v: c.allreduce(
-                    v, schedule="hierarchical_tree"), k(4), want),
+                    v, schedule="hierarchical_tree"), k(2), want,
+                 tree_by_rounds),
                 ("allreduce wire bf16", lambda c, v: c.allreduce(
                     v, wire_dtype="bfloat16"),
-                 (3, 0) if nelem * 2 <= 4096 else (0, 3), None),
+                 (3, 0) if nelem * 2 <= 4096 else (0, 3), None, None),
                 ("barrier msg", lambda c, v: c.barrier(
-                    v[:, 0, 0] + c.device_rank())[:, None, None], (3, 0),
-                 top),
+                    token(c, v))[:, None, None], (1, 0), top,
+                 lambda v: by_rounds("barrier", token(tc, v), 1, 8)[
+                     :, None, None]),
                 ("barrier atomic", lambda c, v: c.barrier(
-                    v[:, 0, 0] + c.device_rank(),
-                    mode="atomic")[:, None, None], (0, 0), top),
+                    token(c, v), mode="atomic")[:, None, None], (0, 0), top,
+                 None),
                 ("send_recv ring (root)", lambda c, v: c.send_recv(v, ring),
-                 k(1), torch.roll(x, 1, 0)),
+                 k(1), torch.roll(x, 1, 0), None),
                 ("send_recv thread ring", lambda c, v:
                  c.thread_comm().send_recv(v, tring), k(1),
                  torch.cat([torch.roll(x[:4], 1, 0),
-                            torch.roll(x[4:], 1, 0)])),
+                            torch.roll(x[4:], 1, 0)]), None),
                 ("send_recv forced eager", lambda c, v: c.send_recv(
                     v, ring, force_protocol="eager"), (1, 0),
-                 torch.roll(x, 1, 0)),
+                 torch.roll(x, 1, 0), None),
                 ("send_recv forced one_copy", lambda c, v: c.send_recv(
                     v, ring, force_protocol="one_copy"), (0, 1),
-                 torch.roll(x, 1, 0)),
+                 torch.roll(x, 1, 0), None),
             ]
-            for label, op, launches, ref in cases:
+            for label, op, launches, ref, rounds in cases:
                 fn = functools.partial(op, tc)
                 out, got = on_path(path, lambda: tc.run(fn, x))
                 torch.cuda.synchronize()
@@ -1332,10 +1596,28 @@ def phase_collectives(dev, path):
                 require(bool(torch.allclose(out, ref, rtol=1e-5, atol=0)),
                         f"{label} ({nelem}): disagrees with its reference "
                         f"(max abs err {float((out - ref).abs().max()):.3e})")
-                times[f"{label} {nelem}"] = host_ms(lambda: tc.run(fn, x))
+                row = {"launches": list(got),
+                       "host_ms": host_ms(lambda: tc.run(fn, x))}
+                note = ""
+                if rounds is not None or "psum" in label or "atomic" in label:
+                    row["device_ms"] = timer.ms(lambda: tc.run(fn, x),
+                                                spin=COLLECTIVE_SPIN)
+                    note = f", device {row['device_ms']:.4f} ms"
+                if rounds is not None:
+                    by = tc.run(rounds, x)
+                    torch.cuda.synchronize()
+                    require(bitwise(out, by), f"{label} ({nelem}): the folded "
+                            "program differs from its rounds one by one")
+                    row["rounds_host_ms"] = host_ms(lambda: tc.run(rounds, x))
+                    row["rounds_device_ms"] = timer.ms(
+                        lambda: tc.run(rounds, x), spin=COLLECTIVE_SPIN)
+                    note += (f"; bitwise equal to its rounds one by one: "
+                             f"host {row['rounds_host_ms']:.4f} ms, device "
+                             f"{row['rounds_device_ms']:.4f} ms")
+                times[f"{label} {nelem}"] = row
                 print(f"check collective {label:30s} {nelem * 4:7d} B/rank "
-                      f"msgq (eager, 1-copy) {got}: ok, "
-                      f"{times[f'{label} {nelem}']:.4f} ms", flush=True)
+                      f"msgq (eager, 1-copy) {got}: ok, host "
+                      f"{row['host_ms']:.4f} ms{note}", flush=True)
 
             def pipeline(v):                    # v: (R, 1, nelem)
                 with tc.stream("grad") as s:
@@ -1355,12 +1637,14 @@ def phase_collectives(dev, path):
                     f"stream pipeline ({nelem}): msgq launches {got}")
             ok = bool(torch.allclose(out, want, rtol=1e-5, atol=0))
             require(ok, f"stream pipeline ({nelem}): disagrees with psum")
-            times[f"stream pipeline {nelem}"] = host_ms(
-                lambda: tc.run(pipeline, x))
+            times[f"stream pipeline {nelem}"] = {
+                "launches": list(got),
+                "host_ms": host_ms(lambda: tc.run(pipeline, x))}
             print(f"check collective {'ireduce_scatter>iallreduce>'
                                       'iallgather on a grad CUDA stream':30s}"
-                  f" {nelem * 4:7d} B/rank msgq {got}: ok, "
-                  f"{times[f'stream pipeline {nelem}']:.4f} ms", flush=True)
+                  f" {nelem * 4:7d} B/rank msgq {got}: ok, host "
+                  f"{times[f'stream pipeline {nelem}']['host_ms']:.4f} ms",
+                  flush=True)
     tc.free()
     cpu.free()
     return times
@@ -1454,7 +1738,7 @@ def phase_threadcomm(dev):
     rows["msgq_eager"]["launches"] = path["eager_launches"]
     rows["msgq_one_copy"]["launches"] = path["one_copy_launches"]
     print("threadcomm kernels on the path: " + json.dumps(path), flush=True)
-    print("threadcomm: " + json.dumps({"collectives_ms": collectives,
+    print("threadcomm: " + json.dumps({"collectives": collectives,
                                        "petsc": petsc}), flush=True)
     return rows
 

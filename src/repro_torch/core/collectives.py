@@ -11,10 +11,18 @@ threadcomm construction. Ranks that agree on every other mesh axis form
 one family, and a collective acts in every family at once.
 
 Two implementations exist for most ops, as in the reference:
-  * schedule-explicit: message rounds, each ONE launch of a ``kernels/
-    msgq`` copy (eager through a shared-memory cell, or 1-copy, picked by
-    the per-rank message size as ``protocol.select_protocol`` picks it) —
-    the paper's point-to-point-based algorithms (§4.2);
+  * schedule-explicit: message rounds of a ``kernels/msgq`` copy (eager
+    through a shared-memory cell, or 1-copy, picked by the per-rank
+    message size as ``protocol.select_protocol`` picks it) — the paper's
+    point-to-point-based algorithms (§4.2). ``barrier(mode="msg")``,
+    ``reduce``, ``bcast`` and the recursive-doubling, ring and
+    reduce_bcast allreduces fold their rounds into one round program
+    (``kernels/msgq/program.py``), built once per (schedule, root,
+    family layout, ranks, elements, dtype) and run by ONE launch on the
+    card (its plain version on the CPU); the reference runs one
+    ``lax.ppermute`` a round, with the same results. A lone round
+    (``ppermute``) and the ``wire_dtype`` allreduce stay one launch a
+    round;
   * native (``psum`` and friends): plain reductions and reshapes over the
     stacked rank dim, the counterpart of XLA's fused collectives.
 """
@@ -28,8 +36,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import protocol
 from repro_torch.core import schedules as sch
-from repro_torch.core.compat import axis_index, current_region, rank_view
+from repro_torch.core.compat import axis_index, current_region
 from repro_torch.kernels.msgq import ops as msgq
+from repro_torch.kernels.msgq.program import Program, Round
 
 Axes = Union[str, Tuple[str, ...]]
 
@@ -75,6 +84,36 @@ def ppermute(x: torch.Tensor, axes: Axes, pairs: Sequence[Tuple[int, int]],
     cell_elems = max(1, protocol.DEFAULT_CELL_SIZE // x.element_size())
     return msgq.msgq_round(x, region.pairs(axes, pairs), proto=proto,
                            cell_elems=cell_elems)
+
+
+def _fold(x: torch.Tensor, axes: Axes, schedule: str, build,
+          root: int = 0, msg_elems: Optional[int] = None) -> torch.Tensor:
+    """Run the round program ``build(region, n)`` of a schedule on x in
+    one msgq launch (the plain version on the CPU); the program is made
+    once per (schedule, root, axes, elements, dtype) of the region, whose
+    mesh fixes the family layout and the ranks. ``msg_elems``: the
+    elements of one message (default: the whole slab), which pick the
+    protocol as ``ppermute`` picks it."""
+    region = current_region()
+    if x.dim() == 0 or x.shape[0] != region.size:
+        raise ValueError(f"a collective of a {tuple(x.shape)} value, not a "
+                         f"per-rank (R={region.size}, ...) one")
+    n = region.axis_size(axes)
+    numel = x[0].numel()
+    program = region.memo(
+        ("program", schedule, root, axes, numel, x.dtype),
+        lambda: Program(build(region, n)))
+    if not program.rounds:
+        return x
+    item = x.element_size()
+    proto = protocol.select_protocol(
+        (numel if msg_elems is None else msg_elems) * item)
+    return msgq.msgq_program(x, program, proto=proto, cell_elems=max(
+        1, protocol.DEFAULT_CELL_SIZE // item))
+
+
+def _rounds(region, axes: Axes, schedule, combine: str) -> list:
+    return [Round(region.pairs(axes, rnd), combine) for rnd in schedule]
 
 
 def psum(x: torch.Tensor, axes: Axes) -> torch.Tensor:
@@ -145,9 +184,8 @@ def barrier(token, axes: Axes, mode: str = "msg") -> torch.Tensor:
     token = torch.as_tensor(token).to(torch.float32)
     if mode == "atomic":
         return pmax(token, axes)
-    for rnd in sch.dissemination_rounds(axis_size(axes)):
-        token = torch.maximum(token, ppermute(token, axes, rnd))
-    return token
+    return _fold(token, axes, "dissemination", lambda region, n: _rounds(
+        region, axes, sch.dissemination_rounds(n), "max"))
 
 
 # ---------------------------------------------------------------------------
@@ -160,19 +198,29 @@ def reduce(x, axes: Axes, root: int = 0, schedule: str = "binomial"):
     analogue (valid everywhere)."""
     if schedule == "psum":
         return psum(x, axes)
-    for rnd in sch.binomial_reduce_rounds(axis_size(axes), root):
-        x = x + ppermute(x, axes, rnd)       # non-receivers get zeros
-    return x
+    # each round: x + received (non-receivers add zeros)
+    return _fold(x, axes, "binomial_reduce", lambda region, n: _rounds(
+        region, axes, sch.binomial_reduce_rounds(n, root), "add"), root)
 
 
 def bcast(x, axes: Axes, root: int = 0):
     """Binomial broadcast from ``root`` over the unified rank space."""
-    region = current_region()
-    for rnd in sch.binomial_bcast_rounds(axis_size(axes), root):
-        received = ppermute(x, axes, rnd)
-        is_dst = region.rank_mask(axes, [d for _, d in rnd])
-        x = torch.where(rank_view(is_dst, x), received, x)
-    return x
+    # each round: a dst takes what it received, every other rank keeps x
+    return _fold(x, axes, "binomial_bcast", lambda region, n: _rounds(
+        region, axes, sch.binomial_bcast_rounds(n, root), "replace"), root)
+
+
+def _reduce_bcast_rounds(region, axes: Axes, n: int) -> list:
+    """Binomial reduce to local rank 0, the non-root partials masked to
+    zeros, binomial bcast from local rank 0."""
+    if n == 1:
+        return []
+    members, _ = region.family(axes)
+    roots = [(int(f[0]), int(f[0])) for f in members]
+    return (_rounds(region, axes, sch.binomial_reduce_rounds(n, 0), "add")
+            + [Round(roots, "mask")]
+            + _rounds(region, axes, sch.binomial_bcast_rounds(n, 0),
+                      "replace"))
 
 
 # ---------------------------------------------------------------------------
@@ -202,48 +250,53 @@ def allreduce(x, axes: Axes, schedule: str = "psum", wire_dtype=None):
     if schedule == "psum":
         return psum(x, axes)
     if schedule == "recursive_doubling":
-        for rnd in sch.recursive_doubling_rounds(axis_size(axes)):
-            x = x + ppermute(x, axes, rnd)
-        return x
+        return _fold(x, axes, schedule, lambda region, n: _rounds(
+            region, axes, sch.recursive_doubling_rounds(n), "add"))
     if schedule == "ring":
         return _ring_allreduce(x, axes)
     if schedule == "reduce_bcast":
-        x = reduce(x, axes, root=0, schedule="binomial")
-        # mask non-root partials before broadcasting
-        x = torch.where(rank_view(unified_rank(axes) == 0, x), x,
-                        torch.zeros_like(x))
-        return bcast(x, axes, root=0)
+        return _fold(x, axes, schedule, lambda region, n:
+                     _reduce_bcast_rounds(region, axes, n))
     raise ValueError(f"unknown allreduce schedule {schedule!r}")
 
 
+def _ring_rounds(region, axes: Axes, n: int, c: int) -> list:
+    """The ring's 2(n - 1) rounds over chunks of c elements: in round t
+    of the reduce-scatter local rank r sends chunk (r - t) mod n, which
+    its successor adds into its own chunk of that index; in round t of
+    the allgather it sends chunk (r - t + 1) mod n, which its successor
+    writes over its own."""
+    members, _ = region.family(axes)
+    ring = sch.ring_rounds(n)[0]
+
+    def step(shift: int, combine: str) -> Round:
+        pairs, segs = [], []
+        for f in members:
+            for s, d in ring:
+                k = (s - shift) % n * c
+                pairs.append((int(f[s]), int(f[d])))
+                segs.append((k, k, c))
+        return Round(pairs, combine, segs)
+
+    return ([step(t, "add") for t in range(n - 1)]
+            + [step(t - 1, "replace") for t in range(n - 1)])
+
+
 def _ring_allreduce(x, axes: Axes):
-    """Bandwidth-optimal ring: reduce-scatter + allgather, 2(n-1) rounds.
-    Each rank sends and receives a DIFFERENT chunk index in a round, so
-    chunks are picked by per-rank gather and scatter indices."""
+    """Bandwidth-optimal ring: reduce-scatter + allgather, 2(n-1) rounds
+    of one chunk a rank. Each rank sends and receives a DIFFERENT chunk
+    index in a round: the rounds carry each pair's segment."""
     n = axis_size(axes)
     R = x.shape[0]
-    rank = unified_rank(axes)
     flat = x.reshape(R, -1)
     numel = flat.shape[1]
     pad = (-numel) % n
     if pad:
         flat = F.pad(flat, (0, pad))
-    chunks = flat.reshape(R, n, -1)
-    c = chunks.shape[2]
-    ring = sch.ring_rounds(n)[0]
-
-    def at(idx):                                   # (R,) -> (R, 1, c)
-        return (idx % n).view(R, 1, 1).expand(R, 1, c)
-
-    for t in range(n - 1):                         # reduce-scatter
-        blk = chunks.gather(1, at(rank - t))[:, 0]
-        recv = ppermute(blk, axes, ring)
-        chunks = chunks.scatter_add(1, at(rank - t - 1), recv[:, None])
-    for t in range(n - 1):                         # allgather
-        blk = chunks.gather(1, at(rank - t + 1))[:, 0]
-        recv = ppermute(blk, axes, ring)
-        chunks = chunks.scatter(1, at(rank - t), recv[:, None])
-    return chunks.reshape(R, -1)[:, :numel].reshape(x.shape)
+    c = flat.shape[1] // n
+    out = _fold(flat, axes, "ring", lambda region, n_: _ring_rounds(
+        region, axes, n_, c), msg_elems=c)
+    return out[:, :numel].reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,9 @@ derived communicator shares the same method surface::
 
 All ranks run on one device, as one rank-stacked program (``core/
 compat.py``): inside ``root.run`` every per-rank value has a leading rank
-dimension and every message between ranks is one launch of a
-``kernels/msgq`` copy. ``split`` returns an axis-aligned :class:`AxisComm`
+dimension and every message round between ranks is one launch of a
+``kernels/msgq`` copy; a folded collective (``core/collectives.py``) runs
+all its rounds in one. ``split`` returns an axis-aligned :class:`AxisComm`
 (native reductions over mesh axes) whenever the colour classes coincide
 with a mesh sub-grid, and a generic :class:`GroupComm` (merged ring
 rounds over the unified rank space) otherwise.

@@ -114,22 +114,20 @@ class Region:
             r = r * self.mesh.shape[a] + self._coords[a]
         return r
 
+    def memo(self, key, make):
+        """``make()``, made once per ``key`` for this region."""
+        if key not in self._cache:
+            self._cache[key] = make()
+        return self._cache[key]
+
     def on_device(self, key, make) -> torch.Tensor:
         """The host table ``make()`` on the mesh's device, made once."""
-        if key not in self._cache:
-            self._cache[key] = torch.as_tensor(make(),
-                                               device=self.mesh.device)
-        return self._cache[key]
+        return self.memo(key, lambda: torch.as_tensor(
+            make(), device=self.mesh.device))
 
     def axis_index(self, axes: Axes) -> torch.Tensor:
         return self.on_device(("axis_index", _axes(axes)),
                               lambda: self.index(axes))
-
-    def rank_mask(self, axes: Axes, local_ranks) -> torch.Tensor:
-        """bool (R,): whose local rank over ``axes`` is in the list."""
-        ranks = tuple(local_ranks)
-        return self.on_device(("mask", _axes(axes), ranks),
-                              lambda: np.isin(self.index(axes), ranks))
 
     def family(self, axes: Axes):
         """Families over ``axes`` (ranks agreeing on every other mesh axis)

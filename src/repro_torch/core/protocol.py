@@ -53,7 +53,8 @@ class DeviceModel:
     write it once; the eager copy also passes it through a shared-memory
     cell and back, on chip. One launch moves a whole round, every cell or
     block in parallel, so the issue time is paid once per message round,
-    not once per cell."""
+    not once per cell (and once per folded collective, whose rounds share
+    one launch)."""
     #: host-inclusive time of one 64-byte message on the eager protocol
     #: (call + synchronize, median of 200), as ``chip_smoke.py`` phase 7a
     #: prints it on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit:

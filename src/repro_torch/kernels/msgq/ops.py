@@ -1,5 +1,5 @@
 """Public wrapper for the msgq message copies: protocol dispatch,
-padding, and launch counters.
+padding, round programs, and launch counters.
 
 Follows the reference wrapper (``src/repro/kernels/msgq/ops.py``):
 ``msgq_copy`` picks eager (a staged copy through a bounded cell, 2
@@ -7,15 +7,17 @@ copies) or 1-copy (direct) by message size with the paper's interthread
 threshold, and pads as the reference pads. ``msgq_round`` moves a whole
 message round between the ranks of a rank-stacked region
 (``core/compat.py``): it is what ``core.collectives.ppermute`` calls for
-every message between ranks. ``copy_accounting`` reports the bytes each
-protocol moves.
+a single message round. ``msgq_program`` runs a collective's sequence of
+rounds (``program.py``) in ONE launch. ``copy_accounting`` reports the
+bytes each protocol moves.
 
 Tensors on the CPU take the plain version (``ref.py``); tensors on the
 card launch the hand-written CUDA kernels (``csrc/msgq.cu``), or raise.
 There is no fallback from one to the other. The module counts what it
 ran, in plain integers: ``eager_launches`` and ``one_copy_launches`` (one
-per kernel launch) and ``ref_calls`` (one per plain-version call).
-:func:`reset_counters` zeroes them.
+per kernel launch, a whole program included) and ``ref_calls`` (one per
+plain-version call: a round, or a whole program). :func:`reset_counters`
+zeroes them.
 """
 
 from __future__ import annotations
@@ -28,16 +30,25 @@ import torch.nn.functional as F
 
 from repro_torch.core import protocol
 from repro_torch.kernels import _build
-from repro_torch.kernels.msgq.ref import msgq_round_ref
+from repro_torch.kernels.msgq.program import Program
+from repro_torch.kernels.msgq.ref import msgq_program_ref, msgq_round_ref
 
 eager_launches = 0
 one_copy_launches = 0
 ref_calls = 0
+#: the path of the last launch: "bulk" (16-byte access: bulk copies
+#: through shared-memory cells), "vector" (narrower: threads copy through
+#: one cell) or "direct" (the 1-copy kernel's direct copy)
+last_path = ""
 
-#: pairs one launch carries (the kernel's by-value pair table)
+#: pairs a single round carries (the kernel's by-value pair table)
 MAX_PAIRS = 256
-#: the largest eager cell: a CTA's static shared-memory limit
+#: the largest eager cell (a CTA's ring holds two cells a slot)
 MAX_CELL_BYTES = 48 * 1024
+#: what the kernels' add and max combine (``csrc/msgq.cu``: ``by_dtype``);
+#: copy, replace and mask move bytes of any dtype
+DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3,
+              torch.float64: 4, torch.int32: 5, torch.int64: 6}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -55,9 +66,12 @@ def counters() -> dict:
 def _lib():
     lib = _build.library("msgq")
     if lib.msgq_eager.argtypes is None:
-        lib.msgq_eager.argtypes = [_P, _P, _LL, _LL, _P, _I, _I, _I, _P]
+        # x, out, scratch, x_stride, m, R, pairs, npairs, table, shapes,
+        # rounds, [cell,] vec, dtype, stream
+        common = [_P, _P, _P, _LL, _LL, _I, _P, _I, _P, _P, _I]
+        lib.msgq_eager.argtypes = common + [_I, _I, _I, _P]
         lib.msgq_eager.restype = _I
-        lib.msgq_one_copy.argtypes = [_P, _P, _LL, _LL, _P, _I, _I, _P]
+        lib.msgq_one_copy.argtypes = common + [_I, _I, _P]
         lib.msgq_one_copy.restype = _I
     return lib
 
@@ -99,45 +113,80 @@ def _check_pairs(pairs: Sequence[Tuple[int, int]], R: int
     return pairs
 
 
-def launch(x: torch.Tensor, pairs: List[Tuple[int, int]], *, proto: str,
-           cell_elems: int) -> torch.Tensor:
-    """Launch one round on the card: x (R, ...) with each rank's slab one
-    contiguous run of bytes (any stride between slabs). Returns a fresh
-    contiguous (R, ...) tensor."""
-    global eager_launches, one_copy_launches
+def _device_plan(program: Program, R: int, numel: int, item: int, device):
+    """The program's table on the card and its host-side shapes, made
+    once (one copy to the card, at the first call)."""
+    def make():
+        plan = program.device_plan(R, numel, item)
+        table = torch.tensor(plan.words, dtype=torch.int64).to(device)
+        shapes = (ctypes.c_longlong * len(plan.shapes))(*plan.shapes)
+        arith = any(r.combine in ("add", "max") for r in program.rounds)
+        return plan, table, shapes, arith
+    return program.memo((str(device), R, numel, item), make)
+
+
+def launch(x: torch.Tensor, pairs: Optional[List[Tuple[int, int]]] = None,
+           *, proto: str, cell_elems: int,
+           program: Optional[Program] = None) -> torch.Tensor:
+    """Launch one round (``pairs``) or a whole ``program`` on the card: x
+    (R, ...) with each rank's slab one contiguous run of bytes (any
+    stride between slabs). Returns a fresh contiguous (R, ...) tensor."""
+    global eager_launches, one_copy_launches, last_path
     stride = slab_stride(x)
     if stride is None:
         raise ValueError("each rank's slab must be one contiguous run of "
                          "bytes")
     R = x.shape[0]
-    m = x[0].numel() * x.element_size() if R else 0
+    numel = x[0].numel() if R else 0
+    item = x.element_size()
+    m = numel * item
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    received = {d for _, d in pairs}
-    table = pairs + [(-1, d) for d in range(R) if d not in received]
-    if not table:
+    if R == 0:
         return out
-    if len(table) > MAX_PAIRS:
-        raise ValueError(f"a round of {len(table)} ranks exceeds the "
-                         f"kernel's {MAX_PAIRS}")
-    flat = (ctypes.c_int * (2 * len(table)))(*(v for p in table for v in p))
     eager = is_eager(proto)
+    cell = cell_elems * item
+    if eager and not 0 < cell <= MAX_CELL_BYTES:
+        raise ValueError(f"an eager cell of {cell} bytes is outside "
+                         f"1..{MAX_CELL_BYTES}")
+    scratch = table = shapes = flat = None
+    nrounds, dtype, align = 1, 0, 16
+    if program is None:
+        received = {d for _, d in pairs}
+        rows = pairs + [(-1, d) for d in range(R) if d not in received]
+        if len(rows) > MAX_PAIRS:
+            raise ValueError(f"a round of {len(rows)} ranks exceeds the "
+                             f"kernel's {MAX_PAIRS}")
+        flat = (ctypes.c_int * (2 * len(rows)))(*(v for p in rows for v in p))
+        npairs = len(rows)
+    else:
+        plan, table, shapes, arith = _device_plan(program, R, numel, item,
+                                                  x.device)
+        if arith:
+            if x.dtype not in DTYPE_CODE:
+                raise ValueError(f"the msgq kernels add and max "
+                                 f"{sorted(map(str, DTYPE_CODE))}, not "
+                                 f"{x.dtype}")
+            dtype = DTYPE_CODE[x.dtype]
+        if plan.scratch:
+            scratch = torch.empty_like(out)
+        nrounds, align, npairs = plan.rounds, plan.align, 0
+    vec = _width(x.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr() if scratch is not None else 0, stride,
+                 m, cell if eager else 0, align)
     lib = _lib()
+    args = (x.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, stride, m,
+            R, flat, npairs, table.data_ptr() if table is not None else None,
+            shapes, nrounds)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if eager:
-            cell = cell_elems * x.element_size()
-            if not 0 < cell <= MAX_CELL_BYTES:
-                raise ValueError(f"an eager cell of {cell} bytes is outside "
-                                 f"1..{MAX_CELL_BYTES}")
-            err = lib.msgq_eager(
-                x.data_ptr(), out.data_ptr(), stride, m, flat, len(table),
-                cell, _width(x.data_ptr(), out.data_ptr(), stride, m, cell),
-                stream)
+            err = lib.msgq_eager(*args, cell, vec, dtype, stream)
         else:
-            err = lib.msgq_one_copy(
-                x.data_ptr(), out.data_ptr(), stride, m, flat, len(table),
-                _width(x.data_ptr(), out.data_ptr(), stride, m), stream)
+            err = lib.msgq_one_copy(*args, vec, dtype, stream)
     _build.check(lib, err, "msgq_eager" if eager else "msgq_one_copy")
+    last_path = ("direct" if not eager else "bulk" if vec == 16
+                 else "vector")
     if eager:
         eager_launches += 1
     else:
@@ -159,6 +208,29 @@ def msgq_round(x: torch.Tensor, pairs: Sequence[Tuple[int, int]], *,
         return msgq_round_ref(x, pairs)
     if x.device.type == "cuda":
         return launch(x, pairs, proto=proto, cell_elems=cell_elems)
+    raise ValueError(f"msgq runs on cuda or cpu, not {x.device}")
+
+
+def msgq_program(x: torch.Tensor, program: Program, *, proto: str,
+                 cell_elems: int = 1024) -> torch.Tensor:
+    """Run a round program (``program.py``) on x (R, ...): on the card in
+    ONE launch of the eager kernel (cells of ``cell_elems`` elements) or
+    the 1-copy kernel by ``proto``; on the CPU its plain version, round by
+    round. Returns a fresh contiguous (R, ...) tensor."""
+    global ref_calls
+    protocol.validate_protocol(proto)
+    if x.dim() == 0:
+        raise ValueError("a program runs on per-rank slabs (R, ...)")
+    R = x.shape[0]
+    program.check(R, x[0].numel() if R else 0)
+    if x.device.type == "cpu":
+        ref_calls += 1
+        return msgq_program_ref(x, program)
+    if x.device.type == "cuda":
+        if slab_stride(x) is None:
+            x = x.contiguous()
+        return launch(x, proto=proto, cell_elems=cell_elems,
+                      program=program)
     raise ValueError(f"msgq runs on cuda or cpu, not {x.device}")
 
 
