@@ -125,6 +125,31 @@ Phases (any failure exits non-zero and prints no result):
    must finish. (d) Across each serve run the
    scan launches exactly ``num_layers`` x (chunk dispatches + monolithic
    prefills) times and no plain version runs.
+9. Speculative decoding, prefix caching and ring-buffer caches. (a)
+   ``paged_mq`` at the speculative shapes, float32 and bfloat16: the
+   verify (K = 4, k = 3 drafts) and the drafter's resync (K = 2), at
+   gemma-2b's heads and at hymba-1.5b's (GQA 25/5, hd 64, window 2048);
+   8 rows with 1..K valid queries, whose leases end before their padding
+   queries' positions, a parked row, and (gemma) queries past the
+   table's width; against the plain version and the split emulation
+   (``paged_attention_split_ref``), twice bit for bit; the bfloat16 cases
+   timed against their byte bound and SDPA on the same gathered K/V. (b)
+   gemma-2b at full width, in float32 and in bfloat16: one verify step
+   through the kernels against the plain attention; then
+   ``run_traffic`` with the speculative arm (k = 3, self-drafted) beside
+   the plain paged arm and the prefix comparison (3/4 of the longest
+   prompt shared by 2 template groups, share 0.9: no cache, cold, warm),
+   8 requests of the mixed 16/256 trace; every arm's launches exact
+   (``paged_mq`` once a layer per chunk, resync and verify forward;
+   ``paged_decode`` once a layer per drafter step); accepted tokens per
+   dispatch above 1 and a warm hit rate and saved dispatches above 0;
+   float32 streams token-identical (bfloat16 shares reported). (c)
+   hymba-1.5b with a ring cache of its window: a monolithic prefill of
+   2600-token prompts through the kernels against the plain path, logits
+   and the rotated cache, its flash and scan launches and peak memory;
+   ``run_traffic(ring=True)`` on the slot engines in float32, where the
+   static and monolithic slot arms must emit the same tokens. The
+   phase's seconds are printed.
 
 The last lines are the kernel table (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -2232,6 +2257,444 @@ def phase_families(dev):
     return row, serve["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: speculative decoding, prefix caching, ring-buffer caches
+# ---------------------------------------------------------------------------
+
+#: (tag, H, Hkv, hd, window, NB, positions): gemma-2b's and hymba-1.5b's
+#: heads at the verify (K = k + 1 = 4) and resync (K = 2) shapes; row 2
+#: is parked, row 5 of gemma's reaches past the table's width
+VERIFY_SHAPES = [
+    ("gemma", 8, 1, 256, 0, 32, [17, 100, PARK_POS, 255, 300, 510, 0, 200]),
+    ("hymba", 25, 5, 64, HYMBA_WINDOW, 164,
+     [17, 100, PARK_POS, 2047, 2100, 2600, 0, 2300]),
+]
+#: draft tokens a round of phase 9(b)'s speculative arm
+SPEC_K = 3
+#: phase 9(c)'s prompt length: past hymba-1.5b's window
+RING_PROMPT = 2600
+#: requests of phase 9's traces: the depth of its repeated runs, cut
+#: (from 12 and 4 in its first run) to keep the whole script within
+#: about 1.5x of its time before phase 9; the widths are untouched
+SPEC_PREFIX_REQUESTS = 8
+RING_REQUESTS = 2
+
+
+def verify_case(dev, dtype, H, Hkv, hd, NB, positions, K, bs=16, seed=0):
+    """A verify or resync batch on the card: row b's queries at
+    ``positions[b] + j`` (``lengths = positions + K``); each row leases
+    only the tokens its valid queries write (``n_valid`` K, 1, .., so its
+    padding queries reach past the lease into -1 entries), the parked row
+    keeps a lease and walks none of it. ``live``: the rows whose every
+    query sees a token."""
+    rng = np.random.default_rng(seed + K)
+    B = len(positions)
+    pos = np.asarray(positions, np.int64)
+    n_valid = np.array([K, 1, 0, K, min(2, K), 2, 1, K - 1])
+    leases = [0 if p < 0 else min(NB, -(-(p + n) // bs))
+              for p, n in zip(pos, n_valid)]
+    P = sum(leases) + 8
+    perm = rng.permutation(P)
+    tables = np.full((B, NB), -1, np.int32)
+    used = 0
+    for b, n in enumerate(leases):
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    tables[2, :3] = perm[used:used + 3]          # the parked row's lease
+    kp = torch.from_numpy(rng.standard_normal((P, bs, Hkv, hd),
+                                              dtype=np.float32))
+    vp = torch.from_numpy(rng.standard_normal((P, bs, Hkv, hd),
+                                              dtype=np.float32))
+    q = torch.from_numpy(rng.standard_normal((B, K, H, hd),
+                                             dtype=np.float32))
+    return dict(q=q.to(dev, dtype), k_pages=kp.to(dev, dtype),
+                v_pages=vp.to(dev, dtype),
+                block_tables=torch.from_numpy(tables).to(dev),
+                lengths=torch.from_numpy((pos + K).astype(np.int32)).to(dev),
+                live=[b for b in range(B) if pos[b] >= 0])
+
+
+def phase_verify_kernels(dev, timer):
+    """9(a): ``paged_mq`` at the verify and resync shapes against the
+    plain version and the split emulation, twice bitwise; bf16 timed
+    against its bound and SDPA on the same gathered K/V."""
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref, paged_attention_split_ref)
+
+    worst, times = 0.0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, H, Hkv, hd, window, NB, positions in VERIFY_SHAPES:
+            for K in (2, SPEC_K + 1):
+                label = f"{tag} {'resync' if K == 2 else 'verify'} K={K}"
+                case = verify_case(dev, dtype, H, Hkv, hd, NB, positions, K)
+                args = [case[k] for k in ("q", "k_pages", "v_pages",
+                                          "block_tables", "lengths")]
+                before = ops.mq_launches
+                out = ops.launch(*args, window=window)
+                again = ops.launch(*args, window=window)
+                require(ops.mq_launches == before + 2,
+                        f"{label}: paged_mq was not launched")
+                pl = ops.plan(len(positions), K, H, Hkv, 16, NB)
+                ref = paged_attention_ref(*args, window=window)
+                split = paged_attention_split_ref(
+                    *args, plan=pl, tile_tokens=ops.TILE_TOKENS,
+                    window=window)
+                torch.cuda.synchronize()
+                live = case["live"]
+                require(bool(torch.isfinite(out.float()).all()),
+                        f"{label} {dtype}: non-finite output")
+                require(torch.equal(out, again),
+                        f"{label} {dtype}: two launches differ")
+                tol = TOL[dtype]
+                errs = []
+                for name, want in (("ref", ref), ("split_ref", split)):
+                    err = (out[live].float() - want[live].float()).abs()
+                    bad = err > tol + tol * want[live].float().abs()
+                    errs.append(float(err.max()))
+                    require(not bool(bad.any()),
+                            f"{label} {dtype}: disagrees with {name}")
+                parked = [b for b in range(len(positions)) if b not in live]
+                parked_zero = bool((out[parked] == 0).all())
+                require(parked_zero, f"{label} {dtype}: the row parked at "
+                        "PARK_POS has a nonzero output")
+                worst = max(worst, errs[0])
+                print(f"check paged_mq {label:18s} {str(dtype):14s} "
+                      f"max_abs_err vs ref {errs[0]:.3e}, vs split_ref "
+                      f"{errs[1]:.3e} (tol {tol:g}), deterministic, parked "
+                      f"row zeros {parked_zero}, {pl.splits} splits x "
+                      f"{pl.row_tiles} row tiles x {pl.warps} warps",
+                      flush=True)
+                if dtype != torch.bfloat16:
+                    continue
+                nbytes, flops = needs(case, window)
+                t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+                t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+                lib = library_call(case, window)
+                t = dict(shape=label, dtype="bfloat16", plan=pl._asdict(),
+                         ms=timer.ms(lambda: ops.paged_attention(
+                             *args, window=window)),
+                         plain_ms=timer.ms(lambda: paged_attention_ref(
+                             *args, window=window)),
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations",
+                         bound_bytes=nbytes, bound_flops=flops,
+                         library_ms=timer.ms(lib))
+                t["bound_share"] = t["bound_ms"] / t["ms"]
+                times.append(t)
+                print(f"time  paged_mq {label:18s} bf16 ms={t['ms']:.4f} "
+                      f"plain_ms={t['plain_ms']:.4f} "
+                      f"library_ms={t['library_ms']:.4f} "
+                      f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}: "
+                      f"{nbytes} bytes, {flops} flops), bound share "
+                      f"{t['bound_share']:.4f}", flush=True)
+    return worst, times
+
+
+def verify_model_check(model, params, cfg, dev, K=SPEC_K + 1):
+    """A full-width verify step through the kernels against the same
+    step through the plain attention: rows with 1..K valid queries and a
+    parked row; the valid queries' logits compared as phase 4 compares
+    its steps, both pools written alike, and the parked row's leased
+    blocks left as they were in both."""
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    B, bs, NB = 5, 16, 24
+    rng = np.random.default_rng(5)
+    tables = torch.from_numpy(rng.permutation(B * NB).astype(
+        np.int32).reshape(B, NB)).to(dev)
+    pool = model.init_paged_cache(B * NB, bs)
+    for t in pool.values():
+        t.copy_(torch.randn(t.shape, device=dev, dtype=t.dtype))
+    ref_pool = {k: v.clone() for k, v in pool.items()}
+    parked = 2
+    parked_blocks = tables[parked].long()
+    parked_before = {k: v[:, parked_blocks].clone() for k, v in pool.items()}
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           size=(B, K))).to(dev)
+    positions = torch.tensor([40, 200, PARK_POS, 367, 0], device=dev)
+    n_valid = torch.tensor([K, 1, K, 2, K - 1], device=dev)
+    out = model.verify_step_paged(params, pool, tokens, positions, tables,
+                                  n_valid)
+    ref = model.verify_step_paged(params, ref_pool, tokens, positions,
+                                  tables, n_valid,
+                                  attention=paged_attention_ref)
+    valid = ((torch.arange(K, device=dev)[None] < n_valid[:, None])
+             & (positions >= 0)[:, None])
+    tol = MODEL_REL_TOL if model.dtype == torch.bfloat16 \
+        else MODEL_F32_REL_TOL
+    res = compare(f"{cfg.name} {str(model.dtype).split('.')[-1]} verify "
+                  f"(K={K}, valid rows)", out[valid], ref[valid], cfg,
+                  tol=tol)
+    for k in pool:
+        diff = float((pool[k].float() - ref_pool[k].float()).abs().max())
+        require(diff <= tol * max(1.0, float(ref_pool[k].float().abs()
+                                             .max())),
+                f"verify pools differ in {k}: {diff}")
+        for name, p in (("kernel", pool), ("plain", ref_pool)):
+            require(torch.equal(p[k][:, parked_blocks], parked_before[k]),
+                    f"verify ({name} path) wrote {k} into the blocks of "
+                    "the row parked at PARK_POS")
+    return res
+
+
+def spec_prefix_run(dev, dtype):
+    """9(b) in one dtype: gemma-2b at full width through ``run_traffic``
+    with the speculative arm (k = 3, self-drafted) and the prefix
+    comparison (baseline, cold, warm), with the verify step checked
+    first."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config("gemma-2b")
+    model = build_model(cfg, ServeConfig(param_dtype=dtype,
+                                         compute_dtype=dtype), device=dev)
+    params = model.init(0)
+    out = {"verify_step": verify_model_check(model, params, cfg, dev)}
+    launch.reset_kernel_counters()
+    res = launch.run_traffic(
+        "gemma-2b", smoke=False, device=dev, dtype=dtype, params=params,
+        engine="continuous", requests=SPEC_PREFIX_REQUESTS, slots=8,
+        prompt_len=(16, 256),
+        max_new=(4, 48), rate=50.0, chunk_compare=False, paged_compare=True,
+        parity_check=False, prefill_chunk=64, max_prefill_per_step=2,
+        block_size=16, spec_compare=True, speculate=SPEC_K,
+        draft_arch="self", prefix_compare=True, seed=0)
+    require(launch.kernel_counters() == res["kernels"], "counter mismatch")
+    L = cfg.num_layers
+    arms = {"paged": res["continuous_paged"], "spec": res["continuous_spec"],
+            **{f"prefix_{n}": res["prefix"][n]
+               for n in ("baseline", "cold", "warm")}}
+    for name, stats in arms.items():
+        c = stats["kernels"]
+        require(stats.get("n") == SPEC_PREFIX_REQUESTS,
+                f"{dtype} {name}: {stats.get('n')} of {SPEC_PREFIX_REQUESTS} "
+                "requests finished")
+        require(c["ref_calls"] == 0 and c["flash_launches"] == 0,
+                f"{dtype} {name}: a plain version or flash ran")
+        require(c["mq_launches"] == L * (c["chunk_calls"]
+                                         + c["verify_calls"]),
+                f"{dtype} {name}: {c['mq_launches']} paged_mq launches for "
+                f"{c['chunk_calls']} chunk and {c['verify_calls']} verify "
+                f"forwards x {L} layers")
+        require(c["decode_launches"] > 0, f"{dtype} {name}: no decode")
+    sp = res["continuous_spec"]
+    c, rounds = sp["kernels"], int(sp["spec_rounds"])
+    require(rounds > 0 and c["verify_calls"] == 2 * rounds,
+            f"{dtype} spec: {c['verify_calls']} verify forwards for {rounds} "
+            "rounds (one resync and one verify each)")
+    require(c["decode_launches"] == L * (SPEC_K - 1) * rounds,
+            f"{dtype} spec: {c['decode_launches']} paged_decode launches "
+            f"for {rounds} rounds x {SPEC_K - 1} drafter steps x {L} layers")
+    # the wrapper's launches by query width: K = 2 the drafter's resync,
+    # K = k + 1 the target's verify (chunks are prefill_chunk wide)
+    by_k = sp["mq_launches_by_k"]
+    resync, verify = by_k.get(2, 0), by_k.get(SPEC_K + 1, 0)
+    require(resync == verify == L * rounds,
+            f"{dtype} spec: paged_mq launches by width {by_k}, want "
+            f"{L * rounds} at K=2 and at K={SPEC_K + 1} ({rounds} rounds x "
+            f"{L} layers)")
+    require(res["spec_accepted_per_dispatch"] > 1.0,
+            f"{dtype} spec: accepted per dispatch "
+            f"{res['spec_accepted_per_dispatch']}")
+    require(res["prefix_hit_rate"] > 0 and res["prefill_dispatches_saved"]
+            > 0, f"{dtype} prefix: warm hit rate {res['prefix_hit_rate']}, "
+            f"dispatches saved {res['prefill_dispatches_saved']}")
+    if dtype == "float32":
+        require(res["spec_token_identical_trace"],
+                "float32 spec stream differs from the plain paged stream")
+        require(res["prefix_token_identical"],
+                "float32 prefix baseline, cold and warm streams differ")
+    pfx = res["prefix"]
+    out.update(
+        dtype=dtype, spec_rounds=rounds,
+        launches_verify=verify, launches_resync=resync,
+        mq_launches_by_k=by_k,
+        launches_draft=c["decode_launches"],
+        spec_kernels=c,
+        prefix_kernels={n: pfx[n]["kernels"] for n in
+                        ("baseline", "cold", "warm")},
+        max_memory_allocated=res.get("max_memory_allocated"),
+        **{k: res[k] for k in (
+            "spec_tok_s", "spec_accepted_per_dispatch",
+            "spec_acceptance_rate", "spec_token_identical_trace",
+            "spec_equal_token_share", "prefix_token_identical",
+            "prefix_hit_rate", "prefill_tokens_saved",
+            "prefill_dispatches_saved", "prefix_cold_equal_token_share",
+            "prefix_warm_equal_token_share")},
+        paged_tok_s=res["continuous_paged"]["tok_s"],
+        shared_prefix_len=pfx["shared_prefix_len"],
+        prefix_ttft={n: {k: pfx[n].get(k) for k in (
+            "tok_s", "ttft_p50_s", "ttft_p95_s")}
+            for n in ("baseline", "cold", "warm")},
+        prefix_cow_clones=pfx["warm"].get("prefix_cow_clones"))
+    print(f"spec {dtype}: k={SPEC_K} self-drafted, {res['spec_tok_s']:.2f} "
+          f"tok/s vs plain paged {out['paged_tok_s']:.2f}, accepted per "
+          f"dispatch {res['spec_accepted_per_dispatch']:.4f}, acceptance "
+          f"{res['spec_acceptance_rate']:.4f}, {rounds} rounds, token "
+          f"identical {res['spec_token_identical_trace']} (equal share "
+          f"{res['spec_equal_token_share']:.4f}); launches verify "
+          f"{verify} resync {resync} draft {c['decode_launches']} (paged_mq "
+          f"by width {by_k})",
+          flush=True)
+    print(f"prefix {dtype}: shared prefix {pfx['shared_prefix_len']}, warm "
+          f"hit rate {res['prefix_hit_rate']:.4f}, tokens saved "
+          f"{res['prefill_tokens_saved']:.0f}, dispatches saved "
+          f"{res['prefill_dispatches_saved']:.0f}, identical "
+          f"{res['prefix_token_identical']} (cold share "
+          f"{res['prefix_cold_equal_token_share']:.4f}, warm "
+          f"{res['prefix_warm_equal_token_share']:.4f}); ttft: "
+          + json.dumps(out["prefix_ttft"]), flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_run(dev):
+    """9(c): hymba-1.5b with a ring cache of its 2048 window. A monolithic
+    prefill of 2600-token prompts through the kernels against the plain
+    path (plain attention and scan; f32 within MODEL_F32_REL_TOL, bf16
+    by phase 8(b)'s noise-floor rule), the rotated cache included, with
+    its flash and scan launches and peak memory;
+    then ``run_traffic(ring=True)`` on the slot engines in float32: the
+    static and monolithic slot arms must emit the same tokens."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_scan, ssd_scan_ref
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config("hymba-1.5b")
+    L, W, S = cfg.num_layers, HYMBA_WINDOW, RING_PROMPT
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        model = build_model(cfg, ServeConfig(param_dtype=dtype,
+                                             compute_dtype=dtype,
+                                             ring_buffer=True), device=dev)
+        params = model.init(0)
+        tok = torch.from_numpy(np.random.default_rng(9).integers(
+            0, cfg.vocab_size, size=(2, S))).to(dev)
+        launch.reset_kernel_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, tok, W)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        counts = launch.kernel_counters()
+        require(counts["flash_launches"] == L and counts["ssd_launches"]
+                == L, f"ring prefill {dtype}: flash "
+                f"{counts['flash_launches']}, scan {counts['ssd_launches']} "
+                f"launches for {L} layers")
+        plain = {"attention": plain_flash, "scan": ssd_chunked_scan}
+        ref_logits, ref_cache = model.prefill(params, tok, W, **plain)
+        label = f"hymba-1.5b {dtype} ring prefill (B=2, S={S}, W={W})"
+        if dtype == "float32":
+            tol = MODEL_F32_REL_TOL
+            res = compare(label, logits, ref_logits, cfg, tol=tol)
+        else:
+            # phase 8(b)'s bf16 rule for this 32-layer model: the larger
+            # of MODEL_REL_TOL and NOISE_FLOOR_FACTOR x the noise floor,
+            # the same prefill through the sequential plain scan
+            floor_logits, _ = model.prefill(
+                params, tok, W, attention=plain_flash,
+                scan=lambda *a, chunk, return_state: ssd_scan_ref(
+                    *a, return_state=return_state))
+            floor = rel_diff(floor_logits, ref_logits, cfg)
+            tol = max(MODEL_REL_TOL, NOISE_FLOOR_FACTOR * floor)
+            res = compare(label, logits, ref_logits, cfg, tol=tol,
+                          floor=floor, floor_agree=argmax_agree(
+                              floor_logits, ref_logits, cfg))
+            del floor_logits
+        require(torch.equal(cache["pos"], ref_cache["pos"]),
+                f"ring prefill {dtype}: position rows differ")
+        pos = cache["pos"][0, :W].long()
+        require(bool(((pos % W) == torch.arange(W, device=dev)).all())
+                and int(pos.min()) == S - W and int(cache["pos"][0, W])
+                == -1, f"ring prefill {dtype}: not the last {W} positions "
+                "at columns pos % W")
+        for k in ("k", "v", "conv", "ssm"):
+            diff = float((cache[k].float() - ref_cache[k].float()).abs()
+                         .max())
+            scale = max(1.0, float(ref_cache[k].float().abs().max()))
+            require(diff <= tol * scale, f"ring prefill {dtype}: cache {k} "
+                    f"differs by {diff} (scale {scale})")
+            res[f"cache_{k}_rel_err"] = diff / scale
+        res.update(host_ms=ms, peak_bytes=int(peak),
+                   kernels={k: counts[k] for k in (
+                       "flash_launches", "ssd_launches")})
+        print(f"ring prefill hymba-1.5b {dtype}: B=2 S={S} W={W} in "
+              f"{ms:.2f} ms (host clock, first call), peak memory above "
+              f"the model {peak} bytes, cache rel errs "
+              + json.dumps({k: res[f'cache_{k}_rel_err'] for k in (
+                  "k", "v", "conv", "ssm")}), flush=True)
+        out[dtype] = res
+        del logits, cache, ref_logits, ref_cache
+        if dtype == "bfloat16":
+            del model, params
+            torch.cuda.empty_cache()
+
+    launch.reset_kernel_counters()
+    res = launch.run_traffic(
+        "hymba-1.5b", smoke=False, device=dev, dtype="float32",
+        params=params, ring=True, engine="both", requests=RING_REQUESTS,
+        slots=2, prompt_len=S, max_new=(4, 12), rate=50.0,
+        prefill_chunk=128, max_prefill_per_step=2, paged_compare=False,
+        parity_check=False, seed=0)
+    counts = launch.kernel_counters()
+    require(counts == res["kernels"], "counter mismatch")
+    require(res["cache_len"] == W, f"ring cache_len {res['cache_len']}")
+    require(counts["flash_launches"] == L * counts["prefill_calls"]
+            and counts["ssd_launches"] == L * (counts["prefill_calls"]
+                                               + counts["chunk_calls"]),
+            f"ring run_traffic launches: {json.dumps(counts)}")
+    require(counts["ref_calls"] == counts["flash_ref_calls"]
+            == counts["ssd_ref_calls"] == 0, "a plain version ran")
+    arms = res["outputs_by_arm"]
+    for arm in ("static", "continuous", "continuous_monolithic"):
+        require(res[arm].get("n") == RING_REQUESTS,
+                f"ring {arm}: not all finished")
+    static_mono = arms["static"] == arms["continuous_monolithic"]
+    require(static_mono, "ring float32: the static and monolithic slot "
+            "arms emit different tokens")
+    out["run_traffic"] = dict(
+        kernels=counts, static_monolithic_identical=static_mono,
+        chunked_equal_token_share=res["static_equal_token_share"],
+        tok_s={arm: res[arm]["tok_s"] for arm in (
+            "static", "continuous", "continuous_monolithic")},
+        max_memory_allocated=res.get("max_memory_allocated"))
+    print(f"ring run_traffic hymba-1.5b float32 (cache_len {W}, prompts "
+          f"{S}): static == monolithic slot {static_mono}, chunked slot "
+          f"equal share {res['static_equal_token_share']:.4f}; tok/s "
+          + json.dumps(out["run_traffic"]["tok_s"]) + "; kernels "
+          + json.dumps(counts), flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec_prefix_ring(dev):
+    """Phase 9: (a) the verify/resync kernel shapes, (b) speculation and
+    prefix caching on gemma-2b in float32 and bfloat16, (c) hymba-1.5b's
+    ring cache."""
+    t0 = time.perf_counter()
+    timer = Timer(dev)
+    worst, times = phase_verify_kernels(dev, timer)
+    del timer
+    torch.cuda.empty_cache()
+    runs = {dt: spec_prefix_run(dev, dt) for dt in ("float32", "bfloat16")}
+    ring = ring_run(dev)
+    seconds = time.perf_counter() - t0
+    print(f"phase 9: {seconds:.1f} s", flush=True)
+    print("phase 9: " + json.dumps({"spec_prefix": runs, "ring": ring,
+                                    "seconds": seconds}), flush=True)
+    return worst, times, runs, ring
+
+
 def main() -> None:
     require((SRC / "repro_torch").is_dir(),
             "src/repro_torch not found: run from the root of a checkout")
@@ -2278,6 +2741,8 @@ def main() -> None:
     table.update(phase_threadcomm(dev))
     torch.cuda.empty_cache()
     table["ssd_scan"], family_launches = phase_families(dev)
+    torch.cuda.empty_cache()
+    verify_err, verify_times, spec_runs, ring = phase_spec_prefix_ring(dev)
 
     # launches: the --engine both run, which drives all three kernels;
     # the paged serve phase's own counts stand beside them
@@ -2293,6 +2758,21 @@ def main() -> None:
                       ("paged_mq", "mq_launches"),
                       ("flash_attention", "flash_launches")):
         table[name]["launches_hymba"] = sum(c[key] for c in hymba)
+    # phase 9: the verify and resync shapes, and the launches of the
+    # speculative arm (bf16, the serving dtype; f32 beside it)
+    table["paged_mq"]["max_abs_err"] = max(table["paged_mq"]["max_abs_err"],
+                                           verify_err)
+    table["paged_mq"]["verify_times"] = verify_times
+    for dt, spec in spec_runs.items():
+        sfx = "" if dt == "bfloat16" else "_f32"
+        table["paged_mq"]["launches_verify" + sfx] = spec["launches_verify"]
+        table["paged_mq"]["launches_resync" + sfx] = spec["launches_resync"]
+        table["paged_decode"]["launches_draft" + sfx] = \
+            spec["launches_draft"]
+    table["flash_attention"]["launches_ring"] = \
+        ring["run_traffic"]["kernels"]["flash_launches"]
+    table["ssd_scan"]["launches_ring"] = \
+        ring["run_traffic"]["kernels"]["ssd_launches"]
     print("model: " + json.dumps(model), flush=True)
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)

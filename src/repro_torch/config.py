@@ -1,7 +1,7 @@
 """Configuration for the PyTorch port: its own copy of the reference's
-``ModelConfig``, ``ServeConfig``, ``pad_to_multiple`` and block-family
-constants (``src/repro/config.py``), field for field, so the port never
-imports the JAX package."""
+``ModelConfig``, ``ServeConfig``, ``ShapeConfig``, ``pad_to_multiple``
+and block-family constants (``src/repro/config.py``), field for field,
+so the port never imports the JAX package."""
 
 from __future__ import annotations
 
@@ -159,3 +159,16 @@ class ServeConfig:
     attn_chunk_kv: int = 0
     # ring-buffer KV window for long-context decode (sub-quadratic archs)
     ring_buffer: bool = False
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """A workload cell's shape: sequence length, batch and kind."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"

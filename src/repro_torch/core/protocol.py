@@ -124,6 +124,40 @@ def paged_admission_latency(nbytes: int, chunk_bytes: int, block_bytes: int,
             + nblocks * m.t_envelope * 0.25)
 
 
+def prefix_hit_latency(nbytes: int, block_bytes: int,
+                       m: HostModel = HostModel(),
+                       cow_blocks: int = 0) -> float:
+    """Admission price of the cache-hit part of a prompt (prefix
+    caching): a lease handoff, not a recompute. One handshake claims the
+    cached path, each hit block pays the quarter-envelope table-entry
+    surcharge of :func:`paged_admission_latency`, and each copy-on-write
+    clone adds one block-sized interthread copy, the only payload that
+    moves on the hit path."""
+    if block_bytes < 1:
+        raise ValueError("block_bytes must be >= 1")
+    nblocks = max(0, -(-max(0, nbytes) // block_bytes))
+    cost = m.t_handshake + nblocks * m.t_envelope * 0.25
+    if cow_blocks > 0:
+        cost += cow_blocks * interthread_latency(block_bytes, m)
+    return cost
+
+
+def speculative_verify_latency(k: int, token_bytes: int = 4,
+                               m: HostModel = HostModel()) -> float:
+    """Price of one draft-verify round of speculative decoding, three
+    interthread legs: the drafter hands its k token ids to the verify
+    stream; the target's one (k+1)-query dispatch pays a handshake plus
+    an envelope and a payload copy per teacher-forced token; up to k+1
+    accepted ids travel back to the drafter."""
+    if k < 1:
+        raise ValueError("speculative_verify_latency: k must be >= 1")
+    draft_handoff = interthread_latency(k * token_bytes, m)
+    verify = (m.t_handshake + (k + 1) * m.t_envelope
+              + (k + 1) * token_bytes / m.bw_copy)
+    accept_return = interthread_latency((k + 1) * token_bytes, m)
+    return draft_handoff + verify + accept_return
+
+
 def interprocess_latency(nbytes: int, m: HostModel = HostModel()) -> float:
     """MPI-everywhere shared-memory messaging (eager / rndv, always 2-copy)."""
     if nbytes <= EAGER_THRESHOLD_INTERPROCESS:

@@ -16,9 +16,10 @@ about four CTAs run on each SM), and, when the table is split, one launch
 of the combine kernel that merges the splits' float32 partials.
 
 The module counts what it ran, in plain integers: ``decode_launches``
-and ``mq_launches`` (one per wrapper call that launched on the card)
-and ``ref_calls`` (one per plain-version call). :func:`reset_counters`
-zeroes them.
+and ``mq_launches`` (one per wrapper call that launched on the card),
+``mq_launches_by_k`` (the same ``paged_mq`` launches by their query
+width K) and ``ref_calls`` (one per plain-version call).
+:func:`reset_counters` zeroes them.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 decode_launches = 0
 mq_launches = 0
+mq_launches_by_k: dict = {}
 ref_calls = 0
 
 #: tokens of K (and of V) one shared-memory ring stage holds (``kTile``
@@ -92,6 +94,7 @@ def plan(B: int, K: int, H: int, Hkv: int, bs: int, NB: int, *,
 def reset_counters() -> None:
     global decode_launches, mq_launches, ref_calls
     decode_launches = mq_launches = ref_calls = 0
+    mq_launches_by_k.clear()
 
 
 def counters() -> dict:
@@ -182,6 +185,7 @@ def launch(q, k_pages, v_pages, block_tables, lengths, window=0,
             err = lib.paged_mq(dt, *ptrs, B, K, H, *shape, stream)
             _build.check(lib, err, "paged_mq")
             mq_launches += 1
+            mq_launches_by_k[K] = mq_launches_by_k.get(K, 0) + 1
         else:
             err = lib.paged_decode(dt, *ptrs, B, H, *shape, stream)
             _build.check(lib, err, "paged_decode")

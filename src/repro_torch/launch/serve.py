@@ -14,9 +14,15 @@ off the clock, then drives one Poisson trace through:
   budget;
 
 and a greedy parity check (static vs continuous vs paged on one batch of
-the longest prompt). It reports useful-token throughput, latency and TTFT
-percentiles, KV accounting, the comparison flags and the kernel launch
-counts; ``--json`` writes them out. :func:`run_serve` drives the paged
+the longest prompt). With ``spec_compare`` the trace runs once more
+through a speculative paged engine (k-token draft-verify rounds); with
+``prefix_compare`` a shared-prefix trace runs through a paged engine
+without the radix prefix cache, with it cold, and with it warm; with
+``ring`` the slot cache is a ring buffer of the sliding window. It
+reports useful-token throughput, latency and TTFT percentiles, KV
+accounting, the comparison flags and the kernel launch counts (of the
+whole run, and of each arm's measured drive); ``--json`` writes them
+out. :func:`run_serve` drives the paged
 continuous engine alone. :func:`run_family_rows` (the CLI's
 ``--config``) drives each named family through the paged chunked engine
 and holds its tokens to the family's static monolithic baseline.
@@ -33,6 +39,12 @@ On the CPU, at the smoke config (the plain attention path):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
       --smoke --device cpu --engine both --requests 4 --slots 2 \\
       --prompt-len 16,40
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+      --smoke --device cpu --engine continuous --requests 6 --slots 3 \\
+      --prompt-len 40 --max-new-hi 12 --spec-compare --prefix-compare
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+      --smoke --device cpu --ring --no-paged-compare --requests 4 \\
+      --slots 2 --prompt-len 24 --max-new-hi 8
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --config families
 """
@@ -49,14 +61,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.config import ServeConfig
+from repro_torch.config import ServeConfig, ShapeConfig
 from repro_torch.configs import (ARCH_NAMES, REFERENCE_ARCH_NAMES, get_config,
                                  get_smoke_config)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import transformer
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, cache_len_for
 from repro_torch.serve import (ContinuousEngine, ServeRequest, StaticEngine,
                                make_trace)
 from repro_torch.serve.engine import not_ported
@@ -78,12 +90,28 @@ def synthetic_tokens(cfg, batch: int, seq_len: int, seed: int) -> np.ndarray:
 def requests_from_trace(cfg, trace, *, seed: int = 0) -> List[ServeRequest]:
     """One ServeRequest per trace entry, each with its own prompt drawn
     from ``seed + 1000 + rid``; one seed gives byte-identical prompts to
-    every engine driven from the trace."""
-    return [ServeRequest(rid=rid, batch={"tokens": synthetic_tokens(
-                cfg, 1, entry.prompt_len, seed + 1000 + rid)},
-                         max_new_tokens=entry.max_new, seed=seed,
-                         arrival=entry.arrival)
-            for rid, entry in enumerate(trace)]
+    every engine driven from the trace. An entry of a shared-prefix
+    group opens with its group's template (drawn from ``seed + 131 +
+    group``, as long as the group's longest ``prefix_len``), sliced to its
+    own ``prefix_len``."""
+    longest: Dict[int, int] = {}
+    for e in trace:
+        if e.prefix_group >= 0 and e.prefix_len > 0:
+            longest[e.prefix_group] = max(longest.get(e.prefix_group, 0),
+                                          e.prefix_len)
+    templates = {g: synthetic_tokens(cfg, 1, n, seed + 131 + g)
+                 for g, n in longest.items()}
+    reqs = []
+    for rid, entry in enumerate(trace):
+        tok = synthetic_tokens(cfg, 1, entry.prompt_len, seed + 1000 + rid)
+        if entry.prefix_group >= 0 and entry.prefix_len > 0:
+            tok = tok.copy()
+            tok[:, :entry.prefix_len] = \
+                templates[entry.prefix_group][:, :entry.prefix_len]
+        reqs.append(ServeRequest(rid=rid, batch={"tokens": tok},
+                                 max_new_tokens=entry.max_new, seed=seed,
+                                 arrival=entry.arrival))
+    return reqs
 
 
 def effective_chunk(caps, prefill_chunk: int) -> int:
@@ -118,7 +146,8 @@ def kernel_counters() -> Dict[str, int]:
             "ssd_launches": sd["ssd_launches"],
             "ssd_ref_calls": sd["ref_calls"],
             "prefill_calls": transformer.prefill_calls,
-            "chunk_calls": transformer.chunk_calls}
+            "chunk_calls": transformer.chunk_calls,
+            "verify_calls": transformer.verify_calls}
 
 
 def reset_kernel_counters() -> None:
@@ -181,6 +210,8 @@ def drive_continuous(eng: ContinuousEngine, requests: List[ServeRequest]
                  modeled_admit_cost_us=1e6
                  * eng.scheduler.modeled_admit_cost_s)
     stats.update(eng.kv_accounting())
+    stats.update(eng.prefix_stats())
+    stats.update(eng.spec_stats())
     return stats
 
 
@@ -260,6 +291,22 @@ def _equal_share(a, b) -> float:
     return same / max(1, total)
 
 
+def _drafter(draft_arch: str, arch: str, smoke: bool, serve_cfg, device,
+             seed: int):
+    """The speculative arm's drafter: ``(None, None)`` for ``"self"`` (or
+    the target's own arch), else that config's model and its seeded
+    parameters. A drafter must be a dense config of the port; the others
+    are not ported yet and raise, naming the slice."""
+    if draft_arch in ("self", arch):
+        return None, None
+    if draft_arch not in ARCH_NAMES:
+        raise not_ported(f"the drafter {draft_arch!r}",
+                         "dense-family (other dense configs)")
+    dcfg = get_smoke_config(draft_arch) if smoke else get_config(draft_arch)
+    dmodel = build_model(dcfg, serve_cfg, device=device)
+    return dmodel, dmodel.init(seed)
+
+
 def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
                 device="cuda", requests: int = 12, slots: int = 4,
                 prompt_len=16, max_new=(4, 32), rate: float = 50.0,
@@ -268,7 +315,10 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
                 prefill_chunk: int = 64, max_prefill_per_step: int = 2,
                 chunk_compare: bool = True, paged_compare: bool = True,
                 block_size: int = 16, prefix_compare: bool = False,
-                spec_compare: bool = False, params=None) -> Dict:
+                shared_prefix_len: int = 0, share_ratio: float = 0.9,
+                spec_compare: bool = False, speculate: int = 3,
+                draft_arch: str = "self", dtype: Optional[str] = None,
+                params=None) -> Dict:
     """Build the model once, warm each engine off the clock, then drive a
     Poisson trace through the requested engine(s). Returns the full
     measurement dict (the reference's keys, plus the port's ``backend``,
@@ -286,25 +336,38 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
     batch of the longest prompt through static, continuous and paged
     engines.
 
+    With ``spec_compare`` (a family with the 'speculative' capability)
+    the trace runs once more through a paged engine at the equal-HBM
+    pool with ``speculate`` draft tokens a round: ``draft_arch="self"``
+    self-speculates, another dense config drafts from its own seeded
+    parameters. The result records ``spec_tok_s``, accepted tokens per
+    dispatch and token identity with the non-speculative paged run.
+    With ``prefix_compare`` (a family with the 'prefix_cache'
+    capability) a shared-prefix trace (``shared_prefix_len`` template
+    tokens, by default 3/4 of the longest prompt rounded down to
+    blocks; ``share_ratio`` of the requests in one of two template
+    families) runs through a paged engine without the radix cache, with
+    it cold, and with it warm (``reset(preserve_prefix=True)``); all
+    three must be token-identical, and the warm run's hit rate and
+    prefill work saved are reported. With ``ring`` the cache is bounded
+    by the family's sliding window (a ring buffer on the slot layout;
+    paged arms cannot hold a prompt longer than it and raise at submit,
+    as the reference's do).
+
     ``params`` replaces the seeded random parameters (the tests move the
-    reference's over). The kernel counters are zeroed at the start and
-    cover the whole run, warm-ups included. The prefix-cache and
-    speculative comparisons are not ported: asking for them raises."""
-    if prefix_compare:
-        raise not_ported("the prefix-cache comparison (prefix_compare)",
-                         "prefix-caching")
-    if spec_compare:
-        raise not_ported("the speculative comparison (spec_compare)",
-                         "speculative-decoding")
+    reference's over). ``dtype`` is the parameter and compute dtype:
+    float32 at the smoke configs and bfloat16 at full width unless
+    given. The kernel counters are zeroed at the start and cover the
+    whole run, warm-ups included; each continuous arm's ``kernels``
+    counts its measured drive alone."""
     if engine not in ("static", "continuous", "both"):
         raise ValueError(f"unknown engine {engine!r} "
                          "(static, continuous or both)")
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    dtype = "float32" if smoke else "bfloat16"
-    model = build_model(cfg, ServeConfig(param_dtype=dtype,
-                                         compute_dtype=dtype,
-                                         attn_chunk_threshold=4096,
-                                         ring_buffer=ring), device=device)
+    dtype = dtype or ("float32" if smoke else "bfloat16")
+    serve_cfg = ServeConfig(param_dtype=dtype, compute_dtype=dtype,
+                            attn_chunk_threshold=4096, ring_buffer=ring)
+    model = build_model(cfg, serve_cfg, device=device)
     dev = model.device
     caps = model.capabilities
     prefill_chunk = effective_chunk(caps, prefill_chunk)
@@ -315,7 +378,9 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
              else tuple(int(p) for p in prompt_len))
     pmax = max(plens)
     hi = max_new if isinstance(max_new, int) else max_new[1]
-    cache_len = pmax + hi
+    # a ring cache holds the sliding window, no more
+    cache_len = cache_len_for(
+        cfg, ShapeConfig("serve", pmax + hi, slots, "decode"), serve_cfg)
     reset_kernel_counters()
 
     trace = make_trace(requests, prompt_len=plens, max_new=max_new,
@@ -326,6 +391,7 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
                     "cuda_version": torch.version.cuda, "dtype": dtype,
                     "requests": requests, "slots": slots,
                     "prompt_len": list(plens), "cache_len": cache_len,
+                    "ring": ring,
                     "arrival": "poisson", "rate": rate, "eos_id": eos_id,
                     "prefill_chunk": 0,     # effective value set below
                     "max_prefill_per_step": max_prefill_per_step,
@@ -337,25 +403,94 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
                     "outputs_by_arm": {}}
     warm = synthetic_tokens(cfg, 1, plens[0], seed)
 
-    def _drive_continuous(chunk: int, kv_layout: str = "slot",
-                          num_blocks=None, n_rows=None):
+    def _make_engine(chunk: int, kv_layout: str = "slot", num_blocks=None,
+                     n_rows=None, **kw):
         eng = ContinuousEngine(
             model, params, cache_len=cache_len, num_slots=n_rows or slots,
             eos_id=eos_id, prefill_chunk=chunk,
             max_prefill_per_step=max_prefill_per_step, kv_layout=kv_layout,
-            block_size=block_size, num_blocks=num_blocks, device=dev)
+            block_size=block_size, num_blocks=num_blocks, device=dev, **kw)
         # warm on one prompt shape off the clock (kernel build and load,
         # library handles), then a clean engine for the measured drive
         eng.generate({"tokens": np.concatenate(
             [warm] * min(2, eng.kv.num_slots))}, 2)
         eng.reset()
-        reqs = requests_from_trace(cfg, trace, seed=seed)
+        return eng
+
+    def _measure(eng, tr):
+        """Drive the trace ``tr``; the stats carry this drive's own
+        kernel launch counts, ``paged_mq``'s also by query width K."""
+        reqs = requests_from_trace(cfg, tr, seed=seed)
         _sync(dev)
+        before = kernel_counters()
+        before_k = dict(ops.mq_launches_by_k)
         stats = drive_continuous(eng, reqs)
+        stats["kernels"] = {k: v - before[k]
+                            for k, v in kernel_counters().items()}
+        stats["mq_launches_by_k"] = {
+            K: n - before_k.get(K, 0)
+            for K, n in sorted(ops.mq_launches_by_k.items())
+            if n > before_k.get(K, 0)}
         stats["prefill_chunk"] = float(eng.prefill_chunk)
         stats["prefill_compiles_total"] = None
         stats["prefill_compiles_drive"] = None
+        if eng.speculate:
+            stats["decode_tokens_per_dispatch"] = \
+                eng.decode_tokens_per_dispatch
+            stats["spec_rounds"] = float(eng.spec_rounds)
         return stats, reqs
+
+    def _drive_continuous(chunk: int, kv_layout: str = "slot",
+                          num_blocks=None, n_rows=None, **kw):
+        return _measure(_make_engine(chunk, kv_layout, num_blocks, n_rows,
+                                     **kw), trace)
+
+    def _prefix_compare() -> Dict:
+        """One shared-prefix trace through a paged engine without the
+        radix cache, then one engine with it, cold and warm
+        (``reset(preserve_prefix=True)``: rows drain, the index and the
+        pool's contents stay). The pool holds the live requests plus the
+        parked index (the templates, every request's private tail and
+        headroom), so the run measures hits, not eviction churn."""
+        bs, groups = block_size, 2
+        spl = (int(shared_prefix_len) if shared_prefix_len > 0
+               else (3 * pmax // 4) // bs * bs)
+        spl = max(bs, min(spl, pmax - 1))
+        tr = make_trace(requests, prompt_len=pmax, max_new=max_new,
+                        rate=rate, shared_prefix_len=spl,
+                        share_ratio=share_ratio, prefix_groups=groups,
+                        seed=seed)
+        nblocks = (slots * -(-cache_len // bs) + groups * -(-spl // bs)
+                   + requests * (-(-(pmax - spl) // bs) + 2))
+        base_stats, base_reqs = _measure(
+            _make_engine(prefill_chunk, "paged", nblocks, slots), tr)
+        eng = _make_engine(prefill_chunk, "paged", nblocks, slots,
+                           prefix_cache=True)
+        cold_stats, cold_reqs = _measure(eng, tr)
+        eng.reset(preserve_prefix=True)
+        warm_stats, warm_reqs = _measure(eng, tr)
+        base, cold, warm = (_rows(r)
+                            for r in (base_reqs, cold_reqs, warm_reqs))
+        out = {"prefix": {
+            "shared_prefix_len": spl, "share_ratio": share_ratio,
+            "prefix_groups": groups, "num_blocks": nblocks,
+            "prompt_len": pmax, "baseline": base_stats, "cold": cold_stats,
+            "warm": warm_stats,
+            "outputs_by_arm": {name: [r.tolist() for r in rows]
+                               for name, rows in (("baseline", base),
+                                                  ("cold", cold),
+                                                  ("warm", warm))}}}
+        out["prefix_token_identical"] = (_identical(base, cold)
+                                         and _identical(base, warm))
+        out["prefix_cold_equal_token_share"] = _equal_share(base, cold)
+        out["prefix_warm_equal_token_share"] = _equal_share(base, warm)
+        for key in ("prefix_hit_rate", "prefill_tokens_saved",
+                    "prefill_dispatches_saved"):
+            out[key] = warm_stats[key]
+        if "ttft_p95_s" in warm_stats and "ttft_p95_s" in cold_stats:
+            out["prefix_ttft_p95_improved"] = bool(
+                warm_stats["ttft_p95_s"] < cold_stats["ttft_p95_s"])
+        return out
 
     if engine in ("continuous", "both"):
         result["continuous"], slot_reqs = _drive_continuous(slot_chunk)
@@ -409,6 +544,39 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
             result["slot_bytes_per_resident_token"] = \
                 c["kv_bytes_per_resident_token"]
         result["continuous_tok_s"] = result["continuous"]["tok_s"]
+        if (prefill_chunk and spec_compare and speculate > 0
+                and caps.speculative):
+            # the same trace and equal-HBM pool as the paged comparison,
+            # in draft-verify rounds: greedy tokens must not change
+            dmodel, dparams = _drafter(draft_arch, arch, smoke, serve_cfg,
+                                       dev, seed)
+            nblocks = max(1, (slots * cache_len) // block_size)
+            result["continuous_spec"], spec_reqs = _drive_continuous(
+                prefill_chunk, kv_layout="paged", num_blocks=nblocks,
+                n_rows=min(requests, nblocks), speculate=speculate,
+                draft_model=dmodel, draft_params=dparams)
+            spec_rows = _rows(spec_reqs)
+            result["outputs_by_arm"]["continuous_spec"] = [
+                r.tolist() for r in spec_rows]
+            base = ("continuous_paged" if "continuous_paged" in result
+                    else "continuous")
+            base_rows = paged_rows if base == "continuous_paged" \
+                else slot_rows
+            sp = result["continuous_spec"]
+            result["speculate_k"] = speculate
+            result["draft_arch"] = draft_arch
+            result["spec_baseline_arm"] = base
+            result["spec_tok_s"] = sp["tok_s"]
+            result["continuous_tok_s"] = result[base]["tok_s"]
+            result["spec_accepted_per_dispatch"] = \
+                sp["accepted_per_dispatch"]
+            result["spec_acceptance_rate"] = sp["acceptance_rate"]
+            result["spec_token_identical_trace"] = _identical(base_rows,
+                                                              spec_rows)
+            result["spec_equal_token_share"] = _equal_share(base_rows,
+                                                            spec_rows)
+        if prefill_chunk and prefix_compare and caps.prefix_cache:
+            result.update(_prefix_compare())
         result["ttft_p50_ms"] = 1e3 * result["continuous"]["ttft_p50_s"]
         result["ttft_p95_ms"] = 1e3 * result["continuous"]["ttft_p95_s"]
         result["outputs"] = result["outputs_by_arm"]["continuous"]
@@ -633,7 +801,7 @@ def print_family_rows(rows: List[Dict]) -> None:
 
 
 ARMS = ("static", "continuous_monolithic", "continuous",
-        "continuous_paged")
+        "continuous_paged", "continuous_spec")
 
 
 def print_traffic(result: Dict) -> None:
@@ -662,9 +830,23 @@ def print_traffic(result: Dict) -> None:
             "monolithic_token_identical_trace",
             "static_token_identical_trace", "parity_equal_token_share",
             "parity_equal_token_share_paged", "paged_equal_token_share",
-            "monolithic_equal_token_share", "static_equal_token_share")
+            "monolithic_equal_token_share", "static_equal_token_share",
+            "speculate_k", "draft_arch", "spec_tok_s",
+            "spec_accepted_per_dispatch", "spec_acceptance_rate",
+            "spec_token_identical_trace", "spec_equal_token_share",
+            "prefix_token_identical", "prefix_hit_rate",
+            "prefill_tokens_saved", "prefill_dispatches_saved",
+            "prefix_ttft_p95_improved", "prefix_cold_equal_token_share",
+            "prefix_warm_equal_token_share")
     print("flags: " + json.dumps({k: result[k] for k in keys
                                   if k in result}), flush=True)
+    if "prefix" in result:
+        pfx = result["prefix"]
+        print(f"prefix: shared_prefix_len {pfx['shared_prefix_len']}, "
+              + ", ".join(
+                  f"{name} {pfx[name]['tok_s']:.2f} tok/s ttft p95 "
+                  f"{pfx[name]['ttft_p95_s'] * 1e3:.2f} ms"
+                  for name in ("baseline", "cold", "warm")), flush=True)
     print("kernels: " + json.dumps(result["kernels"]), flush=True)
 
 
@@ -691,6 +873,23 @@ def main(argv=None):
     ap.add_argument("--no-chunk-compare", action="store_true")
     ap.add_argument("--kv-block-size", type=int, default=16)
     ap.add_argument("--no-paged-compare", action="store_true")
+    ap.add_argument("--ring", action="store_true",
+                    help="ring-buffer slot caches bounded by the sliding "
+                         "window (the paged arms cannot hold a longer "
+                         "prompt: pair with --no-paged-compare)")
+    ap.add_argument("--spec-compare", action="store_true",
+                    help="run the speculative-decoding arm")
+    ap.add_argument("--speculate", type=int, default=3,
+                    help="draft tokens a draft-verify round")
+    ap.add_argument("--draft-arch", default="self",
+                    help="the drafter: 'self' or a ported dense config")
+    ap.add_argument("--prefix-compare", action="store_true",
+                    help="run the shared-prefix trace without, cold and "
+                         "warm with the radix prefix cache")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="template tokens of the shared-prefix trace (0 = "
+                         "3/4 of the longest prompt, in whole blocks)")
+    ap.add_argument("--share-ratio", type=float, default=0.9)
     ap.add_argument("--eos-id", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None, metavar="PATH")
@@ -725,7 +924,11 @@ def main(argv=None):
         max_prefill_per_step=args.max_prefill_per_step,
         chunk_compare=not args.no_chunk_compare,
         paged_compare=not args.no_paged_compare,
-        block_size=args.kv_block_size)
+        block_size=args.kv_block_size, ring=args.ring,
+        spec_compare=args.spec_compare, speculate=args.speculate,
+        draft_arch=args.draft_arch, prefix_compare=args.prefix_compare,
+        shared_prefix_len=args.shared_prefix_len,
+        share_ratio=args.share_ratio)
     print_traffic(result)
     if args.json:
         with open(args.json, "w") as f:

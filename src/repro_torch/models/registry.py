@@ -1,10 +1,12 @@
 """Model registry of the port: build a ``Model`` bundle from a ModelConfig.
 
 The bundle carries plain functions closed over the config, the device,
-the dtypes and the serving knobs, for both KV layouts (slot and paged).
-The port serves the dense, SSM and hybrid families; MoE and
+the dtypes and the serving knobs, for both KV layouts (slot and paged),
+with the paged layout's copy-on-write block clone (prefix caching) and
+k-token verify (speculative decoding) where the family's capabilities
+allow them. The port serves the dense, SSM and hybrid families; MoE and
 encoder-decoder models raise, naming the slice of the port that brings
-them, as does a ring-buffer ServeConfig.
+them. :func:`cache_len_for` sizes a ring-buffer cache.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.config import (BLOCK_DENSE, BLOCK_HYBRID, BLOCK_MOE,
-                                BLOCK_SSM, ModelConfig, ServeConfig)
+                                BLOCK_SSM, ModelConfig, ServeConfig,
+                                ShapeConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.layers import dtype_of
@@ -84,6 +87,12 @@ class Model(NamedTuple):
     init_paged_cache: Callable[..., Any]
     decode_step_paged: Callable[..., Any]
     prefill_chunk_paged: Callable[..., Any]
+    # copy-on-write block clone (prefix caching) — None when
+    # capabilities.prefix_cache is False
+    clone_paged_block: Optional[Callable[..., Any]]
+    # k-token teacher-forced verify (speculative decoding) — None when
+    # capabilities.speculative is False
+    verify_step_paged: Optional[Callable[..., Any]]
     capabilities: Capabilities
     device: torch.device
     dtype: torch.dtype              # compute (and KV cache) dtype
@@ -95,8 +104,6 @@ def build_model(cfg: ModelConfig, serve: Optional[ServeConfig] = None, *,
     card is present unless ``device="cpu"``)."""
     dev = resolve_device(device)
     serve = serve or ServeConfig()
-    if serve.ring_buffer:
-        raise transformer.ring_buffer_not_ported()
     caps = derive_capabilities(cfg)
     pdt = dtype_of(serve.param_dtype)
     cdt = dtype_of(serve.compute_dtype)
@@ -132,6 +139,20 @@ def build_model(cfg: ModelConfig, serve: Optional[ServeConfig] = None, *,
             transformer.decode_step_paged, cfg, compute_dtype=cdt),
         prefill_chunk_paged=functools.partial(
             transformer.prefill_chunk_paged, cfg, compute_dtype=cdt),
+        clone_paged_block=(transformer.clone_paged_block
+                           if caps.prefix_cache else None),
+        verify_step_paged=(functools.partial(
+            transformer.verify_step_paged, cfg, compute_dtype=cdt)
+                           if caps.speculative else None),
         capabilities=caps,
         device=dev,
         dtype=cdt)
+
+
+def cache_len_for(cfg: ModelConfig, shape: ShapeConfig,
+                  serve: ServeConfig) -> int:
+    """KV-cache capacity for a decode cell: ring-buffer mode bounds it at
+    the sliding window."""
+    if serve.ring_buffer and cfg.swa_window > 0:
+        return min(shape.seq_len, cfg.swa_window)
+    return shape.seq_len

@@ -7,7 +7,12 @@ Paged layout (the paged continuous engine):
   rows' block tables (the paged-attention decode kernel);
 * :func:`prefill_chunk_paged` — a fixed-size chunk of prompt tokens per
   row, deposited through the block tables (the multi-query kernel, with
-  ``lengths = pos0 + C``).
+  ``lengths = pos0 + C``);
+* :func:`verify_step_paged` — K teacher-forced tokens per row with
+  full-width logits (speculative decoding's verify and the drafter's
+  resync; the multi-query kernel, with ``lengths = positions + K``);
+* :func:`clone_paged_block` — the copy-on-write copy of one pool block
+  (prefix caching).
 
 Slot layout (the static engine and the slot continuous engine):
 
@@ -57,8 +62,11 @@ chunks attend in plain PyTorch on both devices, and the one-token SSM
 decode is plain PyTorch, as the reference computes them outside any
 Pallas kernel.
 
-Ring-buffer caches (prompts longer than the cache, with attention)
-arrive with a later slice and raise here.
+A prompt longer than the slot cache (a ring buffer: ``cache_len`` is the
+sliding window) is prefilled whole, then only its last ``W`` entries are
+kept, at columns ``abs_pos % W``, with those absolute positions in the
+position row; slot decode and slot chunks write column ``qpos % W``, so
+the ring recycles in place.
 """
 
 from __future__ import annotations
@@ -84,11 +92,15 @@ prefill_calls = 0
 #: on the card each launches the SSD scan kernel once per layer (SSM
 #: families)
 chunk_calls = 0
+#: verify forwards (:func:`verify_step_paged`) since the last
+#: :func:`reset_counters`; on the card each launches the multi-query
+#: paged kernel once per layer
+verify_calls = 0
 
 
 def reset_counters() -> None:
-    global prefill_calls, chunk_calls
-    prefill_calls = chunk_calls = 0
+    global prefill_calls, chunk_calls, verify_calls
+    prefill_calls = chunk_calls = verify_calls = 0
 
 
 def has_state(cfg: ModelConfig) -> bool:
@@ -344,15 +356,51 @@ def prefill_chunk_paged(cfg, params, cache, tokens, block_tables, rows, pos0,
     return _logits(cfg, params, hidden, compute_dtype)
 
 
+def verify_step_paged(cfg, params, cache, tokens, positions, block_tables,
+                      n_valid, *, compute_dtype,
+                      attention=ops.paged_attention):
+    """K-token teacher-forced decode through block tables (speculative
+    decoding): tokens (B,K) int, token j of row b at ``positions[b] + j``;
+    positions (B,) int (negative = a parked row, which writes nothing);
+    block_tables (B,NB); n_valid (B,) the live queries of each row (<= K;
+    the rest are padding and write nothing) -> logits (B,K,Vp) float32,
+    ``logits[:, j]`` the next-token distribution after token j; ``cache``
+    is updated in place. Rolling back a rejected draft is structural: the
+    engine advances the row by the accepted count only, and the stale
+    rows beyond stay out of causal range until overwritten. Dense family
+    only (carried state cannot be rewound)."""
+    global verify_calls
+    if has_state(cfg):
+        raise ValueError(f"{cfg.name}: speculative verify cannot rewind "
+                         "carried recurrent state")
+    B, K = tokens.shape
+    dev = tokens.device
+    x = embed_tokens(cfg, params, tokens, compute_dtype)
+    j = torch.arange(K, device=dev)[None, :]
+    pos = positions.long()
+    qpos = pos[:, None] + j
+    wvalid = (j < n_valid.long()[:, None]) & (pos >= 0)[:, None]
+    lengths = (pos + K).to(torch.int32)
+    h = _paged_backbone(cfg, params, x, cache, block_tables, qpos, wvalid,
+                        lengths, attention, None)
+    verify_calls += 1
+    return _logits(cfg, params, h.reshape(B * K, -1),
+                   compute_dtype).reshape(B, K, -1)
+
+
+def clone_paged_block(cache, src, dst) -> None:
+    """Copy-on-write clone of one pool block (prefix caching): block
+    ``src``'s pages, every layer's k and v, copied into block ``dst`` in
+    place on the current stream, so the chunk that resumes in ``dst``
+    (issued after it on the same stream) reads the copy. The source block
+    is never written. ``src``, ``dst``: host ints."""
+    for name in ("k", "v"):
+        cache[name][:, int(dst)].copy_(cache[name][:, int(src)])
+
+
 # ---------------------------------------------------------------------------
 # Slot layout: monolithic prefill, slot decode, slot chunk
 # ---------------------------------------------------------------------------
-
-def ring_buffer_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "ring-buffer KV caches (prompts longer than cache_len, "
-        "ServeConfig.ring_buffer) are not ported to PyTorch yet; they "
-        "arrive with the ring-buffer slice of the port")
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device,
@@ -425,20 +473,36 @@ def block_forward(cfg, p, x, positions, is_global, serve, attention,
     return _combine(cfg, p, x, a_out, s_out), k, v, state
 
 
+def _ring_columns(S: int, W: int, device):
+    """Where a prompt of S tokens lands in a slot cache of W columns:
+    ``(first, cols)`` — tokens ``first..S-1`` go to columns ``cols``. A
+    prompt that fits keeps every token at its position (``cols`` a
+    slice); a longer one keeps its last W tokens, token ``t`` at column
+    ``t % W`` (the ring)."""
+    if S <= W:
+        return 0, slice(0, S)
+    return S - W, torch.remainder(torch.arange(S - W, S, device=device), W)
+
+
 def backbone(cfg, params, x, positions, serve, cache, attention, scan):
     """The blocks over x (B,S,d) at ``positions`` (S,), as a loop over
-    layers; layer i's k/v land in ``cache[...][i, :, :S]`` and its carried
-    state in ``cache["conv"/"ssm"][i]``. Returns the final-normed hidden
-    states (B,S,d)."""
+    layers; layer i's k/v land in ``cache[...][i]`` at the columns of
+    :func:`_ring_columns` and its carried state in
+    ``cache["conv"/"ssm"][i]``. Returns the final-normed hidden states
+    (B,S,d)."""
     S = x.shape[1]
+    if cfg.uses_attention:
+        first, cols = _ring_columns(S, cache["k"].shape[2] - 1, x.device)
     h = x
     for i, (p_l, flag) in enumerate(zip(params["blocks"], layer_flags(cfg))):
         h, k, v, state = block_forward(cfg, p_l, h, positions, flag, serve,
                                        attention, scan)
         if k is not None:
             gs = cache["k"].shape[3]
-            cache["k"][i, :, :S] = L.repeat_kv(k, gs).to(cache["k"].dtype)
-            cache["v"][i, :, :S] = L.repeat_kv(v, gs).to(cache["v"].dtype)
+            cache["k"][i][:, cols] = L.repeat_kv(k[:, first:], gs).to(
+                cache["k"].dtype)
+            cache["v"][i][:, cols] = L.repeat_kv(v[:, first:], gs).to(
+                cache["v"].dtype)
         if state is not None:
             for name, t in state.items():
                 cache[name][i] = t.to(cache[name].dtype)
@@ -449,11 +513,11 @@ def prefill(cfg, params, tokens, cache_len: int, *, compute_dtype, serve,
             attention=flash_ops.flash_attention, scan=ssd_ops.ssd_scan):
     """Run whole prompts: tokens (B,S) int -> (last-position logits (B,Vp)
     float32, slot cache of ``cache_len`` tokens holding the prompts and
-    their carried state)."""
+    their carried state). A prompt longer than ``cache_len`` keeps its
+    last ``cache_len`` entries, rotated onto the ring (its attention still
+    runs over the whole prompt)."""
     global prefill_calls
     B, S = tokens.shape
-    if cfg.uses_attention and S > cache_len:
-        raise ring_buffer_not_ported()
     dev = tokens.device
     x = embed_tokens(cfg, params, tokens, compute_dtype)
     positions = torch.arange(S, device=dev)
@@ -461,7 +525,8 @@ def prefill(cfg, params, tokens, cache_len: int, *, compute_dtype, serve,
     hidden = backbone(cfg, params, x, positions, serve, cache, attention,
                       scan)
     if cfg.uses_attention:
-        cache["pos"][:, :S] = positions.to(torch.int32)
+        first, cols = _ring_columns(S, cache_len, dev)
+        cache["pos"][:, cols] = positions[first:].to(torch.int32)
     prefill_calls += 1
     return _logits(cfg, params, hidden[:, -1], compute_dtype), cache
 

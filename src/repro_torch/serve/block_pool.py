@@ -7,15 +7,19 @@ tokens; a request leases exactly the blocks its tokens occupy, so
 admission gates on free blocks instead of free slots.
 
 * :class:`BlockPool` — the host-side allocator: O(1) free-list
-  alloc/free, per-block reference counts, owners recorded for error
-  reporting.
+  alloc/free, per-block reference counts (a block backs every request
+  sharing its prefix, and the prefix cache holds a reference of its
+  own), owners recorded for error reporting, and an optional reclaimer
+  (the prefix cache) whose parked blocks count as free and are evicted
+  when ``alloc`` runs short.
 * :class:`PagedKVCache` — the engine-facing cache: the device pool
   (``model.init_paged_cache``), a fixed set of request rows, one block
   table per row, and a device copy of the tables that is rebuilt only
   after an alloc, free or reset. For the SSM and hybrid families the
   pool also holds each request row's carried state (conv/ssm leaves,
   row-aligned, ``(L, num_slots, ...)``); an attention-free model's pool
-  holds the state alone.
+  holds the state alone. ``alloc_prefix`` backs a row partly with
+  cached prefix blocks (prefix caching).
 
 Host-side length and refcount bookkeeping is ``np.int32``, the dtype of
 the device positions and tables.
@@ -47,14 +51,34 @@ class BlockPool:
         self._ref = np.zeros((num_blocks,), np.int32)
         self._owner: List[Optional[object]] = [None] * num_blocks
         self._last_owner: List[Optional[object]] = [None] * num_blocks
+        self._reclaimer = None        # e.g. a PrefixCache
+
+    def attach_reclaimer(self, reclaimer) -> None:
+        """Register a deferred reclaimer (the prefix cache): its
+        evictable parked blocks count as free (``num_free``), ``alloc``
+        asks it to ``reclaim`` when the free list runs short, and
+        ``free`` tells it when a block's last reference may be its own
+        (``on_sole_ref``)."""
+        if self._reclaimer is not None and self._reclaimer is not reclaimer:
+            raise SlotError("pool already has a reclaimer attached")
+        self._reclaimer = reclaimer
 
     @property
     def num_free(self) -> int:
-        return len(self._free)
+        free = len(self._free)
+        if self._reclaimer is not None:
+            free += self._reclaimer.evictable()
+        return free
 
     @property
     def num_live(self) -> int:
         return self.num_blocks - len(self._free)
+
+    def refcount(self, block: int) -> int:
+        return int(self._ref[block])
+
+    def owner(self, block: int):
+        return self._owner[block]
 
     def blocks_needed(self, ntokens: int) -> int:
         """Table entries a request of ``ntokens`` tokens occupies."""
@@ -67,6 +91,10 @@ class BlockPool:
         exhaustion — admission control must gate on ``num_free``."""
         if owner is None:
             raise SlotError("block owner must be non-None")
+        if n > len(self._free) and self._reclaimer is not None:
+            # evict parked prefix-cache blocks (LRU) until the free list
+            # covers the request
+            self._reclaimer.reclaim(n - len(self._free))
         if n > len(self._free):
             raise SlotError(
                 f"block pool exhausted: need {n}, have {len(self._free)} "
@@ -77,6 +105,12 @@ class BlockPool:
             self._owner[b] = owner
             self._last_owner[b] = owner
         return blocks
+
+    def ref(self, block: int, owner: object = None) -> None:
+        """Add a reference to a live block (a shared-prefix lease)."""
+        if self._ref[block] < 1:
+            raise SlotError(f"ref of free block {block}")
+        self._ref[block] += 1
 
     def free(self, blocks) -> None:
         """Drop one reference per block; blocks reaching zero return to
@@ -89,6 +123,10 @@ class BlockPool:
             if self._ref[b] == 0:
                 self._owner[b] = None
                 self._free.append(b)
+            elif self._ref[b] == 1 and self._reclaimer is not None:
+                # the survivor may be the reclaimer's own reference: it
+                # parks the block if so
+                self._reclaimer.on_sole_ref(b)
 
     def reset(self, *, strict: bool = False) -> None:
         """Wipe every lease. Blocks still live are leaks and are named:
@@ -108,6 +146,10 @@ class BlockPool:
         self._free = list(range(self.num_blocks - 1, -1, -1))
         self._ref[:] = 0
         self._owner = [None] * self.num_blocks
+        if self._reclaimer is not None:
+            # every lease, the reclaimer's included, was just wiped: it
+            # drops its index without freeing anything again
+            self._reclaimer.on_pool_reset()
 
 
 class PagedKVCache:
@@ -158,12 +200,21 @@ class PagedKVCache:
     def live_slots(self) -> List[int]:
         return [s for s in range(self.num_slots) if self._owner[s] is not None]
 
+    def length(self, slot: int) -> int:
+        return int(self._len[slot])
+
     @property
     def lengths(self) -> np.ndarray:
         return self._len.copy()
 
     def blocks_for(self, ntokens: int) -> int:
         return self.pool.blocks_needed(ntokens)
+
+    def blocks_of(self, slot: int) -> List[int]:
+        """The block ids leased to ``slot``, in table order."""
+        if self._owner[slot] is None:
+            raise SlotError(f"blocks_of free row {slot}")
+        return self._tables[slot, :int(self._nblocks[slot])].tolist()
 
     def _check_table_cap(self, ntokens: int) -> int:
         nb = self.blocks_for(ntokens)
@@ -173,31 +224,65 @@ class PagedKVCache:
                 f"max_blocks_per_req={self.max_blocks_per_req}")
         return nb
 
-    def can_admit(self, ntokens: int) -> bool:
-        """One free row + enough free blocks for ``ntokens`` tokens."""
+    def can_admit(self, ntokens: int, hit=None) -> bool:
+        """One free row + enough free blocks for ``ntokens`` tokens. With
+        a :class:`~repro_torch.serve.prefix_cache.PrefixHit` only the miss
+        tail needs fresh blocks, but the hit's parked blocks stop being
+        evictable once leased, so they come off the (free + evictable)
+        headroom."""
         nb = self._check_table_cap(ntokens)
-        return bool(self._free_rows) and nb <= self.pool.num_free
+        if not self._free_rows:
+            return False
+        if hit is None:
+            return nb <= self.pool.num_free
+        return nb - len(hit.blocks) <= self.pool.num_free - hit.n_parked
 
     # -- lease lifecycle ---------------------------------------------------
-    def alloc(self, owner: object, ntokens: int) -> int:
-        """Claim a request row and lease the blocks ``ntokens`` tokens
-        will occupy. Raises on row/block exhaustion."""
+    def _take_row(self, owner: object) -> None:
         if owner is None:
             raise SlotError("row owner must be non-None")
         if not self._free_rows:
             raise SlotError("request rows exhausted (admission must gate "
                             "on num_free)")
-        nb = self._check_table_cap(ntokens)
-        blocks = self.pool.alloc(nb, owner)   # raises before row is taken
+
+    def _install_row(self, owner: object, blocks: List[int]) -> int:
         slot = self._free_rows.pop()
         self._owner[slot] = owner
         self._last_owner[slot] = owner
         self._tables[slot, :] = -1
-        self._tables[slot, :nb] = np.asarray(blocks, np.int32)
+        self._tables[slot, :len(blocks)] = np.asarray(blocks, np.int32)
         self._tables_dev = None
-        self._nblocks[slot] = nb
+        self._nblocks[slot] = len(blocks)
         self._len[slot] = 0
         return slot
+
+    def alloc(self, owner: object, ntokens: int) -> int:
+        """Claim a request row and lease the blocks ``ntokens`` tokens
+        will occupy. Raises on row/block exhaustion."""
+        self._take_row(owner)
+        nb = self._check_table_cap(ntokens)
+        blocks = self.pool.alloc(nb, owner)   # raises before row is taken
+        return self._install_row(owner, blocks)
+
+    def alloc_prefix(self, owner: object, ntokens: int, hit, cache) -> int:
+        """Claim a row backed partly by cached prefix blocks: the hit's
+        blocks are leased at refcount + 1 through ``cache.lease`` (the
+        CoW source as a temporary reference) and only the miss tail is
+        allocated fresh. Leasing first means a reclaim triggered by the
+        fresh allocation can never evict a block this request hit."""
+        self._take_row(owner)
+        nb = self._check_table_cap(ntokens)
+        shared = list(hit.blocks)
+        cache.lease(hit, owner)
+        try:
+            fresh = self.pool.alloc(nb - len(shared), owner)
+        except SlotError:
+            # unwind the shared leases; admission should have gated
+            if hit.cow_src is not None:
+                self.pool.free([hit.cow_src])
+            self.pool.free(shared)
+            raise
+        return self._install_row(owner, shared + fresh)
 
     def free(self, slot: int) -> None:
         if self._owner[slot] is None:
@@ -292,3 +377,21 @@ class PagedKVCache:
         self._owner = [None] * self.num_slots
         self._nblocks[:] = 0
         self._len[:] = 0
+
+    def reset_rows(self, *, strict: bool = False) -> None:
+        """Free every request row (and its lease) but keep the rest of
+        the pool: the prefix cache's parked index and the device
+        buffers. The warm-cache reset. Occupied rows are leaks, named as
+        :meth:`reset` names them, then freed through the ordinary path,
+        so shared blocks fall back to the cache (parked)."""
+        leaked = [(s, self._owner[s]) for s in range(self.num_slots)
+                  if self._owner[s] is not None]
+        if leaked:
+            msg = (f"reset with {len(leaked)} live request row(s): "
+                   + ", ".join(f"row {s} (owner {o!r})" for s, o in leaked))
+            if strict:
+                raise LeaseLeakError(msg)
+            warnings.warn(msg, LeaseLeakWarning, stacklevel=2)
+            for s, _ in leaked:
+                self.free(s)
+        self._tables_dev = None

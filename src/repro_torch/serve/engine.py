@@ -41,12 +41,34 @@ state, and their logits are dropped. The caches are updated in place by
 the model's steps. Sampling is greedy ``argmax``; a request with
 ``temperature > 0`` draws from its own ``torch.Generator`` seeded from
 ``(seed, rid)`` — deterministic within the port, not the reference's
-bits. Each micro-step syncs with
-the host once, to read the sampled tokens.
+bits. Each micro-step reads the sampled tokens back once; on the paged
+layout every forward adds one more sync of its own (the write-target
+selection of ``transformer._write_targets``).
 
-Not ported yet, and raising ``NotImplementedError`` naming the slice
-that brings them: prefix caching, speculative decoding, and the serving
-fabric's prefill/decode roles.
+Two features of the paged layout (dense family only; the SSM and hybrid
+families forbid both through their capabilities):
+
+* ``prefix_cache=True``: a radix index over the pool's blocks
+  (:mod:`repro_torch.serve.prefix_cache`). Admission leases every cached
+  block of the prompt's longest cached prefix at refcount + 1, clones a
+  partially matching block (copy-on-write, ``model.clone_paged_block``,
+  in place on the current stream before the chunk that resumes in it),
+  and starts the chunked deposit at the first miss, mid-block if need
+  be. ``reset(preserve_prefix=True)`` keeps the index for a warm run.
+* ``speculate=k``: a drafter (the target itself unless ``draft_model``
+  is given) proposes k tokens a round on its own paged pool, leased in
+  lockstep with the target's rows; the target checks them in one
+  (k+1)-query verify dispatch and keeps the longest matching prefix plus
+  its own next token, so greedy output equals plain decoding token for
+  token. A round is the drafter's width-2 resync, k - 1 drafter decode
+  steps and the verify, run eagerly, with one read-back of the emitted
+  tokens (the reference fuses the round into one jit and one sync);
+  ``_write_targets`` adds k + 1 more syncs a round, one a forward.
+  Rejected draft rows roll back structurally: the row advances by the
+  accepted count only.
+
+The serving fabric's prefill/decode roles are not ported yet and raise
+``NotImplementedError``, naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -58,9 +80,11 @@ from typing import Deque, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import protocol
 from repro_torch.device import resolve_device
 from repro_torch.serve.block_pool import PagedKVCache
-from repro_torch.serve.kv_cache import SlotKVCache
+from repro_torch.serve.kv_cache import SlotError, SlotKVCache
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.scheduler import CellQueueScheduler, ServeRequest
 
 #: parked decode position: so far below zero that a free or prefilling
@@ -183,17 +207,13 @@ class ContinuousEngine:
                  kv_layout: str = "slot", block_size: int = 16,
                  num_blocks: Optional[int] = None, role: str = "full",
                  prefix_cache: bool = False, speculate: int = 0,
-                 device="cuda"):
+                 draft_model=None, draft_params=None, device="cuda"):
         dev = _check_device(device, model)
         if kv_layout not in ("slot", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r} "
                              "(expected 'slot' or 'paged')")
         if role != "full":
             raise not_ported(f"role={role!r}", "serving-fabric")
-        if prefix_cache:
-            raise not_ported("prefix caching", "prefix-caching")
-        if speculate:
-            raise not_ported("speculative decoding", "speculative-decoding")
         self.model = model
         self.params = params
         self.device = dev
@@ -236,6 +256,22 @@ class ContinuousEngine:
                                    max_blocks_per_req=mbr)
         else:
             self.kv = SlotKVCache(model, self.cache_len, num_slots)
+        self.prefix_cache: Optional[PrefixCache] = None
+        if prefix_cache:
+            if not paged:
+                raise ValueError("prefix caching shares paged KV blocks; "
+                                 "it requires kv_layout='paged'")
+            if not caps.prefix_cache:
+                raise ValueError("model lacks capability 'prefix_cache': "
+                                 + caps.reason)
+            # the radix index is the pool's reclaimer (LRU eviction of
+            # parked blocks)
+            self.prefix_cache = PrefixCache(self.kv.pool)
+        self.speculate = int(speculate)
+        if self.speculate < 0:
+            raise ValueError(f"speculate must be >= 0, got {speculate}")
+        if self.speculate:
+            self._init_drafter(draft_model, draft_params, num_slots)
         self.scheduler = scheduler or CellQueueScheduler(
             num_cells=4 * num_slots,
             prefill_chunk_bytes=4 * self.prefill_chunk,
@@ -245,9 +281,68 @@ class ContinuousEngine:
         #: first ``max_prefill_per_step`` of them with one fused dispatch
         self._prefilling: Deque[_PrefillJob] = deque()
         self._fresh_state()
+        self._zero_accounting()
+
+    def _zero_accounting(self) -> None:
         self.peak_live = 0
         self._resident_tok_sum = 0
         self._reserved_tok_sum = 0
+        # prefix-cache accounting (zero when the cache is off): hit tokens
+        # never re-prefill, so saved tokens == hit tokens, and saved
+        # dispatches is the per-request chunk-count difference
+        self.prefix_lookups = self.prefix_hits = 0
+        self.prefix_hit_tokens = self.prefix_prompt_tokens = 0
+        self.prefill_dispatches_saved = self.prefix_cow_clones = 0
+        #: draft-verify rounds run (each: one resync and one verify
+        #: forward, k - 1 drafter decode steps)
+        self.spec_rounds = 0
+
+    def _init_drafter(self, draft_model, draft_params, num_slots) -> None:
+        """The reference's checks on speculation, then the drafter's own
+        paged pool, with the target's geometry so rows and leases stay
+        one to one (alloc and free in lockstep)."""
+        model = self.model
+        if self.kv_layout != "paged":
+            raise ValueError("speculative decoding rolls rejected draft KV "
+                             "back through block tables; it requires "
+                             "kv_layout='paged'")
+        if self.prefix_cache is not None:
+            raise ValueError(
+                "speculative decoding does not compose with prefix "
+                "caching: rolled-back draft rows would sit inside blocks "
+                "the radix cache could lease to another request as "
+                "canonical prefix KV")
+        if not self.capabilities.speculative:
+            raise ValueError("model lacks capability 'speculative': "
+                             + self.capabilities.reason)
+        if draft_model is None:
+            # self-speculation: the target drafts for itself on a second
+            # pool (the whole draft-verify-rollback machinery, near-1.0
+            # acceptance)
+            draft_model, draft_params = model, self.params
+        else:
+            if draft_params is None:
+                raise ValueError("draft_model needs draft_params")
+            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(
+                    f"drafter vocab {draft_model.cfg.vocab_size} != target "
+                    f"vocab {model.cfg.vocab_size}: drafted token ids "
+                    "would not index the target's distribution")
+            if not draft_model.capabilities.speculative:
+                raise ValueError("draft model lacks capability "
+                                 "'speculative': "
+                                 + draft_model.capabilities.reason)
+            if draft_model.device != self.device:
+                raise ValueError(f"draft model device {draft_model.device} "
+                                 f"!= engine device {self.device}")
+        self.draft_model = draft_model
+        self.draft_params = draft_params
+        self.draft_kv = PagedKVCache(
+            draft_model, num_blocks=self.kv.pool.num_blocks,
+            block_size=self.kv.block_size, num_slots=num_slots,
+            max_blocks_per_req=self.kv.max_blocks_per_req)
+        #: tokens of each row the drafter's pool holds (canonical ones)
+        self._draft_len = np.zeros((num_slots,), np.int64)
 
     def _carried_state_bytes(self) -> int:
         """Per-request bytes of carried (non-KV) state: the scheduler
@@ -279,7 +374,14 @@ class ContinuousEngine:
     def submit(self, req: ServeRequest, now: float = 0.0) -> str:
         """Queue a request through the cell-queue scheduler. A paged
         request whose token budget can never fit its block table or the
-        pool is rejected here, at submit."""
+        pool is rejected here, at submit, as is a sampled request on a
+        speculative engine (its acceptance is exact for argmax only)."""
+        if self.speculate and req.temperature > 0.0:
+            raise ValueError(
+                f"request {req.rid}: speculative decoding verifies greedy "
+                "token identity (longest-matching-prefix acceptance is "
+                "exact for argmax only); temperature must be 0, got "
+                f"{req.temperature}")
         if self.kv_layout == "paged":
             budget = self._token_budget(req)
             cap = self.admittable_tokens
@@ -330,9 +432,16 @@ class ContinuousEngine:
                          self.max_prefill_per_step - len(self._prefilling))
             # paged: a request's whole token budget must also fit in free
             # blocks; admit one at a time so each lease is debited before
-            # the next candidate is gated
-            can = ((lambda r: self.kv.can_admit(self._token_budget(r)))
-                   if self.kv_layout == "paged" else None)
+            # the next candidate is gated. With the prefix cache only the
+            # miss tail needs fresh blocks: the gate prices the hit
+            can = None
+            if self.prefix_cache is not None:
+                def can(r):
+                    return self.kv.can_admit(self._token_budget(r),
+                                             hit=self._prefix_lookup(r))
+            elif self.kv_layout == "paged":
+                def can(r):
+                    return self.kv.can_admit(self._token_budget(r))
             while budget > 0:
                 admitted = self.scheduler.admit(now, 1, can_admit=can)
                 if not admitted:
@@ -348,7 +457,8 @@ class ContinuousEngine:
                 if done is not None:
                     finished.append(done)
         if self.num_decoding:
-            finished.extend(self._decode_micro_step(now))
+            finished.extend(self._spec_micro_step(now) if self.speculate
+                            else self._decode_micro_step(now))
         self._account()
         return finished
 
@@ -383,21 +493,118 @@ class ContinuousEngine:
             "peak_concurrent": float(self.peak_live),
         }
 
+    def prefix_stats(self) -> dict:
+        """Prefix-cache evidence (empty when the cache is off): hit rate
+        in tokens, prefill work saved, CoW clones, the modeled hit-path
+        cost and the trie's own counters (the reference's
+        ``obs.metrics.engine_prefix_stats`` schema)."""
+        pc = self.prefix_cache
+        if pc is None:
+            return {}
+        return {
+            "prefix_lookups": float(self.prefix_lookups),
+            "prefix_hits": float(self.prefix_hits),
+            "prefix_hit_rate": (self.prefix_hit_tokens
+                                / max(1, self.prefix_prompt_tokens)),
+            "prefill_tokens_saved": float(self.prefix_hit_tokens),
+            "prefill_dispatches_saved": float(self.prefill_dispatches_saved),
+            "prefix_cow_clones": float(self.prefix_cow_clones),
+            "prefix_modeled_hit_cost_us":
+                1e6 * self.scheduler.modeled_prefix_hit_cost_s,
+            **pc.stats(),
+        }
+
+    @property
+    def decode_tokens_per_dispatch(self) -> float:
+        """Tokens one decode dispatch yields: 1.0 without speculation;
+        with it, the observed mean accepted per dispatch, or the ``(k +
+        2) / 2`` uniform-acceptance prior before any round has run."""
+        if not self.speculate:
+            return 1.0
+        sch = self.scheduler
+        if sch.n_spec_dispatches:
+            return sch.spec_accepted_tokens / sch.n_spec_dispatches
+        return (self.speculate + 2) / 2
+
+    def spec_stats(self) -> dict:
+        """Speculative-decoding evidence (empty when speculation is off):
+        the reference's ``obs.metrics.engine_spec_stats`` schema."""
+        if not self.speculate:
+            return {}
+        return {"speculate_k": float(self.speculate),
+                **self.scheduler.spec_stats()}
+
     # -- prompt deposit ----------------------------------------------------
     def _begin_prefill(self, req: ServeRequest) -> None:
         """Claim a slot (blanked: a chunked deposit appends entries) or
         lease blocks + a request row, and enter ``prefilling``. Paged
         masking is structural (a stale page of a block's previous owner
-        is never at a position <= qpos of the new one): no blanking."""
+        is never at a position <= qpos of the new one): no blanking. With
+        the prefix cache the deposit starts at the first token the cache
+        did not hold; with speculation the drafter's pool leases the same
+        row."""
+        resident = 0
         if self.kv_layout == "paged":
-            slot = self.kv.alloc(req, self._token_budget(req))
+            if self.prefix_cache is not None:
+                slot, resident = self._admit_with_prefix(req)
+            else:
+                slot = self.kv.alloc(req, self._token_budget(req))
+            if self.speculate:
+                dslot = self.draft_kv.alloc(req, self._token_budget(req))
+                if dslot != slot:
+                    raise SlotError(
+                        f"drafter row {dslot} diverged from target row "
+                        f"{slot} for request {req.rid}: the pools' "
+                        "alloc/free lockstep broke")
         else:
             slot = self.kv.alloc(req)
             self.kv.reset_slot(slot)
         req.state = "prefilling"
         tokens = np.asarray(req.batch["tokens"][0], np.int32)
         self._prefilling.append(_PrefillJob(req=req, slot=slot,
-                                            tokens=tokens))
+                                            tokens=tokens, off=resident))
+
+    def _prefix_lookup(self, req: ServeRequest):
+        """Longest cached prefix of the prompt, one token short of its
+        length at most: the final chunk always re-prefills, so its
+        last-position logits exist to seed decode."""
+        tokens = np.asarray(req.batch["tokens"][0], np.int32)
+        return self.prefix_cache.lookup(tokens, limit=len(tokens) - 1)
+
+    def _admit_with_prefix(self, req: ServeRequest):
+        """Paged admission through the radix cache: lease every hit block
+        at refcount + 1, allocate fresh blocks for the miss tail only,
+        clone the partially matching block (CoW) and resume the chunked
+        deposit at the first miss. Returns ``(slot, resident)``."""
+        hit = self._prefix_lookup(req)
+        slot = self.kv.alloc_prefix(req, self._token_budget(req), hit,
+                                    self.prefix_cache)
+        resident = hit.tokens
+        if hit.cow_src is not None:
+            # copy the shared block into the request's first private
+            # block, in place on the current stream (the chunk resuming
+            # in it comes later on the same stream), then drop the
+            # temporary source reference
+            dst = self.kv.blocks_of(slot)[len(hit.blocks)]
+            self.model.clone_paged_block(self.kv.buffers, hit.cow_src, dst)
+            self.prefix_cache.release_cow(hit.cow_src)
+            resident += hit.cow_tokens
+            self.prefix_cow_clones += 1
+        if resident:
+            self.kv.advance(slot, resident)
+        plen = req.prompt_len
+        self.prefix_lookups += 1
+        self.prefix_prompt_tokens += plen
+        if resident:
+            C = self.prefill_chunk
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += resident
+            self.prefill_dispatches_saved += (
+                -(-plen // C) - -(-(plen - resident) // C))
+            req.prefix_hit_tokens = resident
+            self.scheduler.reprice_prefix(
+                req, resident, cow_blocks=int(hit.cow_src is not None))
+        return slot, resident
 
     def _prefill_chunk_step(self, now: float) -> List[ServeRequest]:
         """One fused dispatch: the next chunk of up to
@@ -429,6 +636,14 @@ class ContinuousEngine:
             logits = self.model.prefill_chunk_paged(
                 self.params, self.kv.buffers, args[0], tables,
                 torch.as_tensor(slots), *args[1:])
+            if self.speculate:
+                # the same chunk into the drafter's pool, through its own
+                # tables; its logits are not needed (the drafter's first
+                # proposal comes from the round's resync)
+                self.draft_model.prefill_chunk_paged(
+                    self.draft_params, self.draft_kv.buffers, args[0],
+                    torch.as_tensor(self.draft_kv.table_rows(slots)).to(dev),
+                    torch.as_tensor(slots), *args[1:])
         else:
             rows = self.kv.rows_at(slots)
             logits = self.model.prefill_chunk(self.params, rows, *args)
@@ -449,6 +664,13 @@ class ContinuousEngine:
         for i, t0, gen in zip(final, tok0, gens):
             job = jobs[i]
             self._prefilling.remove(job)
+            if self.speculate:
+                self._draft_len[job.slot] = len(job.tokens)
+            if self.prefix_cache is not None:
+                # index the prompt's full blocks before the request can
+                # finish at once (EOS first token) and free them to parked
+                self.prefix_cache.insert(job.tokens,
+                                         self.kv.blocks_of(job.slot))
             done = self._start_decode(job.slot, job.req, int(t0), gen, now)
             if done is not None:
                 finished.append(done)
@@ -526,10 +748,120 @@ class ContinuousEngine:
                 self._slot_out[slot] = None
         return finished
 
+    def _spec_micro_step(self, now: float) -> List[ServeRequest]:
+        """The speculative decode micro-step: one draft-verify round over
+        every decoding row (:meth:`_spec_round`) in place of up to k + 1
+        one-token steps. Per row, ``tpos`` (the target's next write
+        position) is its resident length; the canonical context is one
+        token longer (the pending token ``cur``); the drafter holds ``u =
+        canon - draft_len`` (1 or 2) fewer tokens. ``n_draft`` is clamped
+        to ``remaining - 1``, so the budget is never overdrawn: at one
+        token left the round is a width-1 verify."""
+        k = self.speculate
+        S = self.kv.num_slots
+        cur = np.zeros((S,), np.int64)
+        prev = np.zeros((S,), np.int64)
+        u = np.ones((S,), np.int64)
+        sync_pos = np.full((S,), PARK_POS, np.int64)
+        tpos = np.full((S,), PARK_POS, np.int64)
+        n_draft = np.zeros((S,), np.int64)
+        live: List[int] = []
+        for slot in self.kv.live_slots:
+            req = self._slot_req[slot]
+            if req is None:        # row still mid-prefill: parked
+                continue
+            g = req.generated
+            out = self._slot_out[slot]
+            cur[slot] = out[g - 1]
+            prev[slot] = out[g - 2] if g >= 2 else out[g - 1]
+            canon = self.kv.length(slot) + 1
+            u[slot] = canon - int(self._draft_len[slot])
+            sync_pos[slot] = canon - u[slot]
+            tpos[slot] = canon - 1
+            n_draft[slot] = min(k, req.max_new_tokens - g - 1)
+            live.append(slot)
+        greedy, n_emit = self._spec_round(cur, prev, u, sync_pos, tpos,
+                                          n_draft)
+        self.spec_rounds += 1
+        cost = protocol.speculative_verify_latency(k)
+        finished: List[ServeRequest] = []
+        for slot in live:
+            req = self._slot_req[slot]
+            out = self._slot_out[slot]
+            g = req.generated
+            ne = int(n_emit[slot])
+            em = greedy[slot, :ne]
+            keep = ne
+            if self.eos_id >= 0:
+                hits = np.nonzero(em == self.eos_id)[0]
+                if hits.size:                  # truncate at the first EOS
+                    keep = int(hits[0]) + 1
+            out[g:g + keep] = em[:keep]
+            req.generated = g + keep
+            # the drafter now holds canon + min(n_emit - 1, k - 1) tokens
+            canon = self.kv.length(slot) + 1
+            self._draft_len[slot] = canon + min(ne - 1, k - 1)
+            self.kv.advance(slot, keep)        # accepted rows only
+            self.scheduler.record_spec_dispatch(keep, int(n_draft[slot]),
+                                                ne - 1, cost)
+            if (self.eos_id >= 0 and em[keep - 1] == self.eos_id) \
+                    or req.generated >= req.max_new_tokens:
+                finished.append(self._finish(slot, req, out, now))
+                self._slot_req[slot] = None
+                self._slot_out[slot] = None
+        return finished
+
+    def _spec_round(self, cur, prev, u, sync_pos, tpos, n_draft):
+        """One draft-verify round on the device, from host inputs (S,):
+        the drafter resyncs with a width-2 teacher-forced dispatch of the
+        ``u`` canonical tokens it lacks, whose last valid row gives draft
+        1; k - 1 drafter decode steps extend the proposal (a step past a
+        row's ``n_draft`` parks its write); the target verifies ``[cur,
+        d_1 .. d_k]`` in one dispatch; the longest matching prefix plus
+        the target's own token is what sequential greedy decoding would
+        emit. Returns ``(greedy (S, k+1), n_emit (S,))`` on the host:
+        the round's one read-back."""
+        k = self.speculate
+        dev = self.device
+
+        def on(a):
+            return torch.as_tensor(a).to(dev)
+
+        sync_tok = np.where((u == 2)[:, None], np.stack([prev, cur], 1),
+                            np.stack([cur, cur], 1))
+        dtables = self.draft_kv.tables_device()
+        dlogits = self.draft_model.verify_step_paged(
+            self.draft_params, self.draft_kv.buffers, on(sync_tok),
+            on(sync_pos), dtables, on(u))
+        rows = torch.arange(len(u), device=dev)
+        drafts = [dlogits.argmax(-1)[rows, on(np.maximum(u - 1, 0))]]
+        base = sync_pos + u                # the drafter's next position
+        for j in range(k - 1):
+            pos_j = np.where(j + 1 <= n_draft, base + j, PARK_POS)
+            lg = self.draft_model.decode_step_paged(
+                self.draft_params, self.draft_kv.buffers,
+                drafts[-1][:, None], on(pos_j), dtables)
+            drafts.append(lg.argmax(-1))
+        drafts = torch.stack(drafts, 1)                         # (S, k)
+        nd = on(n_draft)
+        logits = self.model.verify_step_paged(
+            self.params, self.kv.buffers,
+            torch.cat([on(cur)[:, None], drafts], 1), on(tpos),
+            self.kv.tables_device(), nd + 1)
+        greedy = logits.argmax(-1)                              # (S, k+1)
+        match = ((drafts == greedy[:, :k])
+                 & (torch.arange(k, device=dev)[None, :] < nd[:, None]))
+        n_emit = match.long().cumprod(1).sum(1) + 1
+        both = torch.cat([greedy, n_emit[:, None]], 1).cpu().numpy()
+        return both[:, :k + 1], both[:, k + 1]
+
     def _finish(self, slot: int, req: ServeRequest, out: np.ndarray,
                 now: float) -> ServeRequest:
         req.output = out
         self.kv.free(slot)
+        if self.speculate:
+            self.draft_kv.free(slot)       # lockstep with the target row
+            self._draft_len[slot] = 0
         # park the freed row so later decode steps write nothing for it
         self._pos[slot] = PARK_POS
         self._temp[slot] = 0.0
@@ -537,18 +869,31 @@ class ContinuousEngine:
         self.scheduler.record_finish(req, now)
         return req
 
-    def reset(self, *, strict: bool = False) -> None:
+    def reset(self, *, strict: bool = False,
+              preserve_prefix: bool = False) -> None:
         """Return the engine to its post-construction state: every row
         freed, decode state parked, scheduler queues and accounting
-        cleared. Rows still holding requests are lease leaks: named via
+        cleared. ``preserve_prefix=True`` (prefix cache only) keeps the
+        parked radix index and the pool's contents: the warm-cache run.
+        Rows still holding requests are lease leaks: named via
         ``LeaseLeakWarning``, or ``LeaseLeakError`` when ``strict``."""
         self._fresh_state()
         self._prefilling.clear()
-        self.kv.reset(strict=strict)
+        if self.prefix_cache is not None and preserve_prefix:
+            self.kv.reset_rows(strict=strict)
+        else:
+            if self.prefix_cache is not None:
+                # drop the cache's references first: parked blocks are
+                # retention by design, not leaks for the pool to name
+                self.prefix_cache.clear()
+            self.kv.reset(strict=strict)
+        if self.speculate:
+            self.draft_kv.reset(strict=strict)
+            self._draft_len[:] = 0
         self.scheduler.reset()
-        self.peak_live = 0
-        self._resident_tok_sum = 0
-        self._reserved_tok_sum = 0
+        self._zero_accounting()
+        if self.prefix_cache is not None:
+            self.prefix_cache.reset_stats()
 
     # -- batch-API convenience ---------------------------------------------
     def generate(self, batch, max_new_tokens: int, *,

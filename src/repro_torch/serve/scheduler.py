@@ -1,6 +1,7 @@
 """Continuous-batching request scheduler: bounded cell-queue admission
 (paper §3.2 recast as serving admission control) — the port of the
-reference's ``serve/scheduler.py`` (admission and paged pricing).
+reference's ``serve/scheduler.py``: admission, paged pricing, the
+prefix-cache repricing and the speculative-decoding accounting.
 
 A request's prompt is its message (``nbytes = prompt tokens x
 itemsize``), classified by :func:`repro_torch.core.protocol.
@@ -12,7 +13,9 @@ as cells free. Admission priority is cells -> promoted overflow ->
 rendezvous, FIFO within each class.
 
 Per-request arrival/admit/first-token/finish times are stamped on the
-:class:`ServeRequest` itself.
+:class:`ServeRequest` itself. :func:`make_trace` draws from numpy in the
+reference's order, so one seed gives the reference's trace, shared
+prefix groups included.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ class ServeRequest:
     # lifecycle: queued -> prefilling -> decoding -> done
     state: str = "queued"
     prefill_chunks: int = 0               # chunk dispatches this rode in
+    prefix_hit_tokens: int = 0            # prompt tokens served from the
+                                          # radix prefix cache (no prefill)
     submit_time: Optional[float] = None
     admit_time: Optional[float] = None
     first_token_time: Optional[float] = None
@@ -119,6 +124,21 @@ class CellQueueScheduler:
         self.n_deferred = 0           # overflow + rendezvous submissions
         self.n_block_deferrals = 0    # admissions stalled on free blocks
         self.modeled_admit_cost_s = 0.0
+        self._zero_feature_counters()
+
+    def _zero_feature_counters(self) -> None:
+        # prefix-cache repricing: hits replace the full admission price
+        # with the table-lease walk
+        self.n_prefix_hits = 0
+        self.prefix_tokens_saved = 0
+        self.modeled_prefix_hit_cost_s = 0.0
+        # speculative decoding: one dispatch per live row per verify
+        # round; accepted counts the tokens each dispatch emitted
+        self.n_spec_dispatches = 0
+        self.spec_accepted_tokens = 0
+        self.spec_drafted_tokens = 0
+        self.spec_matched_tokens = 0
+        self.spec_modeled_cost_s = 0.0
 
     def reset(self) -> None:
         """Drop all queued/finished requests and zero the accounting (the
@@ -133,6 +153,7 @@ class CellQueueScheduler:
         self.n_deferred = 0
         self.n_block_deferrals = 0
         self.modeled_admit_cost_s = 0.0
+        self._zero_feature_counters()
 
     # -- classification ----------------------------------------------------
     def _price(self, nbytes: int, proto: str) -> float:
@@ -161,6 +182,31 @@ class CellQueueScheduler:
                      if req.protocol in EAGER_CLASS else 0)
         self.modeled_admit_cost_s += req.admit_cost_s
         return req.protocol
+
+    def reprice_prefix(self, req: ServeRequest, hit_tokens: int,
+                       cow_blocks: int = 0) -> float:
+        """Re-price an admission whose prompt prefix came from the radix
+        cache: the hit tokens cost a trie walk and a table-lease envelope
+        per block (and a block copy per CoW clone,
+        :func:`repro_torch.core.protocol.prefix_hit_latency`); only the
+        miss suffix still pays the chunked/paged deposit. Replaces
+        ``req.admit_cost_s``, patches ``modeled_admit_cost_s`` (the full
+        price was added at submit) and returns the new price."""
+        hit_bytes = int(hit_tokens) * self.itemsize
+        miss_bytes = max(0, req.nbytes - hit_bytes)
+        bb = self.block_bytes if self.block_bytes > 0 else self.cell_size
+        new_cost = protocol.prefix_hit_latency(
+            hit_bytes, bb, self.host_model, cow_blocks=cow_blocks)
+        if miss_bytes > 0:
+            new_cost += self._price(miss_bytes, req.protocol)
+        new_cost += self._state_cost_s
+        self.modeled_admit_cost_s += new_cost - req.admit_cost_s
+        self.modeled_prefix_hit_cost_s += new_cost
+        self.n_prefix_hits += 1
+        self.prefix_tokens_saved += int(hit_tokens)
+        req.admit_cost_s = new_cost
+        req.prefix_hit_tokens = int(hit_tokens)
+        return new_cost
 
     # -- submission --------------------------------------------------------
     def submit(self, req: ServeRequest, now: float = 0.0) -> str:
@@ -226,6 +272,33 @@ class CellQueueScheduler:
             free_slots -= 1
         return out
 
+    def record_spec_dispatch(self, accepted: int, drafted: int,
+                             matched: int, cost_s: float) -> None:
+        """Account one row's draft-verify round: ``accepted`` tokens it
+        emitted (matched draft prefix + the target's own token),
+        ``drafted`` tokens proposed, ``matched`` of them accepted, and
+        the round's protocol price
+        (:func:`repro_torch.core.protocol.speculative_verify_latency`)."""
+        self.n_spec_dispatches += 1
+        self.spec_accepted_tokens += int(accepted)
+        self.spec_drafted_tokens += int(drafted)
+        self.spec_matched_tokens += int(matched)
+        self.spec_modeled_cost_s += float(cost_s)
+
+    def spec_stats(self) -> Dict[str, float]:
+        """Speculative accounting rows; zeros when speculation is off."""
+        d = max(1, self.n_spec_dispatches)
+        return {
+            "spec_dispatches": float(self.n_spec_dispatches),
+            "spec_accepted_tokens": float(self.spec_accepted_tokens),
+            "spec_drafted_tokens": float(self.spec_drafted_tokens),
+            "accepted_per_dispatch": self.spec_accepted_tokens / d,
+            "acceptance_rate": (
+                self.spec_matched_tokens / self.spec_drafted_tokens
+                if self.spec_drafted_tokens else 0.0),
+            "spec_modeled_cost_us": 1e6 * self.spec_modeled_cost_s,
+        }
+
     # -- completion / stats ------------------------------------------------
     def record_finish(self, req: ServeRequest, now: float) -> None:
         req.finish_time = now
@@ -271,16 +344,27 @@ class TraceEntry:
     arrival: float
     max_new: int
     prompt_len: int = 0
+    # shared-prefix workloads: requests of one group open with the same
+    # ``prefix_len`` template tokens; -1 = an independent prompt
+    prefix_group: int = -1
+    prefix_len: int = 0
 
 
 def make_trace(n_requests: int, *, prompt_len, max_new, rate: float = 100.0,
-               arrival: str = "poisson", seed: int = 0) -> List[TraceEntry]:
+               arrival: str = "poisson", shared_prefix_len: int = 0,
+               share_ratio: float = 1.0, prefix_groups: int = 1,
+               seed: int = 0) -> List[TraceEntry]:
     """Arrival trace: ``arrival`` is ``"poisson"`` (exponential gaps at
     ``rate`` req/s) or ``"all"`` (everything at t=0). ``max_new`` is an
     int or an inclusive ``(lo, hi)`` range sampled per request.
     ``prompt_len`` is an int or a sequence cycled across requests — e.g.
-    ``(16, 256)``. The numpy draws follow the reference's order, so one
-    seed gives the reference's trace."""
+    ``(16, 256)``. ``shared_prefix_len > 0`` makes a shared-prefix trace:
+    each request joins one of ``prefix_groups`` template families with
+    probability ``share_ratio`` and opens with its first
+    ``min(shared_prefix_len, prompt_len)`` tokens (the tokens themselves
+    come from ``launch.serve.requests_from_trace``). The numpy draws
+    follow the reference's order, so one seed gives the reference's
+    trace."""
     rng = np.random.default_rng(seed)
     if arrival == "poisson":
         gaps = rng.exponential(1.0 / rate, size=n_requests)
@@ -297,6 +381,17 @@ def make_trace(n_requests: int, *, prompt_len, max_new, rate: float = 100.0,
         news = rng.integers(lo, hi + 1, size=n_requests)
     plens = ([int(prompt_len)] if isinstance(prompt_len, (int, np.integer))
              else [int(p) for p in prompt_len])
-    return [TraceEntry(arrival=float(times[i]), max_new=int(news[i]),
-                       prompt_len=plens[i % len(plens)])
-            for i in range(n_requests)]
+    out = [TraceEntry(arrival=float(times[i]), max_new=int(news[i]),
+                      prompt_len=plens[i % len(plens)])
+           for i in range(n_requests)]
+    if shared_prefix_len > 0:
+        if not 0.0 <= share_ratio <= 1.0:
+            raise ValueError(f"share_ratio {share_ratio} not in [0, 1]")
+        if prefix_groups < 1:
+            raise ValueError("need at least one prefix group")
+        for e in out:
+            # a 1-token prompt re-prefills its one token anyway: no group
+            if e.prompt_len > 1 and rng.random() < share_ratio:
+                e.prefix_group = int(rng.integers(prefix_groups))
+                e.prefix_len = min(int(shared_prefix_len), e.prompt_len)
+    return out

@@ -146,9 +146,23 @@ def test_prefill_matches_reference(models, S):
 
 
 def test_prefill_longer_than_cache_raises(models):
-    _, _, model, params = models
-    with pytest.raises(NotImplementedError, match="ring-buffer"):
-        model.prefill(params, torch.as_tensor(_tokens(1, 12, 0)), 8)
+    """A prompt longer than the cache no longer raises: it is a ring
+    buffer, the last ``cache_len`` entries kept at columns ``pos %
+    cache_len``, as the reference's prefill keeps them (its name is kept
+    from when this path raised; ``tests/test_torch_ring.py`` covers the
+    ring in full)."""
+    jmodel, jparams, model, params = models
+    tok = _tokens(1, 12, 0)
+    jl, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(tok)}, 8)
+    tl, tc = model.prefill(params, torch.as_tensor(tok), 8)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL,
+                               rtol=TOL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tc[name][:, :, :8].numpy(),
+                                   np.asarray(jc[name]), atol=TOL, rtol=TOL)
+    assert (tc["pos"][0, :8].numpy() == np.asarray(jc["pos"])[0]).all()
+    assert sorted(tc["pos"][0, :8].tolist()) == list(range(4, 12))
+    assert tc["pos"][0, 8] == -1
 
 
 def test_decode_step_matches_reference(models):
