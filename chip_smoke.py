@@ -150,13 +150,40 @@ Phases (any failure exits non-zero and prints no result):
    ``run_traffic(ring=True)`` on the slot engines in float32, where the
    static and monolithic slot arms must emit the same tokens. The
    phase's seconds are printed.
+10. The model families. (a) The attention kernels at the new shapes
+   against their plain versions, float32 and bfloat16, twice bit for
+   bit: ``paged_decode`` and ``paged_mq`` at hd 128 with (H, Hkv) =
+   (40, 8), (32, 4), (16, 16), (48, 8) (qwen3 / qwen2.5, yi, olmoe,
+   dbrx) at the serving runs' widths (8 decode rows, one parked,
+   17-entry tables; chunks of 2 x 64); flash causal at qwen3's static
+   batch (B=8, S=256) and internvl2's 256 patch + 128 text tokens, and
+   non-causal at whisper-tiny's encoder (B=2, 1500 x 1500, 6/6, hd 64)
+   and cross-attention (Sq = 1 and 64 against Sk = 1500: too few work
+   items to fill the card, so each splits its key stages across CTAs,
+   ``flash_ops.splits_for``); bf16 timed against the bound and SDPA. (b) qwen3-14b, olmoe-1b-7b and
+   whisper-tiny at full width and depth in bf16 from seed 0: paged
+   chunks and a decode step (whisper: the encoder pre-chunk, a decoder
+   chunk, a decode step) and a monolithic prefill, kernel path vs plain
+   path under phase 4's rule; qwen3's and olmoe's paged decode step
+   profiled. (c) ``run_traffic`` (every arm the family's capabilities
+   allow, 6 requests of 16/128 tokens) on the same three in bf16 (equal
+   shares printed) and float32 (every arm token-identical);
+   ``run_family_rows`` over all five families; ``run_serve`` on yi-9b
+   and qwen2.5-14b; internvl2-76b cut to 20 of 80 layers
+   (``run_traffic``: static and slot monolithic) and dbrx-132b to 8 of
+   40 (``run_serve``): neither fits one card whole. Every run's flash
+   launches are exactly what its forwards imply (an encoder-decoder's
+   encoder passes, static prefills, chunks and decode forwards), the
+   paged kernels launch wherever a run pages, and no plain version runs.
 
 The last lines are the kernel table (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
 import functools
+import gc
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -633,11 +660,12 @@ FLASH_CASES = [
 FLASH_TABLE_CASE = "path B=8 S=256"
 
 
-def flash_needs(B, H, Hkv, Sq, Sk, hd, window, q_offset, item):
+def flash_needs(B, H, Hkv, Sq, Sk, hd, window, q_offset, item,
+                causal=True):
     """Bytes (q, k, v read once, the output written once) and flops (q.k
     and p.v over the (query, key) pairs the masks leave) of one call."""
     qpos = q_offset + np.arange(Sq)
-    hi = np.minimum(qpos + 1, Sk)                        # causal
+    hi = np.minimum(qpos + 1, Sk) if causal else np.full(Sq, Sk)
     lo = np.maximum(qpos - window + 1, 0) if window > 0 else 0
     pairs = int(np.maximum(hi - lo, 0).sum())
     nbytes = item * hd * (2 * B * H * Sq + 2 * B * Hkv * Sk)
@@ -2260,6 +2288,627 @@ def phase_families(dev):
 # ---------------------------------------------------------------------------
 # phase 9: speculative decoding, prefix caching, ring-buffer caches
 # ---------------------------------------------------------------------------
+# phase 10: the model families — dense (qwen3, yi, qwen2.5), the patch_stub
+# VLM (internvl2), MoE (olmoe, dbrx), encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+
+#: the paged kernels at hd 128, (label, H, Hkv): qwen3-14b and qwen2.5-14b
+#: (GQA 40/8), yi-9b (32/4), olmoe-1b-7b (MHA 16/16), dbrx-132b (48/8)
+FAMILY_PAGED_HEADS = (("qwen3", 40, 8), ("yi", 32, 4), ("olmoe", 16, 16),
+                      ("dbrx", 48, 8))
+#: the flash kernel at the families' shapes, (label, B, H, Hkv, Sq, Sk,
+#: hd, causal): a static batch of qwen3 (B=8, S=256) and of internvl2
+#: (256 patch tokens + 128 text), whisper-tiny's encoder (non-causal, Sq =
+#: Sk = 1500: 46 full 32-key stages and a tail of 28) and its
+#: cross-attention at a decode step (Sq = 1, 8 rows) and at a chunk (Sq =
+#: 64, 2 rows) against the 1500 encoder positions
+FAMILY_FLASH_CASES = [
+    ("qwen3 static B=8 S=256", 8, 40, 8, 256, 256, 128, True),
+    ("internvl2 B=2 S=256+128", 2, 64, 8, 384, 384, 128, True),
+    ("whisper encoder B=2", 2, 6, 6, 1500, 1500, 64, False),
+    ("whisper cross Sq=1 B=8", 8, 6, 6, 1, 1500, 64, False),
+    ("whisper cross Sq=64 B=2", 2, 6, 6, 64, 1500, 64, False),
+]
+#: phase 10's run_traffic trace (every arm): short and long prompts,
+#: 6 requests over 4 slots
+FAMILY_TRAFFIC = dict(requests=6, slots=4, prompt_len=(16, 128),
+                      max_new=(4, 12), rate=50.0, engine="both",
+                      prefill_chunk=64, max_prefill_per_step=2,
+                      block_size=16, seed=0)
+#: the identity flags of a run_traffic result, by the arms they compare
+IDENTITY_FLAGS = ("static_token_identical_trace",
+                  "monolithic_token_identical_trace",
+                  "paged_token_identical_trace", "parity_token_identical",
+                  "parity_token_identical_paged")
+#: depth cuts: the whole model does not fit one 80 GB card (bf16 weights:
+#: internvl2-76b ~1.7 GB a layer, dbrx-132b ~6.5 GB a layer)
+DEPTH_CUTS = {"internvl2-76b": 20, "dbrx-132b": 8}
+
+
+def family_paged_kernels(dev, timer, table):
+    """10(a), paged: both kernels at hd 128 and each family's heads, at the
+    serving runs' widths (8 decode rows, one parked, 17-entry tables:
+    cache_len 272 / bs 16; chunks of 2 rows x 64 at pos0 0 and 192),
+    against the plain version, twice bit for bit; bf16 timed."""
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, H, Hkv in FAMILY_PAGED_HEADS:
+            for kernel, kw_case in (
+                    ("paged_decode", dict(B=8, K=0, NB=17, parked=(2,),
+                                          lengths=[17, 40, 100, 129, 140,
+                                                   200, 250, 271])),
+                    ("paged_mq", dict(B=2, K=64, NB=17,
+                                      lengths=[64, 256]))):
+                label = f"{tag} hd128 " + ("decode" if kernel ==
+                                           "paged_decode" else "chunk")
+                case = make_case(dev, dtype, H=H, Hkv=Hkv, hd=128, bs=16,
+                                 seed=H + Hkv + kw_case["K"], **kw_case)
+                args = [case[k] for k in ("q", "k_pages", "v_pages",
+                                          "block_tables", "lengths")]
+                key = {"paged_decode": "decode_launches",
+                       "paged_mq": "mq_launches"}[kernel]
+                before = ops.counters()[key]
+                out = ops.paged_attention(*args)
+                again = ops.paged_attention(*args)
+                require(ops.counters()[key] == before + 2,
+                        f"{label}: {kernel} was not launched")
+                ref = paged_attention_ref(*args)
+                torch.cuda.synchronize()
+                live = case["live"]
+                require(bool(torch.isfinite(out[live].float()).all()),
+                        f"{kernel} {label} {dtype}: non-finite output")
+                require(torch.equal(out, again),
+                        f"{kernel} {label} {dtype}: two launches differ")
+                err = (out[live].float() - ref[live].float()).abs()
+                tol = TOL[dtype]
+                bad = err > tol + tol * ref[live].float().abs()
+                max_err = float(err.max())
+                print(f"check {kernel:12s} {label:20s} {str(dtype):14s} "
+                      f"max_abs_err={max_err:.3e} tol={tol:g} "
+                      f"{'ok' if not bad.any() else 'MISMATCH'}, "
+                      "deterministic", flush=True)
+                require(not bool(bad.any()),
+                        f"{kernel} {label} {dtype}: disagrees with ref.py")
+                row = table[kernel]
+                row["max_abs_err"] = max(row["max_abs_err"], max_err)
+                if dtype != torch.bfloat16:
+                    continue
+                nbytes, flops = needs(case)
+                t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+                t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+                lib = library_call(case)
+                t = dict(shape=label, dtype="bfloat16",
+                         ms=timer.ms(lambda: ops.paged_attention(*args)),
+                         plain_ms=timer.ms(
+                             lambda: paged_attention_ref(*args)),
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations",
+                         bound_bytes=nbytes, bound_flops=flops,
+                         library_ms=timer.ms(lib))
+                t["bound_share"] = t["bound_ms"] / t["ms"]
+                row.setdefault("family_times", []).append(t)
+                print(f"time  {kernel:12s} {label:20s} bf16 "
+                      f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+                      f"library_ms={t['library_ms']:.4f} "
+                      f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}: "
+                      f"{nbytes} bytes, {flops} flops), bound share "
+                      f"{t['bound_share']:.4f}", flush=True)
+
+
+def family_flash_kernel(dev, timer, row):
+    """10(a), flash: causal at hd 128 (qwen3, internvl2) and non-causal at
+    whisper's encoder and cross-attention, against the plain version,
+    twice bit for bit; bf16 timed beside SDPA on the same data."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, B, H, Hkv, Sq, Sk, hd, causal in FAMILY_FLASH_CASES:
+            g = torch.Generator().manual_seed(Sq + Sk + B + H)
+            q = torch.randn(B, Sq, H, hd, generator=g).to(dev, dtype)
+            k = torch.randn(B, Sk, Hkv, hd, generator=g).to(dev, dtype)
+            v = torch.randn(B, Sk, Hkv, hd, generator=g).to(dev, dtype)
+            before = flash_ops.flash_launches
+            out = flash_ops.flash_attention(q, k, v, causal=causal)
+            again = flash_ops.flash_attention(q, k, v, causal=causal)
+            require(flash_ops.flash_launches == before + 2,
+                    f"flash {label}: the kernel was not launched")
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            ref = flash_attention_ref(qt, kt, vt,
+                                      causal=causal).transpose(1, 2)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(out.float()).all()),
+                    f"flash {label} {dtype}: non-finite output")
+            err = (out.float() - ref.float()).abs()
+            tol = FLASH_TOL[dtype]
+            bad = err > tol + tol * ref.float().abs()
+            max_err = float(err.max())
+            same = torch.equal(out, again)
+            print(f"check flash_attention {label:24s} {str(dtype):14s} "
+                  f"causal={causal} max_abs_err={max_err:.3e} tol={tol:g} "
+                  f"{'ok' if not bad.any() else 'MISMATCH'}, two launches "
+                  f"bitwise {same}", flush=True)
+            require(not bool(bad.any()),
+                    f"flash {label} {dtype}: disagrees with ref.py")
+            require(same, f"flash {label} {dtype}: two launches differ")
+            row["max_abs_err"] = max(row["max_abs_err"], max_err)
+            if dtype != torch.bfloat16:
+                continue
+            nbytes, flops = flash_needs(B, H, Hkv, Sq, Sk, hd, 0, 0,
+                                        q.element_size(), causal)
+            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+            t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+            rep = H // Hkv
+            qs = qt.contiguous()
+            ks = kt.repeat_interleave(rep, dim=1).contiguous()
+            vs = vt.repeat_interleave(rep, dim=1).contiguous()
+            splits = flash_ops.splits_for(B, H, Hkv, Sq, Sk, causal=causal,
+                                          q_offset=0,
+                                          sms=flash_ops.sm_count(dev))
+            t = dict(shape=label, dtype="bfloat16", causal=causal,
+                     splits=splits,
+                     ms=timer.ms(lambda: flash_ops.flash_attention(
+                         q, k, v, causal=causal)),
+                     plain_ms=timer.ms(lambda: flash_attention_ref(
+                         qt, kt, vt, causal=causal)),
+                     bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bound_bytes=nbytes, bound_flops=flops,
+                     library_ms=timer.ms(
+                         lambda: F.scaled_dot_product_attention(
+                             qs, ks, vs, is_causal=causal)))
+            t["bound_share"] = t["bound_ms"] / t["ms"]
+            row.setdefault("family_times", []).append(t)
+            print(f"time  flash_attention {label:24s} bf16 "
+                  f"splits={splits} "
+                  f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+                  f"library_ms={t['library_ms']:.4f} "
+                  f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}: "
+                  f"{nbytes} bytes, {flops} flops), bound share "
+                  f"{t['bound_share']:.4f}", flush=True)
+
+
+def free_cuda():
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def build_family(arch, dev, dtype="bfloat16", layers=None):
+    """``arch`` at its published widths (``layers``: a depth cut), weights
+    from seed 0, and its size."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.launch.serve import arch_config
+    from repro_torch.models.registry import build_model
+
+    cfg = arch_config(arch, layers=layers)
+    t0 = time.perf_counter()
+    model = build_model(cfg, ServeConfig(param_dtype=dtype,
+                                         compute_dtype=dtype), device=dev)
+    params = model.init(0)
+    torch.cuda.synchronize()
+    print(f"model {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}x{cfg.head_dim} heads (kv "
+          f"{cfg.num_kv_heads}), d_ff {cfg.d_ff}"
+          + (f", {cfg.num_experts} experts top-{cfg.top_k}"
+             if cfg.num_experts else "")
+          + f", vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.3f} B "
+          f"params, {dtype}, built in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated(dev)} bytes allocated", flush=True)
+    return model, params
+
+
+def rounded_p(s, v, out_dtype):
+    """Softmax of masked scores ``s`` (..., T) float32 against ``v``
+    (..., T, hd) float32, with p rounded to ``out_dtype`` before p.v and
+    l summed over the unrounded p: the kernels' one rounding, in the plain
+    arithmetic."""
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    den = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    return torch.matmul(p.to(out_dtype).float(), v) / den
+
+
+def floor_paged(q, k_pages, v_pages, block_tables, lengths, *, window=0,
+                softcap=0.0):
+    """The noise-floor path of the paged attention: the plain version
+    with p rounded before p.v (:func:`rounded_p`)."""
+    multi = q.dim() == 4
+    q4 = q if multi else q[:, None]
+    B, K, H, hd = q4.shape
+    _, bs, Hkv, _ = k_pages.shape
+    tables = block_tables.long()
+    NB = tables.shape[1]
+    flat = tables.clamp(min=0).reshape(-1)
+    kg = k_pages[flat].reshape(B, NB * bs, Hkv, hd).float()
+    vg = v_pages[flat].reshape(B, NB * bs, Hkv, hd).float()
+    kg = kg.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+    vg = vg.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+    s = torch.matmul(q4.float().transpose(1, 2), kg.transpose(-1, -2))
+    s = s / math.sqrt(hd)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    dev = q.device
+    tok = torch.arange(NB * bs, device=dev)[None, None, :]
+    qpos = (lengths.long()[:, None] - K
+            + torch.arange(K, device=dev)[None, :])[:, :, None]
+    ok = (tok <= qpos) & tables.ge(0).repeat_interleave(bs, 1)[:, None, :]
+    if window > 0:
+        ok = ok & (tok > qpos - window)
+    s = torch.where(ok[:, None], s, torch.full_like(s, -1e30))
+    out = rounded_p(s, vg, q.dtype).transpose(1, 2).to(q.dtype)
+    return out if multi else out[:, 0]
+
+
+def floor_flash(q, k, v, *, causal=True, window=0, q_offset=0):
+    """The noise-floor path of flash attention, in the models' (B, S, H,
+    hd) layout: the plain version with p rounded before p.v."""
+    B, Sq, H, hd = q.shape
+    Hkv, Sk = k.shape[2], k.shape[1]
+    kf = k.float().repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+    s = torch.matmul(q.float().transpose(1, 2), kf.transpose(-1, -2))
+    s = s / math.sqrt(hd)
+    dev = q.device
+    qp = q_offset + torch.arange(Sq, device=dev)[:, None]
+    kp = torch.arange(Sk, device=dev)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        ok = ok & (kp <= qp)
+    if window > 0:
+        ok = ok & (kp > qp - window)
+    s = torch.where(ok, s, torch.full_like(s, -1e30))
+    return rounded_p(s, vf, q.dtype).transpose(1, 2).to(q.dtype)
+
+
+def held(label, fn, cache, plain, floor, cfg, bf16):
+    """``fn(cache, **overrides)`` -> logits, through the kernels (on
+    ``cache``) and through the plain versions (on a copy taken before).
+    float32: within MODEL_F32_REL_TOL. bfloat16: within the larger of
+    MODEL_REL_TOL and NOISE_FLOOR_FACTOR x the step's noise floor (the
+    same step through the plain versions with p rounded before p.v, the
+    kernels' one rounding) — a MoE model's routing turns a bf16 ulp into
+    a different expert, so its floor sits far above a dense model's."""
+    def clone(c):
+        return None if c is None else {k: v.clone() for k, v in c.items()}
+
+    copies = [clone(cache), clone(cache) if bf16 else None]
+    out = fn(cache)
+    ref = fn(copies[0], **plain)
+    if not bf16:
+        return out, compare(label, out, ref, cfg, tol=MODEL_F32_REL_TOL)
+    fl = fn(copies[1], **floor)
+    f = rel_diff(fl, ref, cfg)
+    return out, compare(label, out, ref, cfg,
+                        tol=max(MODEL_REL_TOL, NOISE_FLOOR_FACTOR * f),
+                        floor=f, floor_agree=argmax_agree(fl, ref, cfg))
+
+
+def decoder_only_checks(model, params, dev, label):
+    """10(b) for a decoder-only config: three paged chunks of 4 rows x 64
+    (the last partial), then a decode step, each through the kernels vs
+    the plain attention (:func:`held`); a monolithic prefill (B=4, S=256)
+    through the flash kernel vs its plain version; in bfloat16 the decode
+    step timed and profiled."""
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    cfg = model.cfg
+    bf16 = model.dtype == torch.bfloat16
+    tag = f"{label} {str(model.dtype).split('.')[-1]}"
+    B, C, bs, NB = 4, 64, 16, 16
+    rng = np.random.default_rng(0)
+    tables = torch.from_numpy(
+        rng.permutation(B * NB).astype(np.int32).reshape(B, NB)).to(dev)
+    pool = model.init_paged_cache(B * NB, bs)
+    prompts = rng.integers(0, cfg.vocab_size, size=(B, 3 * C))
+    n_last = np.array([C, C, C, 40])
+    plain = {"attention": paged_attention_ref}
+    floor = {"attention": floor_paged}
+
+    def chunk(pool, off, n_valid, **kw):
+        tok = np.zeros((B, C), np.int64)
+        for b in range(B):
+            tok[b, :n_valid[b]] = prompts[b, off:off + n_valid[b]]
+        return model.prefill_chunk_paged(
+            params, pool, torch.from_numpy(tok).to(dev), tables,
+            torch.arange(B), torch.full((B,), off, device=dev),
+            torch.from_numpy(n_valid).to(dev), **kw)
+
+    for off in (0, C):
+        chunk(pool, off, np.full(B, C))
+    res = {}
+    logits, res["chunk"] = held(
+        f"{tag} prefill chunk (pos0=128)",
+        lambda c, **kw: chunk(c, 2 * C, n_last, **kw), pool, plain, floor,
+        cfg, bf16)
+    tokens = logits.argmax(-1, keepdim=True)
+    positions = torch.from_numpy(2 * C + n_last).to(dev)
+
+    def decode(c, **kw):
+        return model.decode_step_paged(params, c, tokens, positions, tables,
+                                       **kw)
+
+    _, res["decode"] = held(f"{tag} decode step (pos 192/168)", decode,
+                            pool, plain, floor, cfg, bf16)
+    if bf16:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        for _ in range(2):
+            ev[0].record()
+            decode(pool)
+            ev[1].record()
+        torch.cuda.synchronize()
+        res["decode_step_ms"] = ev[0].elapsed_time(ev[1])
+        res["decode_profile"] = profile_step(
+            f"{label} paged decode (B=4)", lambda: decode(pool),
+            res["decode_step_ms"])
+    del pool
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        size=(4, 256))).to(dev)
+    _, res["prefill"] = held(
+        f"{tag} monolithic prefill (B=4, S=256)",
+        lambda c, **kw: model.prefill(params, tok, 272, **kw)[0], None,
+        {"attention": plain_flash}, {"attention": floor_flash}, cfg, bf16)
+    return res
+
+
+def whisper_checks(model, params, dev):
+    """10(b) for whisper-tiny: the static prefill (B=4, 64 prompt tokens,
+    1500 frames) through the flash kernel (encoder and cross-attention
+    non-causal, decoder causal) vs its plain version; then on a paged pool
+    of 4 rows: the encoder pre-chunk, a decoder chunk (the last row
+    partial) and a decode step, kernels vs plain versions
+    (:func:`held`)."""
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.launch.serve import frontend_arrays
+
+    cfg = model.cfg
+    bf16 = model.dtype == torch.bfloat16
+    tag = f"whisper-tiny {str(model.dtype).split('.')[-1]}"
+    B, C, bs, NB = 4, 64, 16, 8
+    rng = np.random.default_rng(2)
+    frames = torch.from_numpy(frontend_arrays(cfg, B, 2)["frames"]).to(dev)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        size=(B, C))).to(dev)
+    res = {}
+    _, res["prefill"] = held(
+        f"{tag} static prefill (B=4, S=64)",
+        lambda c, **kw: model.prefill(params, tok, 2 * C, frames=frames,
+                                      **kw)[0], None,
+        {"attention": plain_flash}, {"attention": floor_flash}, cfg, bf16)
+    tables = torch.from_numpy(
+        rng.permutation(B * NB).astype(np.int32).reshape(B, NB)).to(dev)
+    pool = model.init_paged_cache(B * NB, bs, num_rows=B)
+    n_valid = torch.tensor([C, C, C, 40], device=dev)
+    args = (tok, tables, torch.arange(B), torch.zeros(B, dtype=torch.long,
+                                                      device=dev), n_valid)
+    plain = dict(attention=paged_attention_ref, cross_attention=plain_flash)
+    floor = dict(attention=floor_paged, cross_attention=floor_flash)
+
+    def prechunk_and_chunk(c, attention=None, cross_attention=None):
+        kw = {} if attention is None else dict(
+            attention=attention, cross_attention=cross_attention)
+        model.encode_prechunk(params, c, frames, list(range(B)),
+                              **({} if cross_attention is None else
+                                 {"attention": cross_attention}))
+        return model.prefill_chunk_paged(params, c, *args, **kw)
+
+    out, res["chunk"] = held(f"{tag} pre-chunk + decoder chunk",
+                             prechunk_and_chunk, pool, plain, floor, cfg,
+                             bf16)
+    nxt = out.argmax(-1, keepdim=True)
+    positions = n_valid.clone()
+    _, res["decode"] = held(
+        f"{tag} paged decode step",
+        lambda c, **kw: model.decode_step_paged(params, c, nxt, positions,
+                                                tables, **kw),
+        pool, plain, floor, cfg, bf16)
+    return res
+
+
+def family_launch_check(counts, cfg, label):
+    """Every attention call of a run on the card was a kernel launch:
+    the flash kernel exactly as often as the run's forwards imply, the
+    paged kernels where the run paged, no plain version."""
+    L = cfg.num_layers
+    if cfg.is_encoder_decoder:
+        want = (cfg.num_encoder_layers * counts["encode_calls"]
+                + L * (2 * counts["prefill_calls"] + counts["chunk_calls"]
+                       + counts["cross_decode_calls"]))
+        what = (f"{counts['encode_calls']} encoder passes x "
+                f"{cfg.num_encoder_layers} layers + ({counts['prefill_calls']}"
+                f" static prefills x 2 + {counts['chunk_calls']} chunks + "
+                f"{counts['cross_decode_calls']} decode forwards) x {L} "
+                "layers")
+    elif cfg.uses_attention:
+        want = L * counts["prefill_calls"]
+        what = f"{counts['prefill_calls']} prefills x {L} layers"
+    else:
+        want, what = 0, "an attention-free model"
+    require(counts["flash_launches"] == want,
+            f"{label}: flash launched {counts['flash_launches']} times for "
+            + what)
+    if counts["chunk_calls"] and cfg.uses_attention:
+        require(counts["mq_launches"] > 0 and counts["decode_launches"] > 0,
+                f"{label}: a paged-attention kernel never launched")
+    require(counts["ref_calls"] == counts["flash_ref_calls"]
+            == counts["ssd_ref_calls"] == 0,
+            f"{label}: a plain version ran on the card")
+    if cfg.block in ("ssm", "hybrid"):
+        require(counts["ssd_launches"] == L * (counts["chunk_calls"]
+                                               + counts["prefill_calls"]),
+                f"{label}: ssd_scan launches {counts['ssd_launches']}")
+
+
+def family_traffic(arch, dtype, params=None, layers=None, **kw):
+    """run_traffic on ``arch`` (every arm its capabilities allow), its
+    launches checked; float32 runs must be token-identical across arms,
+    bfloat16 ones print their equal-token shares."""
+    from repro_torch.launch import serve as launch
+
+    free_cuda()
+    t0 = time.perf_counter()
+    args = dict(FAMILY_TRAFFIC, **kw)
+    res = launch.run_traffic(arch, smoke=False, device="cuda", dtype=dtype,
+                             params=params, layers=layers, **args)
+    cfg = launch.arch_config(arch, layers=layers)
+    counts = res["kernels"]
+    family_launch_check(counts, cfg, f"{arch} {dtype} run_traffic")
+    n = float(args["requests"])
+    arms = [a for a in ("static", "continuous", "continuous_monolithic",
+                        "continuous_paged") if a in res]
+    for arm in arms:
+        stats = res[arm]
+        require(stats.get("n") == n, f"{arch} {arm}: {stats.get('n')} of "
+                f"{n} requests finished")
+        outs = res["outputs_by_arm"][arm]
+        require(all(len(t) > 0 and all(0 <= x < cfg.vocab_size for x in t)
+                    for t in outs),
+                f"{arch} {arm}: a request produced no token or one out of "
+                "vocab")
+    flags = {k: res[k] for k in IDENTITY_FLAGS if k in res}
+    shares = {k: res[k] for k in res if k.endswith("equal_token_share")}
+    if dtype == "float32":
+        require(all(flags.values()),
+                f"{arch} float32: arms part: {json.dumps(flags)}")
+    secs = time.perf_counter() - t0
+    out = {"arms": arms, "flags": flags, "shares": shares, "kernels": counts,
+           "max_memory_allocated": res.get("max_memory_allocated"),
+           "seconds": secs, "layers": cfg.num_layers,
+           "tok_s": {a: res[a]["tok_s"] for a in arms},
+           "ttft_p95_ms": {a: 1e3 * res[a]["ttft_p95_s"] for a in arms
+                           if "ttft_p95_s" in res[a]}}
+    print(f"traffic {arch} {dtype} ({cfg.num_layers} layers): arms "
+          f"{arms}, tok/s {json.dumps(out['tok_s'])}, flags "
+          f"{json.dumps(flags)}, shares {json.dumps(shares)}, "
+          f"max_memory_allocated {out['max_memory_allocated']} bytes, "
+          f"{secs:.1f} s", flush=True)
+    print(f"traffic {arch} {dtype} kernels: " + json.dumps(counts),
+          flush=True)
+    return out
+
+
+def family_serve(arch, layers=None, **kw):
+    """run_serve (the paged engine) on ``arch``, launches checked."""
+    from repro_torch.launch import serve as launch
+
+    free_cuda()
+    t0 = time.perf_counter()
+    args = dict(requests=8, slots=8, prompt_len=(16, 256), max_new=(4, 16),
+                rate=50.0, prefill_chunk=64, max_prefill_per_step=2,
+                block_size=16, seed=0)
+    args.update(kw)
+    res = launch.run_serve(arch, device="cuda", layers=layers, **args)
+    cfg = launch.arch_config(arch, layers=layers)
+    stats = res["continuous"]
+    require(stats.get("n") == float(args["requests"]),
+            f"{arch} run_serve: served {stats.get('n')}")
+    for rid, toks in enumerate(res["outputs"]):
+        require(len(toks) > 0 and all(0 <= t < cfg.vocab_size
+                                      for t in toks),
+                f"{arch} request {rid}: no token or out of vocab")
+    family_launch_check(res["kernels"], cfg, f"{arch} run_serve")
+    secs = time.perf_counter() - t0
+    out = {"layers": cfg.num_layers, "tok_s": res["continuous_tok_s"],
+           "ttft_p50_ms": res["ttft_p50_ms"],
+           "ttft_p95_ms": res["ttft_p95_ms"],
+           "max_memory_allocated": res.get("max_memory_allocated"),
+           "kernels": res["kernels"], "seconds": secs}
+    print(f"serve {arch} ({cfg.num_layers} layers): "
+          f"{args['requests']} requests, {stats['useful_tokens']:.0f} tokens "
+          f"in {stats['makespan_s']:.3f} s: {out['tok_s']:.2f} tok/s, TTFT "
+          f"p50 {out['ttft_p50_ms']:.2f} ms p95 {out['ttft_p95_ms']:.2f} ms, "
+          f"max_memory_allocated {out['max_memory_allocated']} bytes, "
+          f"{secs:.1f} s", flush=True)
+    print(f"serve {arch} kernels: " + json.dumps(res["kernels"]),
+          flush=True)
+    return out
+
+
+def family_rows():
+    """run_family_rows over the five families (dense, MoE, SSM, hybrid,
+    enc-dec) at full width in bfloat16: no row skipped, every request
+    served, launches checked."""
+    from repro_torch.launch import serve as launch
+
+    free_cuda()
+    rows = launch.run_family_rows(smoke=False, device="cuda", requests=6,
+                                  slots=4, prompt_len=256, max_new=8,
+                                  prefill_chunk=128, block_size=16, seed=0)
+    out = {}
+    require([r["family"] for r in rows] == list(launch.FAMILY_ARCHS),
+            "run_family_rows: the rows are not the five families")
+    for arch, row in zip(launch.FAMILY_ARCHS, rows):
+        require("skipped" not in row, f"{arch} family row: skipped")
+        require(row["n"] == 6.0, f"{arch} family row: {row['n']} of 6")
+        family_launch_check(row["kernels"], launch.arch_config(arch),
+                            f"{arch} family row")
+        out[arch] = {k: row[k] for k in (
+            "continuous_tok_s", "ttft_p50_s", "ttft_p95_s", "prefill_chunk",
+            "state_bytes_per_slot", "static_tok_identical",
+            "static_equal_token_share")}
+        out[arch]["kernels"] = row["kernels"]
+        print(f"family row {arch}: {row['continuous_tok_s']:.2f} tok/s, "
+              f"chunk {row['prefill_chunk']}, state_bytes_per_slot "
+              f"{row['state_bytes_per_slot']}, static_tok_identical "
+              f"{row['static_tok_identical']} (equal share "
+              f"{row['static_equal_token_share']:.4f}); kernels "
+              + json.dumps(row["kernels"]), flush=True)
+    return out
+
+
+def phase_model_families(dev):
+    """Phase 10: (a) the attention kernels at the families' shapes, (b)
+    qwen3-14b, olmoe-1b-7b and whisper-tiny at full width, kernel path vs
+    plain path, (c) serving every remaining config. Returns the kernel
+    rows' additions and the phase's record."""
+    t_phase = time.perf_counter()
+    timer = Timer(dev)
+    table = {k: {"max_abs_err": 0.0} for k in ("paged_decode", "paged_mq",
+                                               "flash_attention")}
+    family_paged_kernels(dev, timer, table)
+    family_flash_kernel(dev, timer, table["flash_attention"])
+    del timer
+    record = {"models": {}, "traffic": {}, "serve": {}}
+    for arch in ("qwen3-14b", "olmoe-1b-7b", "whisper-tiny"):
+        for dtype in ("bfloat16", "float32"):
+            free_cuda()
+            model, params = build_family(arch, dev, dtype)
+            key = f"{arch} {dtype}"
+            if arch == "whisper-tiny":
+                record["models"][key] = whisper_checks(model, params, dev)
+            else:
+                record["models"][key] = decoder_only_checks(model, params,
+                                                            dev, arch)
+            del model
+            record["traffic"][key] = family_traffic(arch, dtype,
+                                                    params=params)
+            del params
+    record["family_rows"] = family_rows()
+    for arch in ("yi-9b", "qwen2.5-14b"):
+        record["serve"][arch] = family_serve(arch)
+    record["traffic"]["internvl2-76b bfloat16"] = family_traffic(
+        "internvl2-76b", "bfloat16", layers=DEPTH_CUTS["internvl2-76b"],
+        requests=4, slots=2, prompt_len=(16, 64), max_new=(4, 8))
+    record["serve"]["dbrx-132b"] = family_serve(
+        "dbrx-132b", layers=DEPTH_CUTS["dbrx-132b"], requests=6, slots=4,
+        prompt_len=(16, 128), max_new=(4, 12))
+    free_cuda()
+    runs = [r["kernels"] for r in record["traffic"].values()]
+    runs += [r["kernels"] for r in record["serve"].values()]
+    runs += [r["kernels"] for r in record["family_rows"].values()]
+    for name, key in (("paged_decode", "decode_launches"),
+                      ("paged_mq", "mq_launches"),
+                      ("flash_attention", "flash_launches")):
+        table[name]["launches_families"] = sum(c[key] for c in runs)
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"model families: {record['seconds']:.1f} s", flush=True)
+    print("model families: " + json.dumps(record), flush=True)
+    return table, record
+
+
+# ---------------------------------------------------------------------------
 
 #: (tag, H, Hkv, hd, window, NB, positions): gemma-2b's and hymba-1.5b's
 #: heads at the verify (K = k + 1 = 4) and resync (K = 2) shapes; row 2
@@ -2743,6 +3392,8 @@ def main() -> None:
     table["ssd_scan"], family_launches = phase_families(dev)
     torch.cuda.empty_cache()
     verify_err, verify_times, spec_runs, ring = phase_spec_prefix_ring(dev)
+    torch.cuda.empty_cache()
+    family_table, _ = phase_model_families(dev)
 
     # launches: the --engine both run, which drives all three kernels;
     # the paged serve phase's own counts stand beside them
@@ -2773,6 +3424,12 @@ def main() -> None:
         ring["run_traffic"]["kernels"]["flash_launches"]
     table["ssd_scan"]["launches_ring"] = \
         ring["run_traffic"]["kernels"]["ssd_launches"]
+    # phase 10: the families' shapes (hd 128, non-causal flash) and the
+    # launches of their runs
+    for name, add in family_table.items():
+        table[name]["max_abs_err"] = max(table[name]["max_abs_err"],
+                                         add.pop("max_abs_err"))
+        table[name].update(add)
     print("model: " + json.dumps(model), flush=True)
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)

@@ -13,15 +13,11 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.config import (BLOCK_DENSE, BLOCK_HYBRID, BLOCK_SSM,
-                                ModelConfig)
+from repro_torch.config import ModelConfig
 
-#: the SSM leaves of a block (``models/mamba.py:init_ssm``)
-_SSM_LEAVES = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
-               "gate_norm", "out_proj")
 #: leaves the port keeps in float32 whatever the parameter dtype, as the
-#: reference does
-_F32_LEAVES = ("A_log", "D", "dt_bias")
+#: reference does (the SSM's decay, skip and step bias; the MoE router)
+_F32_LEAVES = ("A_log", "D", "dt_bias", "router")
 
 
 def _t(a, device, dtype) -> torch.Tensor:
@@ -30,49 +26,52 @@ def _t(a, device, dtype) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+def _layer(tree, i, device, dtype):
+    """Layer ``i`` of a stacked (L, ...) subtree: the same nesting, each
+    leaf's slice ``[i]`` as a tensor (float32 leaves stay float32)."""
+    if isinstance(tree, dict):
+        return {k: (_layer(v, i, device, torch.float32)
+                    if k in _F32_LEAVES else _layer(v, i, device, dtype))
+                for k, v in tree.items()}
+    return _t(tree[i], device, dtype)
+
+
+def _leaves(tree, device, dtype):
+    """An unstacked subtree (a norm's ``w``/``b``) as tensors."""
+    if isinstance(tree, dict):
+        return {k: _leaves(v, device, dtype) for k, v in tree.items()}
+    return _t(tree, device, dtype)
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *,
                       device="cpu", dtype=torch.float32) -> Dict[str, Any]:
     """The reference's parameter pytree (numpy leaves) -> the port's, for
-    the dense, SSM and hybrid families.
+    every family.
 
-    In the reference tree ``embed`` is ``(Vp, d)``, ``final_norm.w`` a norm
-    weight, and ``blocks.*`` is stacked on a leading ``L`` axis:
-    ``ln1.w``; with attention ``attn.{wq (d,H,hd), wk/wv (d,Hkv,hd), wo
-    (H,hd,d)}``; with an SSM ``ssm.{in_proj, conv_w, conv_b, A_log, D,
-    dt_bias, gate_norm, out_proj}`` (``A_log``, ``D`` and ``dt_bias``
-    float32); the hybrid block's ``attn_out_norm`` and ``ssm_out_norm``
-    (bare ``(d,)`` weights); and for the dense and hybrid blocks ``ln2.w``
-    and ``mlp.{w_gate, w_up (d,f), w_down (f,d)}``. The port keeps the
-    same leaves and layouts, with ``blocks`` a list of per-layer dicts."""
-    if cfg.block not in (BLOCK_DENSE, BLOCK_SSM, BLOCK_HYBRID):
-        raise NotImplementedError(f"block family {cfg.block!r} is not "
-                                  "ported")
-    blocks = tree["blocks"]
-    out: Dict[str, Any] = {
-        "embed": _t(tree["embed"], device, dtype),
-        "final_norm": {"w": _t(tree["final_norm"]["w"], device, dtype)},
-        "blocks": [],
-    }
-    for i in range(cfg.num_layers):
-        blk: Dict[str, Any] = {
-            "ln1": {"w": _t(blocks["ln1"]["w"][i], device, dtype)}}
-        if "attn" in blocks:
-            blk["attn"] = {k: _t(blocks["attn"][k][i], device, dtype)
-                           for k in ("wq", "wk", "wv", "wo")}
-        if "ssm" in blocks:
-            blk["ssm"] = {k: _t(blocks["ssm"][k][i], device,
-                                torch.float32 if k in _F32_LEAVES else dtype)
-                          for k in _SSM_LEAVES}
-        for k in ("attn_out_norm", "ssm_out_norm"):
-            if k in blocks:
-                blk[k] = _t(blocks[k][i], device, dtype)
-        if "mlp" in blocks:
-            blk["ln2"] = {"w": _t(blocks["ln2"]["w"][i], device, dtype)}
-            blk["mlp"] = {k: _t(blocks["mlp"][k][i], device, dtype)
-                          for k in ("w_gate", "w_up", "w_down")}
-        out["blocks"].append(blk)
-    if "lm_head" in tree:
-        out["lm_head"] = _t(tree["lm_head"], device, dtype)
+    Decoder-only: ``embed`` ``(Vp, d)``, ``final_norm`` (``w``, and ``b``
+    for a LayerNorm), optional ``lm_head`` ``(d, Vp)``, and ``blocks.*``
+    stacked on a leading ``L`` axis: ``ln1``; with attention
+    ``attn.{wq (d,H,hd), wk/wv (d,Hkv,hd), wo (H,hd,d)}`` plus ``bq (H,hd)``,
+    ``bk``/``bv (Hkv,hd)`` with ``qkv_bias`` and ``q_norm``/``k_norm
+    (hd,)`` with ``qk_norm``; with an SSM ``ssm.{in_proj, conv_w, conv_b,
+    A_log, D, dt_bias, gate_norm, out_proj}`` (``A_log``, ``D`` and
+    ``dt_bias`` float32); the hybrid block's ``attn_out_norm`` and
+    ``ssm_out_norm``; ``ln2`` and ``mlp.{w_gate, w_up (d,f), w_down
+    (f,d)}`` (dense, hybrid) or ``moe.{router (d,E) float32, w_gate/w_up
+    (E,d,f), w_down (E,f,d)}`` (MoE). Encoder-decoder: ``embed``,
+    ``dec_pos (max_pos, d)``, stacked ``enc_blocks`` (ln1, attn, ln2,
+    mlp) and ``dec_blocks`` (the same plus ``ln_x`` and ``xattn``),
+    ``enc_norm``, ``final_norm`` and ``lm_head``. The port keeps the same
+    leaves and layouts, with each stack a list of per-layer dicts."""
+    out: Dict[str, Any] = {}
+    stacks = (("enc_blocks", cfg.num_encoder_layers),
+              ("dec_blocks", cfg.num_layers)) if cfg.is_encoder_decoder \
+        else (("blocks", cfg.num_layers),)
+    for name, n in stacks:
+        out[name] = [_layer(tree[name], i, device, dtype) for i in range(n)]
+    for name in ("embed", "dec_pos", "lm_head", "final_norm", "enc_norm"):
+        if name in tree:
+            out[name] = _leaves(tree[name], device, dtype)
     return out
 
 
@@ -87,11 +86,16 @@ def slot_cache_from_numpy(cache: Dict[str, Any], *, device="cpu",
     layer of a reference cache holds the same positions; a cache whose
     layers differ is refused. The carried-state leaves ``conv`` ``(L, B,
     k-1, conv_dim)`` and ``ssm`` ``(L, B, h, p, n)`` (float32) carry over
-    as they are; an attention-free cache has no k/v/pos."""
+    as they are, as do an encoder-decoder's ``cross_k``/``cross_v`` ``(L,
+    B, encoder_seq, Hkv, hd)``; an attention-free cache has no
+    k/v/pos."""
     out = {}
     if "conv" in cache:
         out["conv"] = _t(cache["conv"], device, dtype)
         out["ssm"] = _t(cache["ssm"], device, torch.float32)
+    for name in ("cross_k", "cross_v"):
+        if name in cache:
+            out[name] = _t(cache[name], device, dtype)
     if "k" not in cache:
         return out
     pos = np.asarray(cache["pos"])

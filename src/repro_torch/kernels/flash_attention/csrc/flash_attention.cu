@@ -1,5 +1,6 @@
 // Flash attention for Hopper (sm_90a): the monolithic prefill's causal
-// attention over a whole prompt.
+// attention over a whole prompt, and the encoder-decoder's non-causal
+// encoder self-attention and cross-attention.
 //
 // Replaces the TPU kernel `_flash_kernel` of src/repro/kernels/
 // flash_attention/flash_attention.py (via `flash_attention_fwd`): blocked
@@ -56,6 +57,14 @@
 //      unrounded p, as the Pallas kernel does.
 //   6. The output leaves through the Q tile in 16-byte pieces, a warp
 //      writing whole rows.
+//   7. When the work items cannot fill the card (fewer than one an SM: a
+//      cross-attention of a few decode queries against 1500 encoder
+//      keys is 48 items of one row each), each item's key stages are
+//      split across `splits` CTAs (the wrapper picks the count from the
+//      shapes, ops.splits_for); each writes its unnormalised float32
+//      accumulator, max and sum, and a second small kernel merges the
+//      splits in split order (`flash_combine`): deterministic, no
+//      atomics.
 // float32 inputs take the same structure (tiling, ring, fragment layout)
 // with both products on CUDA cores in full float32: TF32 would not hold
 // the float32 tolerance.
@@ -103,6 +112,9 @@ struct Params {
       o_ss;
   int B, H, Hkv, Sq, Sk, causal, window, q_offset;
   int row_tiles, sms;  // row tiles of a kv group; the card's SMs
+  int splits;          // CTAs an item's key stages are split across
+  float* part_acc;     // splits > 1: (splits, B, H, Sq, hd) float32
+  float* part_ml;      // splits > 1: (splits, B, H, Sq, 2) max, sum
   float scale;
 };
 
@@ -161,11 +173,12 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
   // work items m = 0, 1, ... run longest first (latest row tile first);
   // blocks are handed out in layers of one block an SM, every other layer
   // reversed, so an SM's second block is a short one when its first is
-  // long
-  const int G = p.Hkv * p.B, n_items = p.row_tiles * G;
+  // long; an item's splits are neighbours
+  const int G = p.Hkv * p.B, n_work = p.row_tiles * G * p.splits;
   const int layer = blockIdx.x / p.sms, pos = blockIdx.x % p.sms;
-  const int width = min(p.sms, n_items - layer * p.sms);
-  const int item = layer * p.sms + (layer & 1 ? width - 1 - pos : pos);
+  const int width = min(p.sms, n_work - layer * p.sms);
+  const int work = layer * p.sms + (layer & 1 ? width - 1 - pos : pos);
+  const int item = work / p.splits, split = work % p.splits;
   const int rt = p.row_tiles - 1 - item / G;
   const int g = item % G % p.Hkv, b = item % G / p.Hkv;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -180,9 +193,14 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
   if (p.causal) k_end = min(k_end, qpos_hi + 1);
   int k_begin = 0;
   if (p.window > 0) k_begin = max(0, qpos_lo - p.window + 1);
-  const int t_begin = k_begin / kTile;
-  const int n_tiles =
-      k_end > k_begin ? (k_end + kTile - 1) / kTile - t_begin : 0;
+  int t_begin = k_begin / kTile;
+  int n_tiles = k_end > k_begin ? (k_end + kTile - 1) / kTile - t_begin : 0;
+  if (p.splits > 1) {  // this CTA's share of the item's stages
+    const int per = (n_tiles + p.splits - 1) / p.splits;
+    const int lo = min(n_tiles, split * per);
+    t_begin += lo;
+    n_tiles = min(n_tiles, lo + per) - lo;
+  }
 
   int qpos[2];
 #pragma unroll
@@ -290,6 +308,26 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
     cp_async_wait<0>();
   }
 
+  if (p.splits > 1) {
+    // this split's partial: the unnormalised accumulator, the max (none
+    // when the split saw no key) and the sum of each row
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int f = f0 + w * 16 + gid + 8 * i;
+      if (f >= rows) continue;
+      const int j = f / R, h = g * R + (f - j * R);
+      const size_t prow =
+          (((size_t)split * p.B + b) * p.H + h) * (size_t)p.Sq + j;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        store2(p.part_acc + prow * HD + 8 * n + 2 * tq, o[n][2 * i],
+               o[n][2 * i + 1]);
+      if (tq == 0)
+        store2(p.part_ml + prow * 2, l[i] > 0.f ? m[i] : kNegInf, l[i]);
+    }
+    return;
+  }
+
   // epilogue: the normalised rows go through the Q tile (free once every
   // warp is past its last q.k) so that the output leaves in 16-byte
   // pieces, a warp writing whole rows, rather than 4-byte ones scattered
@@ -319,6 +357,46 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
   }
 }
 
+// Merge the splits' partials of one (b, h, j) row per threadIdx.y, four
+// columns per thread, in split order, into the output through its
+// strides; a row no split saw comes out as zeros.
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD) flash_combine(Params p) {
+  const size_t rows = (size_t)p.B * p.H * p.Sq;
+  const size_t row = (size_t)blockIdx.x * blockDim.y + threadIdx.y;
+  if (row >= rows) return;
+  const int d = 4 * threadIdx.x;
+  const float2* ml = reinterpret_cast<const float2*>(p.part_ml) + row;
+  const float* acc = p.part_acc + row * HD + d;
+  float mx = kNegInf;
+  for (int s = 0; s < p.splits; ++s) {
+    const float2 x = ml[s * rows];
+    if (x.y > 0.f) mx = fmaxf(mx, x.x);
+  }
+  float den = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < p.splits; ++s) {
+    const float2 x = ml[s * rows];
+    const float4 v = *reinterpret_cast<const float4*>(acc + s * rows * HD);
+    if (x.y > 0.f) {
+      const float wgt = expf(x.x - mx);
+      den += wgt * x.y;
+      a.x = fmaf(wgt, v.x, a.x);
+      a.y = fmaf(wgt, v.y, a.y);
+      a.z = fmaf(wgt, v.z, a.z);
+      a.w = fmaf(wgt, v.w, a.w);
+    }
+  }
+  const float inv = den > 0.f ? 1.f / den : 0.f;
+  const int j = (int)(row % p.Sq), h = (int)(row / p.Sq % p.H),
+            b = (int)(row / ((size_t)p.Sq * p.H));
+  T* out = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh + j * p.o_ss + d;
+  store2(out, a.x * inv, a.y * inv);
+  store2(out + 2, a.z * inv, a.w * inv);
+}
+
+constexpr int kCombineRows = 4;  // rows of one combine CTA (HD/4 threads)
+
 template <typename T, int HD>
 cudaError_t launch(const Params& p, void* stream) {
   constexpr size_t smem = smem_bytes<T, HD>();
@@ -328,9 +406,14 @@ cudaError_t launch(const Params& p, void* stream) {
       flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr != cudaSuccess) return attr;
-  const long long items = (long long)p.row_tiles * p.Hkv * p.B;
-  flash_kernel<T, HD><<<(unsigned)items, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(p);
+  const long long work = (long long)p.row_tiles * p.Hkv * p.B * p.splits;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  flash_kernel<T, HD><<<(unsigned)work, kThreads, smem, st>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  const long long rows = (long long)p.B * p.H * p.Sq;
+  flash_combine<T, HD><<<(unsigned)((rows + kCombineRows - 1) / kCombineRows),
+                         dim3(HD / 4, kCombineRows), 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -350,17 +433,22 @@ extern "C" const char* error_string(int err) {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, (batch,
 // head, position) of q, k, v and out in turn; the head dimension is
-// contiguous. Returns a cudaError_t (0 = launched).
+// contiguous. splits > 1 splits each work item's key stages across that
+// many CTAs, with float32 workspaces part_acc (splits, B, H, Sq, hd) and
+// part_ml (splits, B, H, Sq, 2). Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, void* out,
                                const long long* strides, int B, int H,
                                int Hkv, int Sq, int Sk, int hd, int causal,
                                int window, int q_offset, float scale,
+                               int splits, float* part_acc, float* part_ml,
                                void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0)
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0 ||
+      splits <= 0 || (splits > 1 && (!part_acc || !part_ml)))
     return (int)cudaErrorInvalidValue;
   const long long row_tiles = ((long long)Sq * (H / Hkv) + kRows - 1) / kRows;
-  if (row_tiles * Hkv * B > 2147483647LL) return (int)cudaErrorInvalidValue;
+  if (row_tiles * Hkv * B * splits > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.out = out;
   p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
@@ -370,6 +458,9 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
   p.B = B; p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
   p.causal = causal; p.window = window; p.q_offset = q_offset;
   p.scale = scale;
+  p.splits = splits;
+  p.part_acc = part_acc;
+  p.part_ml = part_ml;
   p.row_tiles = (int)row_tiles;
   p.sms = sm_count();
   if (dtype == 0) return (int)launch_hd<float>(p, hd, stream);

@@ -12,7 +12,10 @@ other. On the card a call is one launch over (row tiles, Hkv, B): a
 CTA's ``ROWS_PER_CTA`` rows are (query, head) pairs of one kv group, so
 one staged K/V tile serves every query head of the group
 (``ref.flash_attention_tiled_ref`` follows the same arithmetic on the
-CPU).
+CPU). When those work items cannot fill the card, each item's key
+stages are split across CTAs (:func:`splits_for`, from the shapes and
+the SM count alone) and a second small launch merges the splits in
+fixed order.
 
 The module counts what it ran, in plain integers: ``flash_launches`` (one
 per kernel launch) and ``ref_calls`` (one per plain-version call).
@@ -40,6 +43,10 @@ HEAD_DIMS = (64, 128, 256)
 #: and ``kTile`` in the CUDA source)
 ROWS_PER_CTA = 64
 TILE_KEYS = 32
+#: a split takes at least this many key stages, and a launch is split
+#: until it has about ``SPLIT_CTAS_PER_SM`` CTAs an SM
+MIN_SPLIT_STAGES = 2
+SPLIT_CTAS_PER_SM = 4
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 
@@ -57,7 +64,8 @@ def _lib():
     lib = _build.library("flash_attention")
     if lib.flash_attention.argtypes is None:
         lib.flash_attention.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                        _I, _I, _I, _I, _I, _I, _F, _P]
+                                        _I, _I, _I, _I, _I, _I, _F, _I, _P,
+                                        _P, _P]
         lib.flash_attention.restype = _I
     return lib
 
@@ -89,16 +97,53 @@ def _check_inputs(q, k, v):
                              "16-byte aligned rows and strides")
 
 
+def splits_for(B: int, H: int, Hkv: int, Sq: int, Sk: int, *, causal: bool,
+               q_offset: int, sms: int) -> int:
+    """CTAs each work item's key stages are split across: 1 when the
+    items (row tiles x Hkv x B) fill the ``sms`` SMs; else enough for
+    about ``SPLIT_CTAS_PER_SM`` CTAs an SM, with ``MIN_SPLIT_STAGES``
+    stages a split or more (of the longest item: ``Sk`` keys, or up to
+    the last query's position when causal)."""
+    items = -(-Sq * (H // Hkv) // ROWS_PER_CTA) * Hkv * B
+    if items >= sms:
+        return 1
+    keys = max(0, min(Sk, q_offset + Sq)) if causal else Sk
+    stages = -(-keys // TILE_KEYS)
+    return max(1, min(-(-SPLIT_CTAS_PER_SM * sms // items),
+                      stages // MIN_SPLIT_STAGES))
+
+
+_sms = {}
+
+
+def sm_count(device) -> int:
+    """The card's SM count (read once a device)."""
+    idx = torch.device(device).index or 0
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sms[idx]
+
+
 def launch(q, k, v, *, causal: bool = True, window: int = 0,
-           q_offset: int = 0):
+           q_offset: int = 0, splits=None):
     """Launch the kernel on the card: q (B, H, Sq, hd), k, v (B, Hkv, Sk,
     hd), each with any (batch, head, position) strides. Returns (B, H, Sq,
     hd): a view of an output stored as (B, Sq, H, hd), the model's
-    layout."""
+    layout. ``splits`` overrides :func:`splits_for`."""
     global flash_launches
     _check_inputs(q, k, v)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    if splits is None:
+        splits = splits_for(B, H, Hkv, Sq, Sk, causal=causal,
+                            q_offset=q_offset, sms=sm_count(q.device))
+    acc = ml = None
+    if splits > 1:
+        acc = torch.empty((splits, B, H, Sq, hd), dtype=torch.float32,
+                          device=q.device)
+        ml = torch.empty((splits, B, H, Sq, 2), dtype=torch.float32,
+                         device=q.device)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
@@ -109,7 +154,9 @@ def launch(q, k, v, *, causal: bool = True, window: int = 0,
         err = lib.flash_attention(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), strides, B, H, Hkv, Sq, Sk, hd, int(causal),
-            int(window), int(q_offset), 1.0 / math.sqrt(hd), stream)
+            int(window), int(q_offset), 1.0 / math.sqrt(hd), int(splits),
+            0 if acc is None else acc.data_ptr(),
+            0 if ml is None else ml.data_ptr(), stream)
     _build.check(lib, err, "flash_attention")
     flash_launches += 1
     return out

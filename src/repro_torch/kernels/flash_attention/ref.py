@@ -61,14 +61,18 @@ def visible_keys(Sq: int, Sk: int, R: int, f0: int, f1: int, *,
 
 def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
                               window: int = 0, q_offset: int = 0,
-                              rows_per_cta: int = 64, tile_keys: int = 32):
+                              rows_per_cta: int = 64, tile_keys: int = 32,
+                              splits: int = 1):
     """The CUDA kernel's arithmetic in float32: one CTA per (row tile,
     kv group g, batch row b), its rows the (query, head) pairs ``rr = (j -
     j0) * R + h_local`` of group g (``R = H / Hkv``); each CTA walks the
     stages of ``tile_keys`` keys that hold its :func:`visible_keys`, with
     keys past Sk zero and every row masked by its own query position; the
     online softmax rounds p to q's dtype before p.v and sums l over the
-    unrounded p. Rows that see no key come out as zeros (where
+    unrounded p. With ``splits`` > 1 a CTA's stages are cut into that many
+    runs of ``ceil(n / splits)`` stages, each run's unnormalised partial
+    kept, and the partials merged in split order (a run that saw no key
+    adds nothing). Rows that see no key come out as zeros (where
     :func:`flash_attention_ref` gives the mean of the values). Same
     arguments and result as :func:`flash_attention_ref`."""
     B, H, Sq, hd = q.shape
@@ -76,27 +80,31 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
     R, M = H // Hkv, rows_per_cta
     rows = Sq * R
     scale = 1.0 / math.sqrt(hd)
-    out = torch.zeros((B, H, Sq, hd), device=q.device)
+    dev = q.device
+    out = torch.zeros((B, H, Sq, hd), device=dev)
     for b in range(B):
         for g in range(Hkv):
             for f0 in range(0, rows, M):
                 f = torch.arange(f0, min(f0 + M, rows))
                 j, h = f // R, g * R + f % R
-                qpos = (q_offset + j)[:, None].to(q.device)
+                qpos = (q_offset + j)[:, None].to(dev)
                 qr = q[b, h, j].float()
                 k_begin, k_end = visible_keys(Sq, Sk, R, f0, f0 + M,
                                               causal=causal, window=window,
                                               q_offset=q_offset)
-                mm = torch.full((len(f),), NEG_INF, device=q.device)
-                ll = torch.zeros(len(f), device=q.device)
-                oo = torch.zeros((len(f), hd), device=q.device)
-                if k_end > k_begin:
-                    for k0 in range(k_begin // tile_keys * tile_keys, k_end,
-                                    tile_keys):
-                        pos = torch.arange(k0, k0 + tile_keys,
-                                           device=q.device)
-                        kt = torch.zeros((tile_keys, hd), device=q.device)
-                        vt = torch.zeros((tile_keys, hd), device=q.device)
+                stages = (list(range(k_begin // tile_keys * tile_keys,
+                                     k_end, tile_keys))
+                          if k_end > k_begin else [])
+                per = -(-len(stages) // splits)
+                parts = []
+                for s in range(splits):
+                    mm = torch.full((len(f),), NEG_INF, device=dev)
+                    ll = torch.zeros(len(f), device=dev)
+                    oo = torch.zeros((len(f), hd), device=dev)
+                    for k0 in stages[s * per:(s + 1) * per]:
+                        pos = torch.arange(k0, k0 + tile_keys, device=dev)
+                        kt = torch.zeros((tile_keys, hd), device=dev)
+                        vt = torch.zeros((tile_keys, hd), device=dev)
                         n = min(tile_keys, Sk - k0)
                         kt[:n] = k[b, g, k0:k0 + n].float()
                         vt[:n] = v[b, g, k0:k0 + n].float()
@@ -114,5 +122,22 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
                         ll = ll * corr + p.sum(-1)
                         oo = oo * corr[:, None] + p.to(q.dtype).float() @ vt
                         mm = m_new
-                out[b, h, j] = oo / ll.clamp(min=1e-30)[:, None]
+                    parts.append((mm, ll, oo))
+                if splits == 1:
+                    mm, ll, oo = parts[0]
+                    out[b, h, j] = oo / ll.clamp(min=1e-30)[:, None]
+                    continue
+                mx = torch.full((len(f),), NEG_INF, device=dev)
+                for mm, ll, _ in parts:
+                    mx = torch.where(ll > 0, torch.maximum(mx, mm), mx)
+                den = torch.zeros(len(f), device=dev)
+                acc = torch.zeros((len(f), hd), device=dev)
+                for mm, ll, oo in parts:
+                    wgt = torch.where(ll > 0, torch.exp(mm - mx),
+                                      torch.zeros_like(mm))
+                    den = den + wgt * ll
+                    acc = acc + wgt[:, None] * oo
+                inv = torch.where(den > 0, 1.0 / den.clamp(min=1e-30),
+                                  torch.zeros_like(den))
+                out[b, h, j] = acc * inv[:, None]
     return out.to(q.dtype)

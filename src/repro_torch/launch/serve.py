@@ -35,6 +35,14 @@ On the card (the default):
       --engine both --prompt-len 16,256
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --config mamba2-370m,hymba-1.5b --prompt-len 256 --max-new-hi 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
+      --engine both --requests 8 --slots 4 --prompt-len 16,128
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+      --engine both --requests 8 --slots 4 --prompt-len 16,128
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+      --engine both --requests 8 --slots 4 --prompt-len 16,128
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \\
+      --layers 8 --engine continuous --no-chunk-compare
 On the CPU, at the smoke config (the plain attention path):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
       --smoke --device cpu --engine both --requests 4 --slots 2 \\
@@ -52,6 +60,7 @@ On the CPU, at the smoke config (the plain attention path):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -62,23 +71,33 @@ import numpy as np
 import torch
 
 from repro_torch.config import ServeConfig, ShapeConfig
-from repro_torch.configs import (ARCH_NAMES, REFERENCE_ARCH_NAMES, get_config,
-                                 get_smoke_config)
+from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.registry import build_model, cache_len_for
 from repro_torch.serve import (ContinuousEngine, ServeRequest, StaticEngine,
                                make_trace)
-from repro_torch.serve.engine import not_ported
+from repro_torch.serve.engine import sequence_len
 from repro_torch.serve.scheduler import latency_stats_over
 
 #: registry families the ``--config`` sweep covers by default: one per
 #: serving structure (dense, MoE, SSM, hybrid, enc-dec), as the
-#: reference's; the port serves dense, SSM and hybrid so far
+#: reference's
 FAMILY_ARCHS = ("gemma-2b", "olmoe-1b-7b", "mamba2-370m", "hymba-1.5b",
                 "whisper-tiny")
+
+
+def arch_config(arch: str, smoke: bool = False,
+                layers: Optional[int] = None):
+    """``arch``'s published (or smoke) config; ``layers`` cuts its depth
+    to the first ``layers`` blocks (a model whose weights do not fit the
+    card), every width as published."""
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if layers is not None and layers < cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=int(layers))
+    return cfg
 
 
 def synthetic_tokens(cfg, batch: int, seq_len: int, seed: int) -> np.ndarray:
@@ -87,13 +106,38 @@ def synthetic_tokens(cfg, batch: int, seq_len: int, seed: int) -> np.ndarray:
         0, cfg.vocab_size, size=(batch, seq_len), dtype=np.int32)
 
 
+def frontend_arrays(cfg, batch: int, seed: int) -> Dict[str, np.ndarray]:
+    """The frontend stub's inputs of ``batch`` requests, float32 standard
+    normal drawn by numpy from ``seed``: ``frames`` (batch, encoder_seq,
+    d) for an encoder-decoder, ``patch_embeds`` (batch,
+    num_frontend_tokens, d) for the patch_stub frontend, none otherwise."""
+    if cfg.is_encoder_decoder:
+        shape, name = (batch, cfg.encoder_seq, cfg.d_model), "frames"
+    elif cfg.frontend == "patch_stub":
+        shape = (batch, cfg.num_frontend_tokens, cfg.d_model)
+        name = "patch_embeds"
+    else:
+        return {}
+    rng = np.random.default_rng((seed, 1))
+    return {name: rng.standard_normal(shape, dtype=np.float32)}
+
+
+def synthetic_batch(cfg, batch: int, seq_len: int, seed: int) -> Dict:
+    """A prompt batch: ``tokens`` (:func:`synthetic_tokens`) and the
+    frontend's inputs (:func:`frontend_arrays`), both from ``seed``."""
+    return {"tokens": synthetic_tokens(cfg, batch, seq_len, seed),
+            **frontend_arrays(cfg, batch, seed)}
+
+
 def requests_from_trace(cfg, trace, *, seed: int = 0) -> List[ServeRequest]:
     """One ServeRequest per trace entry, each with its own prompt drawn
     from ``seed + 1000 + rid``; one seed gives byte-identical prompts to
     every engine driven from the trace. An entry of a shared-prefix
     group opens with its group's template (drawn from ``seed + 131 +
     group``, as long as the group's longest ``prefix_len``), sliced to its
-    own ``prefix_len``."""
+    own ``prefix_len``. A request of a family with a frontend stub also
+    carries its inputs (:func:`frontend_arrays`, from ``seed + 1000 +
+    rid``)."""
     longest: Dict[int, int] = {}
     for e in trace:
         if e.prefix_group >= 0 and e.prefix_len > 0:
@@ -108,7 +152,8 @@ def requests_from_trace(cfg, trace, *, seed: int = 0) -> List[ServeRequest]:
             tok = tok.copy()
             tok[:, :entry.prefix_len] = \
                 templates[entry.prefix_group][:, :entry.prefix_len]
-        reqs.append(ServeRequest(rid=rid, batch={"tokens": tok},
+        reqs.append(ServeRequest(rid=rid, batch={
+            "tokens": tok, **frontend_arrays(cfg, 1, seed + 1000 + rid)},
                                  max_new_tokens=entry.max_new, seed=seed,
                                  arrival=entry.arrival))
     return reqs
@@ -138,8 +183,11 @@ def kernel_counters() -> Dict[str, int]:
     """Every launch counter of the port's model-path kernels, the
     monolithic prefill calls (on the card each launches the flash kernel
     once per layer with attention, the SSD scan once per layer with an
-    SSM) and the chunk forwards (each launches the SSD scan once per layer
-    with an SSM)."""
+    SSM; an encoder-decoder's twice per decoder layer, self and cross),
+    the chunk forwards (each launches the SSD scan once per layer with an
+    SSM; an encoder-decoder's the flash kernel once per decoder layer),
+    and an encoder-decoder's encoder passes (the flash kernel once per
+    encoder layer) and decode forwards (once per decoder layer)."""
     fl, sd = flash_ops.counters(), ssd_ops.counters()
     return {**ops.counters(), "flash_launches": fl["flash_launches"],
             "flash_ref_calls": fl["ref_calls"],
@@ -147,7 +195,9 @@ def kernel_counters() -> Dict[str, int]:
             "ssd_ref_calls": sd["ref_calls"],
             "prefill_calls": transformer.prefill_calls,
             "chunk_calls": transformer.chunk_calls,
-            "verify_calls": transformer.verify_calls}
+            "verify_calls": transformer.verify_calls,
+            "encode_calls": encdec.encode_calls,
+            "cross_decode_calls": encdec.decode_calls}
 
 
 def reset_kernel_counters() -> None:
@@ -155,6 +205,7 @@ def reset_kernel_counters() -> None:
     flash_ops.reset_counters()
     ssd_ops.reset_counters()
     transformer.reset_counters()
+    encdec.reset_counters()
 
 
 def _sync(device: torch.device) -> None:
@@ -295,13 +346,10 @@ def _drafter(draft_arch: str, arch: str, smoke: bool, serve_cfg, device,
              seed: int):
     """The speculative arm's drafter: ``(None, None)`` for ``"self"`` (or
     the target's own arch), else that config's model and its seeded
-    parameters. A drafter must be a dense config of the port; the others
-    are not ported yet and raise, naming the slice."""
+    parameters. The engine decides whether it can draft (its capability
+    and a vocabulary equal to the target's)."""
     if draft_arch in ("self", arch):
         return None, None
-    if draft_arch not in ARCH_NAMES:
-        raise not_ported(f"the drafter {draft_arch!r}",
-                         "dense-family (other dense configs)")
     dcfg = get_smoke_config(draft_arch) if smoke else get_config(draft_arch)
     dmodel = build_model(dcfg, serve_cfg, device=device)
     return dmodel, dmodel.init(seed)
@@ -318,7 +366,7 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
                 shared_prefix_len: int = 0, share_ratio: float = 0.9,
                 spec_compare: bool = False, speculate: int = 3,
                 draft_arch: str = "self", dtype: Optional[str] = None,
-                params=None) -> Dict:
+                params=None, layers: Optional[int] = None) -> Dict:
     """Build the model once, warm each engine off the clock, then drive a
     Poisson trace through the requested engine(s). Returns the full
     measurement dict (the reference's keys, plus the port's ``backend``,
@@ -355,15 +403,16 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
     as the reference's do).
 
     ``params`` replaces the seeded random parameters (the tests move the
-    reference's over). ``dtype`` is the parameter and compute dtype:
-    float32 at the smoke configs and bfloat16 at full width unless
-    given. The kernel counters are zeroed at the start and cover the
+    reference's over). ``layers`` cuts the depth (:func:`arch_config`).
+    ``dtype`` is the parameter and compute dtype: float32 at the smoke
+    configs and bfloat16 at full width unless given. The kernel counters are zeroed at the start and cover the
     whole run, warm-ups included; each continuous arm's ``kernels``
-    counts its measured drive alone."""
+    counts its measured drive alone. The cache holds the longest prompt,
+    the frontend's prepended tokens (patch_stub) and ``max_new``."""
     if engine not in ("static", "continuous", "both"):
         raise ValueError(f"unknown engine {engine!r} "
                          "(static, continuous or both)")
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    cfg = arch_config(arch, smoke, layers)
     dtype = dtype or ("float32" if smoke else "bfloat16")
     serve_cfg = ServeConfig(param_dtype=dtype, compute_dtype=dtype,
                             attn_chunk_threshold=4096, ring_buffer=ring)
@@ -380,13 +429,14 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
     hi = max_new if isinstance(max_new, int) else max_new[1]
     # a ring cache holds the sliding window, no more
     cache_len = cache_len_for(
-        cfg, ShapeConfig("serve", pmax + hi, slots, "decode"), serve_cfg)
+        cfg, ShapeConfig("serve", sequence_len(cfg, pmax) + hi, slots,
+                         "decode"), serve_cfg)
     reset_kernel_counters()
 
     trace = make_trace(requests, prompt_len=plens, max_new=max_new,
                        rate=rate, seed=seed)
     result: Dict = {"backend": "torch", "arch": cfg.name,
-                    "device": device_info(dev),
+                    "layers": cfg.num_layers, "device": device_info(dev),
                     "torch_version": torch.__version__,
                     "cuda_version": torch.version.cuda, "dtype": dtype,
                     "requests": requests, "slots": slots,
@@ -401,7 +451,7 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
                     "prefill_compiles": None,
                     "prefill_compiles_prompt_len_independent": None,
                     "outputs_by_arm": {}}
-    warm = synthetic_tokens(cfg, 1, plens[0], seed)
+    warm = synthetic_batch(cfg, 1, plens[0], seed)
 
     def _make_engine(chunk: int, kv_layout: str = "slot", num_blocks=None,
                      n_rows=None, **kw):
@@ -412,8 +462,8 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
             block_size=block_size, num_blocks=num_blocks, device=dev, **kw)
         # warm on one prompt shape off the clock (kernel build and load,
         # library handles), then a clean engine for the measured drive
-        eng.generate({"tokens": np.concatenate(
-            [warm] * min(2, eng.kv.num_slots))}, 2)
+        eng.generate({k: np.concatenate([v] * min(2, eng.kv.num_slots))
+                      for k, v in warm.items()}, 2)
         eng.reset()
         return eng
 
@@ -584,7 +634,8 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
     if engine in ("static", "both"):
         seng = StaticEngine(model, params, cache_len=cache_len,
                             eos_id=eos_id, device=dev)
-        seng.generate({"tokens": np.concatenate([warm] * slots)}, 2)
+        seng.generate({k: np.concatenate([v] * slots)
+                       for k, v in warm.items()}, 2)
         static_reqs = requests_from_trace(cfg, trace, seed=seed)
         _sync(dev)
         result["static"] = drive_static(seng, static_reqs, batch_size=slots)
@@ -608,7 +659,7 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
         # budget is capped by the trace's max_new ceiling (cache_len)
         B = min(4, slots)
         par_new = min(8, hi)
-        prompt = {"tokens": synthetic_tokens(cfg, B, pmax, seed + 1)}
+        prompt = synthetic_batch(cfg, B, pmax, seed + 1)
         s_out = StaticEngine(model, params, cache_len=cache_len,
                              eos_id=eos_id, device=dev).generate(prompt,
                                                                  par_new)
@@ -643,13 +694,14 @@ def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
               device="cuda", requests: int = 16, slots: int = 8,
               prompt_len=(16, 256), max_new=(4, 48), rate: float = 50.0,
               prefill_chunk: int = 64, max_prefill_per_step: int = 2,
-              block_size: int = 16, seed: int = 0) -> Dict:
+              block_size: int = 16, seed: int = 0,
+              layers: Optional[int] = None) -> Dict:
     """Build the model, warm the engine, drive the trace; return the
     result dict (``backend: "torch"``). The chunk is floored to the
     family's ``chunk_multiple`` (:func:`effective_chunk`). The kernel
     counters in it (:func:`kernel_counters`) count the measured drive
-    only."""
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    only. ``layers`` cuts the depth (:func:`arch_config`)."""
+    cfg = arch_config(arch, smoke, layers)
     dtype = "float32" if smoke else "bfloat16"
     model = build_model(cfg, ServeConfig(param_dtype=dtype,
                                          compute_dtype=dtype), device=device)
@@ -658,7 +710,7 @@ def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
     plens = ((int(prompt_len),) if isinstance(prompt_len, int)
              else tuple(int(p) for p in prompt_len))
     hi = max_new if isinstance(max_new, int) else max_new[1]
-    cache_len = max(plens) + hi
+    cache_len = sequence_len(cfg, max(plens)) + hi
     eng = ContinuousEngine(model, params, cache_len=cache_len,
                            num_slots=slots, prefill_chunk=prefill_chunk,
                            max_prefill_per_step=max_prefill_per_step,
@@ -666,9 +718,7 @@ def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
                            device=model.device)
     # warm-up off the clock (kernel build and load, library handles),
     # then a clean engine for the measured drive
-    warm = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, size=(min(2, slots), plens[0]), dtype=np.int32)
-    eng.generate({"tokens": warm}, 2)
+    eng.generate(synthetic_batch(cfg, min(2, slots), plens[0], seed), 2)
     eng.reset()
     trace = make_trace(requests, prompt_len=plens, max_new=max_new,
                        rate=rate, seed=seed)
@@ -681,6 +731,7 @@ def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
     result: Dict = {
         "backend": "torch",
         "arch": cfg.name,
+        "layers": cfg.num_layers,
         "device": device_info(model.device),
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
@@ -727,15 +778,11 @@ def run_family_rows(archs=FAMILY_ARCHS, *, smoke: bool = True,
     bfloat16 at full width unless given."""
     rows: List[Dict] = []
     for arch in archs:
-        try:
-            cfg = get_smoke_config(arch) if smoke else get_config(arch)
-            dt = dtype or ("float32" if smoke else "bfloat16")
-            model = build_model(cfg, ServeConfig(
-                param_dtype=dt, compute_dtype=dt,
-                attn_chunk_threshold=4096), device=device)
-        except NotImplementedError as exc:
-            rows.append({"family": arch, "skipped": str(exc)})
-            continue
+        cfg = get_smoke_config(arch) if smoke else get_config(arch)
+        dt = dtype or ("float32" if smoke else "bfloat16")
+        model = build_model(cfg, ServeConfig(
+            param_dtype=dt, compute_dtype=dt, attn_chunk_threshold=4096),
+            device=device)
         caps = model.capabilities
         row: Dict = {"family": cfg.name, "block": cfg.block,
                      "chunked_prefill": bool(caps.chunked_prefill),
@@ -806,7 +853,8 @@ ARMS = ("static", "continuous_monolithic", "continuous",
 
 def print_traffic(result: Dict) -> None:
     """Human-readable summary of a :func:`run_traffic` result."""
-    print(f"arch={result['arch']} device={result['device']['name']} "
+    print(f"arch={result['arch']} layers={result['layers']} "
+          f"device={result['device']['name']} "
           f"requests={result['requests']} slots={result['slots']} "
           f"cache_len={result['cache_len']} "
           f"prompt_len={result['prompt_len']} "
@@ -859,6 +907,9 @@ def main(argv=None):
                          "serving structure) through the continuous paged "
                          "engine instead of the engine comparison")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to the first N blocks, widths as "
+                         "published (a model too large for the card)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--engine", default="both",
                     choices=("static", "continuous", "both"))
@@ -882,7 +933,8 @@ def main(argv=None):
     ap.add_argument("--speculate", type=int, default=3,
                     help="draft tokens a draft-verify round")
     ap.add_argument("--draft-arch", default="self",
-                    help="the drafter: 'self' or a ported dense config")
+                    help="the drafter: 'self' or another config with the "
+                         "target's vocabulary")
     ap.add_argument("--prefix-compare", action="store_true",
                     help="run the shared-prefix trace without, cold and "
                          "warm with the radix prefix cache")
@@ -899,9 +951,9 @@ def main(argv=None):
         archs = (FAMILY_ARCHS if args.config in ("families", "all")
                  else tuple(x for x in args.config.split(",") if x))
         for a in archs:
-            if a not in REFERENCE_ARCH_NAMES:
+            if a not in ARCH_NAMES:
                 ap.error(f"--config: unknown arch {a!r} "
-                         f"(known: {sorted(REFERENCE_ARCH_NAMES)})")
+                         f"(known: {sorted(ARCH_NAMES)})")
         rows = run_family_rows(
             archs, smoke=args.smoke, device=args.device,
             requests=args.requests, slots=args.slots, prompt_len=plens[0],
@@ -928,7 +980,7 @@ def main(argv=None):
         spec_compare=args.spec_compare, speculate=args.speculate,
         draft_arch=args.draft_arch, prefix_compare=args.prefix_compare,
         shared_prefix_len=args.shared_prefix_len,
-        share_ratio=args.share_ratio)
+        share_ratio=args.share_ratio, layers=args.layers)
     print_traffic(result)
     if args.json:
         with open(args.json, "w") as f:

@@ -1,6 +1,7 @@
-"""Shared layers of the port: norms, RoPE, q/k/v projection, the plain
-full and chunked attention, attention output, gated MLP, and the
-reference's initializers.
+"""Shared layers of the port: norms (RMSNorm, LayerNorm), RoPE, the
+sinusoid table, q/k/v projection (biases, per-head q/k norm,
+cross-attention), the plain full and chunked attention, attention output,
+gated MLP, and the reference's initializers.
 
 Plain functions on tensors; parameters are dicts of tensors in the
 reference's layout (``wq`` is ``(d, H, hd)``, ``wo`` is ``(H, hd, d)``,
@@ -65,12 +66,30 @@ def rmsnorm(x, w, *, eps: float = 1e-5, unit_offset: bool = False):
     return (y * scale).to(x.dtype)
 
 
+def layernorm(x, w, b, *, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
 def apply_norm(x, p, cfg):
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(
-            f"norm_type {cfg.norm_type!r} is not ported yet (rmsnorm only)")
+    if cfg.norm_type == "layernorm":
+        return layernorm(x, p["w"], p["b"], eps=cfg.norm_eps)
     return rmsnorm(x, p["w"], eps=cfg.norm_eps,
                    unit_offset=cfg.rmsnorm_unit_offset)
+
+
+def init_norm(cfg, device, dtype):
+    """The reference's norm init: LayerNorm ``{w: 1, b: 0}``; RMSNorm
+    ``{w: 1}``, or ``{w: 0}`` with the (1 + w) unit offset."""
+    d = cfg.d_model
+    if cfg.norm_type == "layernorm":
+        return {"w": torch.ones((d,), dtype=dtype, device=device),
+                "b": torch.zeros((d,), dtype=dtype, device=device)}
+    fill = torch.zeros if cfg.rmsnorm_unit_offset else torch.ones
+    return {"w": fill((d,), dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +118,16 @@ def apply_rope(x, cos, sin):
     return torch.cat([o1, o2], dim=-1).to(x.dtype)
 
 
+def sinusoidal_pos(seq: int, d_model: int, device=None):
+    """Whisper-style sinusoid table (seq, d_model), float32."""
+    half = d_model // 2
+    idx = torch.arange(half, dtype=torch.float32, device=device)
+    freqs = torch.exp(-math.log(10_000.0) * idx / max(half - 1, 1))
+    ang = torch.arange(seq, dtype=torch.float32, device=device)[:, None] \
+        * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Attention projections
 # ---------------------------------------------------------------------------
@@ -110,19 +139,58 @@ def _proj_heads(x, w):
         *x.shape[:-1], h, hd)
 
 
-def project_qkv(p, x, cfg, positions):
-    """Project to q (B,S,H,hd) and k, v (B,S,Hkv,hd), with RoPE at
-    ``positions`` ((S,) or per-row (B, S))."""
-    if cfg.qkv_bias or cfg.qk_norm:
-        raise NotImplementedError(
-            "qkv_bias / qk_norm arrive with the slice that ports the "
-            "qwen configs")
+def init_attention(cfg, generator, device, dtype):
+    """The reference's attention leaves: ``wq (d,H,hd)``, ``wk``/``wv``
+    ``(d,Hkv,hd)``, ``wo (H,hd,d)``; zero biases ``bq (H,hd)``, ``bk``/``bv``
+    ``(Hkv,hd)`` with ``qkv_bias``; unit ``q_norm``/``k_norm`` ``(hd,)``
+    with ``qk_norm``."""
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    p = {"wq": dense_init((d, h, hd), d, generator, device, dtype),
+         "wk": dense_init((d, hkv, hd), d, generator, device, dtype),
+         "wv": dense_init((d, hkv, hd), d, generator, device, dtype),
+         "wo": dense_init((h, hd, d), h * hd, generator, device, dtype)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h, hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((hkv, hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((hkv, hd), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
+
+
+def _qk_head_norm(x, w, eps):
+    """Per-head RMS norm over hd (qwen3 / olmoe q-k norm), in float32."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def project_qkv(p, x, cfg, positions, *, x_kv=None, kv_positions=None,
+                use_rope=True):
+    """Project to q (B,S,H,hd) and k, v (B,T,Hkv,hd): biases, then the
+    per-head q/k norm, then RoPE at ``positions`` ((S,) or per-row (B, S))
+    and ``kv_positions`` (default: the same). ``x_kv`` gives keys and
+    values from another sequence (cross-attention)."""
+    x_kv = x if x_kv is None else x_kv
+    kv_positions = positions if kv_positions is None else kv_positions
     q = _proj_heads(x, p["wq"])
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
-    if cfg.pos_embed == "rope":
+    k = _proj_heads(x_kv, p["wk"])
+    v = _proj_heads(x_kv, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if cfg.qk_norm:
+        q = _qk_head_norm(q, p["q_norm"], cfg.norm_eps)
+        k = _qk_head_norm(k, p["k_norm"], cfg.norm_eps)
+    if use_rope and cfg.pos_embed == "rope":
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
+        if kv_positions is not positions:
+            cos, sin = rope_cos_sin(kv_positions, cfg.head_dim,
+                                    cfg.rope_theta)
         k = apply_rope(k, cos, sin)
     return q, k, v
 
@@ -236,6 +304,18 @@ def attn_output(p, ctx_heads, out_dtype):
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
+
+def init_mlp(cfg, generator, device, dtype):
+    """Gated MLP ``w_gate``/``w_up (d,f)``, ``w_down (f,d)``; the plain GELU
+    MLP has no ``w_gate``."""
+    d, f = cfg.d_model, cfg.d_ff
+    p = {}
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        p["w_gate"] = dense_init((d, f), d, generator, device, dtype)
+    p["w_up"] = dense_init((d, f), d, generator, device, dtype)
+    p["w_down"] = dense_init((f, d), f, generator, device, dtype)
+    return p
+
 
 def mlp_apply(p, x, cfg):
     """Gated (SwiGLU / GeGLU) or plain GELU MLP. ``jax.nn.gelu`` is the

@@ -4,9 +4,12 @@ The bundle carries plain functions closed over the config, the device,
 the dtypes and the serving knobs, for both KV layouts (slot and paged),
 with the paged layout's copy-on-write block clone (prefix caching) and
 k-token verify (speculative decoding) where the family's capabilities
-allow them. The port serves the dense, SSM and hybrid families; MoE and
-encoder-decoder models raise, naming the slice of the port that brings
-them. :func:`cache_len_for` sizes a ring-buffer cache.
+allow them. Every family of the reference registry builds: dense, MoE,
+SSM, hybrid, the patch_stub VLM (monolithic prefill and slot decode
+only) and the encoder-decoder (its own module, :mod:`encdec`: no slot
+chunk; the encoder runs as a pre-chunk at paged admission). A path a
+family's structure forbids is None in the bundle. :func:`cache_len_for`
+sizes a ring-buffer cache.
 """
 
 from __future__ import annotations
@@ -16,11 +19,10 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.config import (BLOCK_DENSE, BLOCK_HYBRID, BLOCK_MOE,
-                                BLOCK_SSM, ModelConfig, ServeConfig,
-                                ShapeConfig)
+from repro_torch.config import (BLOCK_HYBRID, BLOCK_SSM, ModelConfig,
+                                ServeConfig, ShapeConfig)
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import dtype_of
 
 
@@ -41,22 +43,25 @@ class Capabilities(NamedTuple):
     reason: str = ""
 
 
-_LATER_FAMILIES = {
-    BLOCK_MOE: "the model-families slice (MoE, dropless routing)",
-}
-
-
 def derive_capabilities(cfg: ModelConfig) -> Capabilities:
-    """Map config structure to serving capabilities (the reference's, for
-    the families the port serves)."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder models arrive with the model-families slice of "
-            "the port")
+    """Map config structure to serving capabilities (the reference's,
+    branch for branch)."""
     if cfg.frontend == "patch_stub":
-        raise NotImplementedError(
-            "the patch_stub frontend arrives with the dense-family slice of "
-            "the port")
+        return Capabilities(
+            chunked_prefill=False, paged_decode=False, slot_chunk=False,
+            prefix_cache=False, kv_migration=False, speculative=False,
+            reason="patch_stub modality frontend prepends frontend tokens "
+                   "that have no chunked/paged deposit path")
+    if cfg.is_encoder_decoder:
+        return Capabilities(
+            slot_chunk=False, carried_state=True,
+            state_leaves=("cross_k", "cross_v"),
+            prefix_cache=False, kv_migration=False, encoder_prechunk=True,
+            speculative=False,
+            reason="carried cross-attention state is per-request, not in "
+                   "KV blocks: prefix caching and KV-block migration "
+                   "would silently drop it, and speculative rollback "
+                   "cannot rewind it by a length decrement")
     if cfg.block in (BLOCK_SSM, BLOCK_HYBRID):
         return Capabilities(
             carried_state=True, state_leaves=("conv", "ssm"),
@@ -68,31 +73,33 @@ def derive_capabilities(cfg: ModelConfig) -> Capabilities:
                    "ssm_chunk multiples for bit-exact scan resume; "
                    "speculative rollback cannot rewind carried state "
                    "advanced through rejected draft tokens")
-    if cfg.block != BLOCK_DENSE:
-        raise NotImplementedError(
-            f"block family {cfg.block!r} arrives with "
-            f"{_LATER_FAMILIES.get(cfg.block, 'a later slice')} of the port")
     return Capabilities()
 
 
 class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable[[int], Any]
-    # slot layout: monolithic prefill, slot decode, slot chunk
+    # slot layout: monolithic prefill, slot decode, slot chunk (None when
+    # capabilities.slot_chunk is False). ``prefill(params, tokens,
+    # cache_len, **inputs)`` takes the frontend's inputs by keyword:
+    # ``patch_embeds`` (patch_stub) or ``frames`` (encoder-decoder)
     init_cache: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
-    prefill_chunk: Callable[..., Any]
-    # paged layout
-    init_paged_cache: Callable[..., Any]
-    decode_step_paged: Callable[..., Any]
-    prefill_chunk_paged: Callable[..., Any]
+    prefill_chunk: Optional[Callable[..., Any]]
+    # paged layout — None when capabilities.paged_decode is False
+    init_paged_cache: Optional[Callable[..., Any]]
+    decode_step_paged: Optional[Callable[..., Any]]
+    prefill_chunk_paged: Optional[Callable[..., Any]]
     # copy-on-write block clone (prefix caching) — None when
     # capabilities.prefix_cache is False
     clone_paged_block: Optional[Callable[..., Any]]
     # k-token teacher-forced verify (speculative decoding) — None when
     # capabilities.speculative is False
     verify_step_paged: Optional[Callable[..., Any]]
+    # encoder-decoder only: the encoder pass as a pre-chunk at paged
+    # admission, ``encode_prechunk(params, cache, frames, rows)``
+    encode_prechunk: Optional[Callable[..., Any]]
     capabilities: Capabilities
     device: torch.device
     dtype: torch.dtype              # compute (and KV cache) dtype
@@ -107,43 +114,47 @@ def build_model(cfg: ModelConfig, serve: Optional[ServeConfig] = None, *,
     caps = derive_capabilities(cfg)
     pdt = dtype_of(serve.param_dtype)
     cdt = dtype_of(serve.compute_dtype)
+    mod = encdec if cfg.is_encoder_decoder else transformer
 
     def init(seed: int):
         """Parameters from a seeded ``torch.Generator`` on the device."""
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
+        if cfg.is_encoder_decoder:
+            return encdec.init_encdec_params(cfg, gen, dev, pdt)
         return transformer.init_lm_params(cfg, gen, dev, pdt)
 
     def init_cache(batch: int, cache_len: int, dtype=None):
-        return transformer.init_cache(cfg, batch, cache_len, device=dev,
-                                      dtype=dtype or cdt)
+        return mod.init_cache(cfg, batch, cache_len, device=dev,
+                              dtype=dtype or cdt)
 
     def init_paged_cache(num_blocks: int, block_size: int, dtype=None,
                          num_rows: int = 0):
-        return transformer.init_paged_cache(cfg, num_blocks, block_size,
-                                            device=dev, dtype=dtype or cdt,
-                                            num_rows=num_rows)
+        return mod.init_paged_cache(cfg, num_blocks, block_size, device=dev,
+                                    dtype=dtype or cdt, num_rows=num_rows)
 
+    def step(name):
+        return functools.partial(getattr(mod, name), cfg, compute_dtype=cdt)
+
+    paged = caps.paged_decode
     return Model(
         cfg=cfg,
         init=init,
         init_cache=init_cache,
-        prefill=functools.partial(transformer.prefill, cfg,
-                                  compute_dtype=cdt, serve=serve),
-        decode_step=functools.partial(transformer.decode_step, cfg,
-                                      compute_dtype=cdt),
-        prefill_chunk=functools.partial(transformer.prefill_chunk, cfg,
-                                        compute_dtype=cdt),
-        init_paged_cache=init_paged_cache,
-        decode_step_paged=functools.partial(
-            transformer.decode_step_paged, cfg, compute_dtype=cdt),
-        prefill_chunk_paged=functools.partial(
-            transformer.prefill_chunk_paged, cfg, compute_dtype=cdt),
+        prefill=functools.partial(mod.prefill, cfg, compute_dtype=cdt,
+                                  serve=serve),
+        decode_step=step("decode_step"),
+        prefill_chunk=step("prefill_chunk") if caps.slot_chunk else None,
+        init_paged_cache=init_paged_cache if paged else None,
+        decode_step_paged=step("decode_step_paged") if paged else None,
+        prefill_chunk_paged=step("prefill_chunk_paged") if paged else None,
         clone_paged_block=(transformer.clone_paged_block
-                           if caps.prefix_cache else None),
-        verify_step_paged=(functools.partial(
-            transformer.verify_step_paged, cfg, compute_dtype=cdt)
-                           if caps.speculative else None),
+                           if paged and caps.prefix_cache else None),
+        verify_step_paged=(step("verify_step_paged")
+                           if paged and caps.speculative else None),
+        encode_prechunk=(functools.partial(encdec.encode_prechunk, cfg,
+                                           compute_dtype=cdt, serve=serve)
+                         if caps.encoder_prechunk else None),
         capabilities=caps,
         device=dev,
         dtype=cdt)

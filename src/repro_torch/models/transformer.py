@@ -1,5 +1,5 @@
-"""Decoder-only LM of the dense, SSM and hybrid families: the port of the
-serving entry points of ``src/repro/models/transformer.py``.
+"""Decoder-only LM of the dense, MoE, SSM and hybrid families: the port of
+the serving entry points of ``src/repro/models/transformer.py``.
 
 Paged layout (the paged continuous engine):
 
@@ -40,7 +40,12 @@ chunk steps by ``rows``). An attention-free cache (mamba2) has no
 ``k``/``v``/``pos``. The hybrid block (hymba) runs attention and the SSM
 on the same normed input and averages their RMS-normed outputs. Decode
 keeps the state of parked rows; a chunk at ``pos0 == 0`` starts from
-zeros by a select, so a recycled row's stale state never leaks in.
+zeros by a select, so a recycled row's stale state never leaks in. The
+MoE block's FFN is the reference's serve-time dropless routing
+(:mod:`repro_torch.models.moe`) on every path. A patch_stub frontend
+(internvl2) prepends the request's patch embeddings in monolithic
+prefill, positions running over the whole sequence; it has no chunked or
+paged path.
 
 Every step writes its cache **in place**: PyTorch has no buffer donation,
 so where the reference returns a new cache the port updates the one it
@@ -76,13 +81,13 @@ from typing import Any, Dict, List
 
 import torch
 
-from repro_torch.config import (BLOCK_DENSE, BLOCK_HYBRID, BLOCK_SSM,
-                                ModelConfig, ServeConfig)
+from repro_torch.config import (BLOCK_DENSE, BLOCK_HYBRID, BLOCK_MOE,
+                                BLOCK_SSM, ModelConfig, ServeConfig)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers as L
-from repro_torch.models import mamba
+from repro_torch.models import mamba, moe
 
 #: monolithic prefill calls since the last :func:`reset_counters`; on the
 #: card each launches the flash kernel (attention families) and the SSD
@@ -110,7 +115,8 @@ def has_state(cfg: ModelConfig) -> bool:
 
 def _combine(cfg, p, h, a_out, s_out):
     """The block's residual update from its attention and SSM outputs
-    (either may be None), then the MLP of the dense and hybrid blocks."""
+    (either may be None), then the MLP of the dense and hybrid blocks or
+    the MoE block's dropless experts."""
     if cfg.block == BLOCK_SSM:
         h = h + s_out
     elif cfg.block == BLOCK_HYBRID:
@@ -121,6 +127,9 @@ def _combine(cfg, p, h, a_out, s_out):
         h = h + a_out
     if cfg.block in (BLOCK_DENSE, BLOCK_HYBRID):
         h = h + L.mlp_apply(p["mlp"], L.apply_norm(h, p["ln2"], cfg), cfg)
+    elif cfg.block == BLOCK_MOE:
+        h = h + moe.moe_apply_dropless(p["moe"], L.apply_norm(h, p["ln2"],
+                                                              cfg), cfg)
     return h
 
 
@@ -208,7 +217,12 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
     shared across all layers, so positions are structural. Recurrent
     carried state is not block-addressable: the SSM and hybrid families
     add conv/ssm leaves ``(L, num_rows, ...)``, one row per engine request
-    row. An attention-free model has no k/v."""
+    row. An attention-free model has no k/v. The patch_stub frontend has
+    no paged path and raises."""
+    if cfg.frontend == "patch_stub":
+        raise ValueError("paged KV does not support the patch_stub "
+                         "modality frontend (prepended frontend tokens "
+                         "have no block-table deposit path)")
     c: Dict[str, torch.Tensor] = {}
     if cfg.uses_attention:
         gs = kv_store_heads(cfg, 1)
@@ -510,16 +524,21 @@ def backbone(cfg, params, x, positions, serve, cache, attention, scan):
 
 
 def prefill(cfg, params, tokens, cache_len: int, *, compute_dtype, serve,
-            attention=flash_ops.flash_attention, scan=ssd_ops.ssd_scan):
+            attention=flash_ops.flash_attention, scan=ssd_ops.ssd_scan,
+            patch_embeds=None):
     """Run whole prompts: tokens (B,S) int -> (last-position logits (B,Vp)
     float32, slot cache of ``cache_len`` tokens holding the prompts and
     their carried state). A prompt longer than ``cache_len`` keeps its
     last ``cache_len`` entries, rotated onto the ring (its attention still
-    runs over the whole prompt)."""
+    runs over the whole prompt). With the patch_stub frontend,
+    ``patch_embeds`` (B, F, d) are prepended: the sequence is F + S long
+    and its positions run over all of it."""
     global prefill_calls
-    B, S = tokens.shape
     dev = tokens.device
     x = embed_tokens(cfg, params, tokens, compute_dtype)
+    if cfg.frontend == "patch_stub":
+        x = torch.cat([patch_embeds.to(dev, compute_dtype), x], dim=1)
+    B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=dev)
     cache = init_cache(cfg, B, cache_len, device=dev, dtype=compute_dtype)
     hidden = backbone(cfg, params, x, positions, serve, cache, attention,
@@ -645,18 +664,14 @@ def prefill_chunk(cfg, params, cache, tokens, pos0, n_valid, *,
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device,
                    dtype) -> Dict[str, Any]:
     """Parameters with the reference's init scheme (truncated-normal
-    fan-in weights, 0.02 embedding, zero unit-offset norms, the SSM's own
-    scheme), drawn from ``generator`` — the scheme, not the reference's
+    fan-in weights, 0.02 embedding, unit (or zero unit-offset) norms, zero
+    q/k/v biases, unit q/k norms, the SSM's and the experts' own
+    schemes), drawn from ``generator`` — the scheme, not the reference's
     bits."""
-    d, h, hkv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                        cfg.head_dim, cfg.d_ff)
+    d = cfg.d_model
 
     def norm():
-        fill = torch.zeros if cfg.rmsnorm_unit_offset else torch.ones
-        return {"w": fill((d,), dtype=dtype, device=device)}
-
-    def dense(shape, fan_in):
-        return L.dense_init(shape, fan_in, generator, device, dtype)
+        return L.init_norm(cfg, device, dtype)
 
     params: Dict[str, Any] = {
         "embed": L.embed_init((cfg.padded_vocab, d), generator, device,
@@ -667,10 +682,7 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device,
     for _ in range(cfg.num_layers):
         blk: Dict[str, Any] = {"ln1": norm()}
         if cfg.uses_attention:
-            blk["attn"] = {"wq": dense((d, h, hd), d),
-                           "wk": dense((d, hkv, hd), d),
-                           "wv": dense((d, hkv, hd), d),
-                           "wo": dense((h, hd, d), h * hd)}
+            blk["attn"] = L.init_attention(cfg, generator, device, dtype)
         if has_state(cfg):
             blk["ssm"] = mamba.init_ssm(cfg, generator, device, dtype)
         if cfg.block == BLOCK_HYBRID:
@@ -681,10 +693,12 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device,
                                              device=device)
         if cfg.block in (BLOCK_DENSE, BLOCK_HYBRID):
             blk["ln2"] = norm()
-            blk["mlp"] = {"w_gate": dense((d, f), d),
-                          "w_up": dense((d, f), d),
-                          "w_down": dense((f, d), f)}
+            blk["mlp"] = L.init_mlp(cfg, generator, device, dtype)
+        if cfg.block == BLOCK_MOE:
+            blk["ln2"] = norm()
+            blk["moe"] = moe.init_moe(cfg, generator, device, dtype)
         params["blocks"].append(blk)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((d, cfg.padded_vocab), d)
+        params["lm_head"] = L.dense_init((d, cfg.padded_vocab), d, generator,
+                                         device, dtype)
     return params

@@ -17,7 +17,9 @@ admission gates on free blocks instead of free slots.
   table per row, and a device copy of the tables that is rebuilt only
   after an alloc, free or reset. For the SSM and hybrid families the
   pool also holds each request row's carried state (conv/ssm leaves,
-  row-aligned, ``(L, num_slots, ...)``); an attention-free model's pool
+  row-aligned, ``(L, num_slots, ...)``), for the encoder-decoder its
+  cross K/V (``cross_k``/``cross_v``, the same way); an attention-free
+  model's pool
   holds the state alone. ``alloc_prefix`` backs a row partly with
   cached prefix blocks (prefix caching).
 
@@ -333,8 +335,9 @@ class PagedKVCache:
 
     @property
     def buffers(self):
-        """The pooled cache (k/v: (L, P, bs, Gs, hd); conv/ssm: (L,
-        num_slots, ...)), written in place by the model's steps."""
+        """The pooled cache (k/v: (L, P, bs, Gs, hd); conv/ssm or
+        cross_k/cross_v: (L, num_slots, ...)), written in place by the
+        model's steps."""
         return self._buf
 
     # -- accounting --------------------------------------------------------

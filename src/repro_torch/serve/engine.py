@@ -29,11 +29,18 @@ rows. Two KV layouts:
   kernel).
 
 The SSM and hybrid families carry recurrent state per row (the model's
-conv/ssm leaves in either pool): the engine follows the reference's
-capability checks (``Capabilities``: a chunk is floored to
-``chunk_multiple`` and raises when nothing is left), hands the paged
-chunk step each job's request row (``rows``, on the host), and prices
-the state in admission (``_carried_state_bytes``).
+conv/ssm leaves in either pool), the encoder-decoder its cross K/V: the
+engine follows the reference's capability checks (``Capabilities``: a
+chunk is floored to ``chunk_multiple`` and raises when nothing is left;
+a path the family lacks raises with its reason), hands the paged chunk
+step each job's request row (``rows``, on the host), and prices the
+state in admission (``_carried_state_bytes``). An encoder-decoder
+request's encoder runs once at paged admission
+(``model.encode_prechunk``), installing its cross K/V into its row
+before the decoder chunk stream; on the slot layout it runs inside the
+monolithic prefill. A request carries its frontend's inputs beside its
+tokens (``frames``, ``patch_embeds``); with the patch_stub frontend the
+sequence in the cache is ``num_frontend_tokens`` longer than the prompt.
 
 Rows that are free or still prefilling ride along in decode parked (a
 far-negative position): they write nothing visible, keep their carried
@@ -118,6 +125,22 @@ def _generator(seed: int, rid: int, temperature: float,
     return gen
 
 
+def frontend_inputs(batch, device) -> dict:
+    """A request batch's frontend inputs (everything but ``tokens``:
+    ``frames``, ``patch_embeds``) as tensors on ``device``, keyword
+    arguments of ``model.prefill`` by name."""
+    return {k: torch.tensor(np.asarray(v), device=device)
+            for k, v in batch.items() if k != "tokens"}
+
+
+def sequence_len(cfg, prompt_len: int) -> int:
+    """Tokens a prompt occupies in the cache: the patch_stub frontend
+    prepends ``num_frontend_tokens``."""
+    if cfg.frontend == "patch_stub":
+        return prompt_len + cfg.num_frontend_tokens
+    return prompt_len
+
+
 def _sample(logits, temps, gens) -> np.ndarray:
     """Greedy argmax per row; rows with ``temps > 0`` draw from their own
     generator instead. logits (R, Vp) -> (R,) int64 on the host (the
@@ -143,14 +166,16 @@ class StaticEngine:
 
     def generate(self, batch, max_new_tokens: int, *, temperature=0.0,
                  seed: int = 0) -> np.ndarray:
-        """batch: ``{"tokens": (B, S)}`` prompts of one length. Returns
+        """batch: ``{"tokens": (B, S)}`` prompts of one length (and the
+        frontend's inputs, ``frames`` or ``patch_embeds``). Returns
         (B, max_new) tokens. Rows finished early emit ``eos_id``; an
         all-done batch exits the loop. ``temperature`` is a scalar or a
         per-row (B,) vector; row ``i`` samples from its own generator
         seeded from ``(seed, i)``. The decode step after the last emitted
         token, whose logits nothing reads, is not run."""
         tokens = np.asarray(batch["tokens"])
-        B, prompt_len = tokens.shape
+        B = tokens.shape[0]
+        prompt_len = sequence_len(self.model.cfg, tokens.shape[1])
         temps = np.asarray(temperature, np.float32)
         if temps.ndim == 0:
             temps = np.full((B,), float(temps), np.float32)
@@ -161,7 +186,8 @@ class StaticEngine:
         gens = [_generator(seed, i, float(t), dev) for i, t in
                 enumerate(temps)]
         logits, cache = self.model.prefill(
-            self.params, torch.tensor(tokens, device=dev), self.cache_len)
+            self.params, torch.tensor(tokens, device=dev), self.cache_len,
+            **frontend_inputs(batch, dev))
         fill = self.eos_id if self.eos_id >= 0 else 0
         out = np.full((B, max_new_tokens), fill, np.int32)
         done = np.zeros((B,), bool)
@@ -225,6 +251,22 @@ class ContinuousEngine:
         self.capabilities = caps = model.capabilities
         chunk = int(prefill_chunk) if prefill_chunk else 0
         if chunk:
+            # a family that cannot chunk on this layout raises, naming the
+            # missing capability (never a silent monolithic fallback)
+            has_chunk = (model.prefill_chunk_paged if kv_layout == "paged"
+                         else model.prefill_chunk)
+            if has_chunk is None:
+                missing = ("chunked_prefill" if not caps.chunked_prefill
+                           else "slot_chunk")
+                hint = (" — this family chunks on the paged path only; "
+                        "use kv_layout='paged'"
+                        if caps.chunked_prefill and kv_layout == "slot"
+                        else "")
+                why = f" ({caps.reason})" if caps.reason else ""
+                raise ValueError(
+                    f"model lacks capability {missing!r} for chunked "
+                    f"prefill on the {kv_layout} layout{hint}{why}; pass "
+                    "prefill_chunk=0 for explicit monolithic prefill")
             chunk = min(chunk, self.cache_len)
             mult = int(caps.chunk_multiple)
             if mult > 1:
@@ -242,6 +284,11 @@ class ContinuousEngine:
         self.prefill_chunk = chunk
         paged = kv_layout == "paged"
         if paged:
+            if model.decode_step_paged is None:
+                why = f": {caps.reason}" if caps.reason else ""
+                raise ValueError(
+                    "model lacks capability 'paged_decode' — no "
+                    f"block-table paged decode path{why}")
             if not self.prefill_chunk:
                 raise ValueError("paged KV deposits prompts chunk-by-chunk;"
                                  " prefill_chunk must be > 0")
@@ -556,6 +603,13 @@ class ContinuousEngine:
                         f"drafter row {dslot} diverged from target row "
                         f"{slot} for request {req.rid}: the pools' "
                         "alloc/free lockstep broke")
+            if self.model.encode_prechunk is not None:
+                # the encoder pre-chunk: this request's cross K/V into its
+                # row before the decoder prompt starts streaming
+                self.model.encode_prechunk(
+                    self.params, self.kv.buffers,
+                    frontend_inputs(req.batch, self.device)["frames"],
+                    [slot])
         else:
             slot = self.kv.alloc(req)
             self.kv.reset_slot(slot)
@@ -682,10 +736,12 @@ class ContinuousEngine:
         first token. Returns the request if it finished at once."""
         tokens = torch.tensor(np.asarray(req.batch["tokens"]),
                               device=self.device)
-        logits, cache = self.model.prefill(self.params, tokens,
-                                           self.cache_len)
+        logits, cache = self.model.prefill(
+            self.params, tokens, self.cache_len,
+            **frontend_inputs(req.batch, self.device))
         slot = self.kv.alloc(req)
-        self.kv.insert(slot, cache, length=req.prompt_len)
+        self.kv.insert(slot, cache,
+                       length=sequence_len(self.model.cfg, req.prompt_len))
         gen = self._generator(req)
         tok0 = int(_sample(logits, [req.temperature], [gen])[0])
         return self._start_decode(slot, req, tok0, gen, now)
@@ -695,7 +751,8 @@ class ContinuousEngine:
         """Install a freshly-prefilled row's decode state (next token, next
         position, temperature, generator) and its first token."""
         self._tok[slot] = tok0
-        self._pos[slot] = req.prompt_len                 # next decode pos
+        # next decode position
+        self._pos[slot] = sequence_len(self.model.cfg, req.prompt_len)
         self._temp[slot] = req.temperature
         self._gen[slot] = gen
         return self._install_first_token(slot, req, tok0, now)

@@ -5,8 +5,9 @@ The decode state of every in-flight request lives in one cache of
 fixed-capacity *slots*, one row per request: the model's slot cache
 (``model.init_cache(num_slots, cache_len)``: k/v ``(L, num_slots, W + 1,
 Gs, hd)``, pos ``(num_slots, W + 1)``, and for the SSM and hybrid
-families the carried state conv/ssm ``(L, num_slots, ...)``; an
-attention-free cache holds the state alone). Requests are admitted by
+families the carried state conv/ssm ``(L, num_slots, ...)``, for the
+encoder-decoder the cross K/V ``(L, num_slots, encoder_seq, Hkv, hd)``;
+an attention-free cache holds the state alone). Requests are admitted by
 allocating a slot and depositing their prefilled cache into it (or by
 blanking it and streaming the prompt in chunk by chunk); they retire by
 freeing the slot, whose rows the next occupant overwrites.
@@ -47,9 +48,10 @@ class LeaseLeakWarning(UserWarning):
     can't pass silently."""
 
 
-#: the slot axis of each cache leaf (k/v and the carried state are
-#: layer-major)
-_SLOT_AXIS = {"k": 1, "v": 1, "pos": 0, "conv": 1, "ssm": 1}
+#: the slot axis of each cache leaf (k/v and the carried state, recurrent
+#: or cross-attention, are layer-major)
+_SLOT_AXIS = {"k": 1, "v": 1, "pos": 0, "conv": 1, "ssm": 1, "cross_k": 1,
+              "cross_v": 1}
 
 
 class SlotKVCache:

@@ -205,9 +205,11 @@ def test_counts_plain_attention_calls_on_cpu(bundles):
 
 def test_unported_paths_raise_naming_the_slice(bundles):
     """What the port does not serve yet raises ``NotImplementedError``
-    naming the slice that brings it: the serving fabric's roles, the
-    unported configs, and a drafter of an unported config. Prefix caching,
-    speculation and ring buffers are ported: they build and run."""
+    naming the slice that brings it: the serving fabric's roles. Prefix
+    caching, speculation, ring buffers, another dense config as the
+    drafter and every registry config are ported: they build and run. A
+    drafter of another vocabulary (every full-width pair) raises the
+    engine's ValueError, the reference's words."""
     _, _, model, params = bundles
     kw = dict(cache_len=16, num_slots=1, device="cpu")
     with pytest.raises(NotImplementedError, match="fabric"):
@@ -220,14 +222,26 @@ def test_unported_paths_raise_naming_the_slice(bundles):
                                  compute_dtype="float32", ring_buffer=True),
                 device="cpu")
     from repro_torch.launch import serve as launch
-    with pytest.raises(NotImplementedError, match="dense-family"):
-        launch.run_traffic(smoke=True, device="cpu", engine="continuous",
-                           requests=2, slots=2, parity_check=False,
-                           chunk_compare=False, spec_compare=True,
-                           draft_arch="qwen3-14b")
+    # qwen3-smoke shares gemma-smoke's vocabulary (256): it drafts
+    res = launch.run_traffic(smoke=True, device="cpu", engine="continuous",
+                             requests=2, slots=2, parity_check=False,
+                             chunk_compare=False, spec_compare=True,
+                             draft_arch="qwen3-14b", max_new=(3, 6))
+    assert res["draft_arch"] == "qwen3-14b"
+    assert res["spec_token_identical_trace"]
+    from repro.configs import get_config as jax_get_config
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="olmoe"):
-        get_config("olmoe-1b-7b")
+    assert vars(get_config("olmoe-1b-7b")) == vars(
+        jax_get_config("olmoe-1b-7b"))
+    # full width: gemma-2b (vocab 256000) and yi-9b (64000) — the engine
+    # refuses the pair before any parameter is read
+    gemma = build_model(get_config("gemma-2b"), F32, device="cpu")
+    yi = build_model(get_config("yi-9b"), F32, device="cpu")
+    with pytest.raises(ValueError, match="drafter vocab 64000 != target "
+                                         "vocab 256000"):
+        ContinuousEngine(gemma, {}, kv_layout="paged", prefill_chunk=8,
+                         block_size=4, speculate=2, draft_model=yi,
+                         draft_params={}, **kw)
 
 
 def test_entry_points_raise_without_a_card(bundles, monkeypatch):

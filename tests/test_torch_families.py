@@ -395,8 +395,8 @@ def test_carried_state_bytes_match_reference(bundle):
 def test_run_family_rows_matches_reference():
     """A tiny ``--config`` run on both sides: the capability flags, the
     chunk and the state bytes equal the reference's, every family's
-    tokens equal its static baseline, and an unported family gives a
-    skipped row naming its slice. On the CPU each chunk forward and each
+    tokens equal its static baseline, and olmoe (ported now) gives a
+    served row, no skipped one. On the CPU each chunk forward and each
     prefill runs the plain scan once per layer."""
     from repro.launch.serve import run_family_rows as jax_rows
     from repro_torch.launch.serve import run_family_rows
@@ -404,7 +404,8 @@ def test_run_family_rows_matches_reference():
     ref = jax_rows(archs, smoke=True)
     rows = run_family_rows(archs + ("olmoe-1b-7b",), smoke=True,
                            device="cpu")
-    assert "not ported" in rows[2]["skipped"] and "olmoe" in rows[2]["skipped"]
+    assert "skipped" not in rows[2] and rows[2]["block"] == "moe"
+    assert rows[2]["static_tok_identical"] and rows[2]["n"] == 6.0
     for arch, row, jrow in zip(archs, rows, ref):
         for key in ("family", "block", "chunked_prefill", "paged_decode",
                     "carried_state", "prefix_cache", "kv_migration",

@@ -335,11 +335,17 @@ def test_run_traffic_spec_arm(models):
                                   + (k - 1) * sp["spec_rounds"])
     # launches by query width count only the card's kernel launches
     assert sp["mq_launches_by_k"] == {}
-    with pytest.raises(NotImplementedError, match="dense-family"):
-        launch.run_traffic("gemma-2b", device="cpu", engine="continuous",
-                           requests=2, slots=2, chunk_compare=False,
-                           parity_check=False, spec_compare=True,
-                           draft_arch="yi-9b")
+    # yi-smoke (vocab 256, as gemma-smoke's) drafts for gemma-smoke: a
+    # separate drafter keeps the greedy tokens; its acceptance is its own
+    other = launch.run_traffic(
+        "gemma-2b", device="cpu", engine="continuous", requests=3, slots=2,
+        prompt_len=(9, 20), max_new=(3, 8), rate=400.0, chunk_compare=False,
+        parity_check=False, prefill_chunk=8, block_size=4, spec_compare=True,
+        speculate=2, draft_arch="yi-9b")
+    assert other["draft_arch"] == "yi-9b"
+    assert other["spec_token_identical_trace"]
+    sp = other["continuous_spec"]
+    assert sp["kernels"]["verify_calls"] == 2 * sp["spec_rounds"]
 
 
 # ---------------------------------------------------------------------------
