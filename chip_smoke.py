@@ -175,6 +175,28 @@ Phases (any failure exits non-zero and prints no result):
    launches are exactly what its forwards imply (an encoder-decoder's
    encoder passes, static prefills, chunks and decode forwards), the
    paged kernels launch wherever a run pages, and no plain version runs.
+11. The engine's comm binding, burst and sampled traces, and tracing, on
+   gemma-2b at full width in bfloat16 from seed 0. (a) The paged engine
+   bound to a one-rank threadcomm on the card (its prefill, decode,
+   draft and verify streams CUDA streams) against an unbound one, on 8
+   requests of phase 5's 16/256 Poisson trace replayed on a step clock:
+   per step the same block tables, admissions, finishes and tokens, the
+   final K/V pools equal bit for bit, the same ``paged_decode`` and
+   ``paged_mq`` launches (each launched, no plain version); again with
+   ``speculate=3`` (the drafter's pool too). (b) A burst trace (4 at a
+   time, 1/50 s apart) sampled at temperature 0.8 twice through the
+   bound engine: the same tokens (each request has its own generator),
+   and the admissions and tables of the greedy run of the same trace
+   (``eos_id=-1``). (c) ``run_traffic(engine="continuous")`` on the same
+   trace, untraced, then under ``repro_torch.obs.install()``: the Chrome
+   trace written (``_write_trace``) and parsed, with ``prefill_chunk``
+   and ``decode`` spans, ``admit`` instants, ``hop:admission`` spans
+   carrying their residuals, ``block_pool`` counters and no dropped
+   event; the payload's ``residual_admission_ratio`` and
+   ``serialization_stall_s``. Printed, not gated: the event count, the
+   residual ratio of each hop kind, one untraced and one traced decode
+   step of the bound engine profiled, tok/s with tracing off and on, and
+   the phase's seconds.
 
 The last lines are the kernel table (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -1052,7 +1074,8 @@ def phase_engines():
                              requests=16, slots=8, prompt_len=(16, 256),
                              max_new=(4, 48), rate=50.0, engine="both",
                              prefill_chunk=64, max_prefill_per_step=2,
-                             block_size=16, seed=0)
+                             block_size=16, prefix_compare=False,
+                             spec_compare=False, seed=0)
     counts = launch.kernel_counters()
     require(counts == res["kernels"], "counter mismatch")
     for arm in ENGINE_ARMS:
@@ -2314,7 +2337,8 @@ FAMILY_FLASH_CASES = [
 FAMILY_TRAFFIC = dict(requests=6, slots=4, prompt_len=(16, 128),
                       max_new=(4, 12), rate=50.0, engine="both",
                       prefill_chunk=64, max_prefill_per_step=2,
-                      block_size=16, seed=0)
+                      block_size=16, prefix_compare=False,
+                      spec_compare=False, seed=0)
 #: the identity flags of a run_traffic result, by the arms they compare
 IDENTITY_FLAGS = ("static_token_identical_trace",
                   "monolithic_token_identical_trace",
@@ -3293,7 +3317,8 @@ def ring_run(dev):
         params=params, ring=True, engine="both", requests=RING_REQUESTS,
         slots=2, prompt_len=S, max_new=(4, 12), rate=50.0,
         prefill_chunk=128, max_prefill_per_step=2, paged_compare=False,
-        parity_check=False, seed=0)
+        parity_check=False, prefix_compare=False, spec_compare=False,
+        seed=0)
     counts = launch.kernel_counters()
     require(counts == res["kernels"], "counter mismatch")
     require(res["cache_len"] == W, f"ring cache_len {res['cache_len']}")
@@ -3342,6 +3367,327 @@ def phase_spec_prefix_ring(dev):
     print("phase 9: " + json.dumps({"spec_prefix": runs, "ring": ring,
                                     "seconds": seconds}), flush=True)
     return worst, times, runs, ring
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the engine's comm binding, burst and sampled traces, tracing
+# ---------------------------------------------------------------------------
+
+#: phase 11's trace: 8 requests of phase 5's mixed 16/256 Poisson trace
+OBS_TRACE = dict(prompt_len=(16, 256), max_new=(4, 48), rate=50.0, seed=0)
+OBS_REQUESTS = 8
+#: the replay's step clock: a request enters before the first micro-step
+#: whose index reaches ``arrival * OBS_STEPS_PER_S``, so two engines see
+#: the same arrivals whatever their speed
+OBS_STEPS_PER_S = 100.0
+
+
+def obs_engine(model, params, dev, comm=None, **kw):
+    """Phase 5's paged engine (8 rows, chunk 64 x 2 a step, 16-token
+    blocks), bound to ``comm`` when given."""
+    from repro_torch.serve import ContinuousEngine
+    return ContinuousEngine(
+        model, params, cache_len=256 + 48, num_slots=8, prefill_chunk=64,
+        max_prefill_per_step=2, kv_layout="paged", block_size=16, comm=comm,
+        device=dev, **kw)
+
+
+def replay(eng, reqs):
+    """Drive ``reqs`` through ``eng`` on the step clock; per step the
+    block tables, the admitted and the finished rids, and every decoding
+    row's tokens so far."""
+    log, i, step = [], 0, 0
+    pending = sorted(reqs, key=lambda r: r.arrival)
+    while i < len(pending) or not eng.idle:
+        while (i < len(pending)
+               and pending[i].arrival * OBS_STEPS_PER_S <= step):
+            eng.submit(pending[i], float(step))
+            i += 1
+        done = eng.step(float(step))
+        live = tuple((r.rid, tuple(int(t) for t in out[:r.generated]))
+                     for r, out in zip(eng._slot_req, eng._slot_out)
+                     if r is not None)
+        log.append((eng.kv._tables.tobytes(),
+                    tuple(sorted(r.rid for r in reqs
+                                 if r.admit_time == step)),
+                    tuple(sorted(r.rid for r in done)), live))
+        step += 1
+        require(step < 10_000, "replay did not drain")
+    return log
+
+
+def bound_vs_unbound(model, params, dev, root, **kw):
+    """Phase 11(a): the same trace through engines bound to ``root`` and
+    unbound ones, in turns (unbound, bound, bound, unbound: the host
+    times of the two sides read in one call, neither side always first).
+    Per step the same tables, admissions, finishes and tokens; the same
+    final pools bit for bit (the drafter's too); the same launches, each
+    kernel of the path launched."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import make_trace
+
+    trace = make_trace(OBS_REQUESTS, **OBS_TRACE)
+    label = f"speculate={kw['speculate']}" if kw else "plain"
+    runs = []
+    for name, comm in (("unbound", None), ("bound", root), ("bound", root),
+                       ("unbound", None)):
+        eng = obs_engine(model, params, dev, comm=comm, **kw)
+        reqs = launch.requests_from_trace(model.cfg, trace, seed=0)
+        torch.cuda.synchronize()
+        launch.reset_kernel_counters()
+        t0 = time.perf_counter()
+        log = replay(eng, reqs)
+        torch.cuda.synchronize()
+        runs.append(dict(name=name, eng=eng, log=log,
+                         seconds=time.perf_counter() - t0,
+                         counts=launch.kernel_counters(),
+                         tokens=sum(r.generated for r in reqs)))
+        require(all(r.state == "done" for r in reqs),
+                f"11(a) {label} {name}: a request did not finish")
+    unbound, bound = runs[0], runs[1]
+    require(bound["eng"]._decode_stream.name == "decode"
+            and bound["eng"]._decode_stream._cuda is not None,
+            "11(a): the bound engine's streams are not CUDA streams")
+    for run in runs[1:]:
+        require(len(run["log"]) == len(unbound["log"]),
+                f"11(a) {label}: {len(run['log'])} steps {run['name']} vs "
+                f"{len(unbound['log'])} unbound")
+        for step, (a, b) in enumerate(zip(run["log"], unbound["log"])):
+            require(a == b, f"11(a) {label}: step {step} differs between "
+                    f"a {run['name']} and the unbound engine")
+        pools = [("kv", run["eng"].kv, unbound["eng"].kv)]
+        if kw:
+            pools.append(("draft_kv", run["eng"].draft_kv,
+                          unbound["eng"].draft_kv))
+        for pname, pa, pb in pools:
+            for k, t in pa.buffers.items():
+                require(torch.equal(t, pb.buffers[k]),
+                        f"11(a) {label}: final {pname}[{k!r}] differs")
+        require(run["counts"] == unbound["counts"],
+                f"11(a) {label}: launches differ: {run['counts']} vs "
+                f"{unbound['counts']}")
+    counts = bound["counts"]
+    seconds = {name: [r["seconds"] for r in runs if r["name"] == name]
+               for name in ("bound", "unbound")}
+    require(counts["decode_launches"] > 0 and counts["mq_launches"] > 0,
+            f"11(a) {label}: a paged kernel never launched: {counts}")
+    require(counts["ref_calls"] == 0,
+            f"11(a) {label}: plain attention ran {counts['ref_calls']} "
+            "times on the card")
+    out = {"steps": len(bound["log"]), "tokens": bound["tokens"],
+           "decode_launches": counts["decode_launches"],
+           "mq_launches": counts["mq_launches"],
+           "seconds_bound": seconds["bound"],
+           "seconds_unbound": seconds["unbound"]}
+    print(f"11(a) {label}: bound == unbound over {out['steps']} steps "
+          f"(tables, admissions, finishes, tokens; final pools bitwise), "
+          f"{out['tokens']} tokens, paged_decode x{counts['decode_launches']}"
+          f" paged_mq x{counts['mq_launches']} each run; host seconds in "
+          f"turns: unbound {seconds['unbound'][0]:.3f}, bound "
+          f"{seconds['bound'][0]:.3f}, bound {seconds['bound'][1]:.3f}, "
+          f"unbound {seconds['unbound'][1]:.3f}", flush=True)
+    return out
+
+
+def sampled_burst(model, params, dev, root):
+    """Phase 11(b): a burst trace sampled at temperature 0.8 twice
+    through the bound engine (the same tokens: each request has its own
+    generator), then greedy: the same admissions, finishes and tables
+    (``eos_id=-1``: they do not depend on the tokens)."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import make_trace
+
+    eng = obs_engine(model, params, dev, comm=root)
+    runs = []
+    for temp in (0.8, 0.8, 0.0):
+        trace = make_trace(OBS_REQUESTS, arrival="burst", burst=4,
+                           temperature=temp, **OBS_TRACE)
+        reqs = launch.requests_from_trace(model.cfg, trace, seed=0)
+        launch.reset_kernel_counters()
+        log = replay(eng, reqs)
+        counts = launch.kernel_counters()
+        require(counts["decode_launches"] > 0 and counts["mq_launches"] > 0
+                and counts["ref_calls"] == 0,
+                f"11(b) temperature {temp}: launches {counts}")
+        runs.append((log, [r.output[:r.generated].tolist() for r in reqs]))
+        eng.reset()
+    (log1, tok1), (log2, tok2), (glog, gtok) = runs
+    require(log1 == log2 and tok1 == tok2,
+            "11(b): the sampled trace's two runs differ")
+    require(len(log1) == len(glog)
+            and all(a[:3] == b[:3] for a, b in zip(log1, glog)),
+            "11(b): the sampled run's admissions or tables differ from the "
+            "greedy run's")
+    V = model.cfg.vocab_size
+    require(all(0 <= t < V for row in tok1 for t in row),
+            f"11(b): a sampled token out of [0, {V})")
+    same = sum(a == b for x, y in zip(tok1, gtok) for a, b in zip(x, y))
+    total = sum(len(x) for x in tok1)
+    print(f"11(b): burst trace (4 at 1/50 s), temperature 0.8: two runs "
+          f"token-identical over {len(log1)} steps; admissions and tables "
+          f"equal the greedy run's; {same} of {total} tokens equal greedy",
+          flush=True)
+    return {"steps": len(log1), "tokens": total, "equal_greedy": same}
+
+
+def decode_profiles(model, params, dev, root):
+    """Decode steps (4 rows) of the bound engine with tracing off and on:
+    eight steps timed by CUDA events in turns (off, on, on, off, twice;
+    each side's median is its step time), then one step of each side
+    profiled. The tracer adds host work only."""
+    from repro_torch import obs
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import make_trace
+
+    eng = obs_engine(model, params, dev, comm=root)
+    trace = make_trace(4, prompt_len=16, max_new=48, arrival="all", seed=1)
+    for r in launch.requests_from_trace(model.cfg, trace, seed=1):
+        eng.submit(r, 0.0)
+    while eng.num_prefilling or eng.scheduler.num_waiting:
+        eng.step()
+    step_ms = {"untraced": [], "traced": []}
+    out = {"step_ms": step_ms}
+    try:
+        for label in ("untraced", "traced", "traced", "untraced") * 2:
+            if label == "traced":
+                obs.install()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            eng.step()
+            ev[1].record()
+            torch.cuda.synchronize()
+            obs.uninstall()
+            step_ms[label].append(ev[0].elapsed_time(ev[1]))
+        for label in ("untraced", "traced"):
+            if label == "traced":
+                obs.install()
+            out[label] = profile_step(f"decode {label} (B=4, bound)",
+                                      eng.step,
+                                      statistics.median(step_ms[label]))
+            obs.uninstall()
+    finally:
+        obs.uninstall()
+    print("decode step ms in turns (untraced / traced): "
+          + json.dumps(step_ms), flush=True)
+    return out
+
+
+def traced_traffic(params, dev):
+    """Phase 11(c): ``run_traffic`` (continuous arms and the parity
+    batch) untraced, then traced: the Chrome trace written and parsed,
+    the payload's residual keys, the launches of the traced run."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.launch import serve as launch
+
+    args = dict(smoke=False, device="cuda", requests=OBS_REQUESTS, slots=8,
+                engine="continuous", prefill_chunk=64,
+                max_prefill_per_step=2, block_size=16, prefix_compare=False,
+                spec_compare=False, params=params, **OBS_TRACE)
+    obs.uninstall()
+    offs = [launch.run_traffic("gemma-2b", **args)]
+    tr = obs.install()
+    try:
+        launch.reset_kernel_counters()
+        on = launch.run_traffic("gemma-2b", **args)
+        counts = launch.kernel_counters()
+        payload = launch._finalize_payload(on)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "trace.json")
+            launch._write_trace(path)
+            with open(path) as f:
+                doc = json.load(f)
+        n_events, dropped = tr.n_events, tr.dropped
+        # a second traced run, then a second untraced one: tok/s read in
+        # turns (off, on, on, off)
+        obs.install()
+        ons = [on, launch.run_traffic("gemma-2b", **args)]
+    finally:
+        obs.uninstall()
+    offs.append(launch.run_traffic("gemma-2b", **args))
+    require(counts == on["kernels"], "11(c): counter mismatch")
+    require(counts["decode_launches"] > 0 and counts["mq_launches"] > 0
+            and counts["flash_launches"] > 0,
+            f"11(c): a kernel of the path never launched: {counts}")
+    require(counts["ref_calls"] == 0 and counts["flash_ref_calls"] == 0,
+            "11(c): a plain attention version ran on the card")
+    evs = [e for e in doc["traceEvents"] if e["ph"] != "M"]
+    names = {(e["name"], e["ph"]) for e in evs}
+    for need in (("prefill_chunk", "X"), ("decode", "X"), ("admit", "i"),
+                 ("hop:admission", "X"), ("block_pool", "C")):
+        require(need in names, f"11(c): no {need[0]} event in the trace")
+    for e in evs:
+        if e["name"] == "hop:admission":
+            require({"modeled_s", "measured_s", "residual_ratio"}
+                    <= set(e["args"]),
+                    f"11(c): a hop:admission span lacks its residual: "
+                    f"{e['args']}")
+    require(doc["metadata"]["dropped_events"] == 0 and dropped == 0,
+            f"11(c): {dropped} events dropped")
+    for key in ("residual_admission_ratio", "serialization_stall_s"):
+        require(key in payload, f"11(c): payload has no {key}")
+    arms = ("continuous", "continuous_monolithic", "continuous_paged")
+    for arm in arms:
+        for res in offs + ons:
+            require(res[arm].get("n") == float(OBS_REQUESTS),
+                    f"11(c) {arm}: {res[arm].get('n')} of {OBS_REQUESTS} "
+                    "finished")
+    hops = payload["residual_report"]["hops"]
+    ratios = {k: row["ratio"] for k, row in hops.items()}
+    tok_s = {arm: {"off": [r[arm]["tok_s"] for r in offs],
+                   "on": [r[arm]["tok_s"] for r in ons]} for arm in arms}
+    print(f"11(c): {n_events} events, 0 dropped; residual ratio by hop "
+          f"(measured / modeled): {json.dumps(ratios)} over "
+          f"{json.dumps({k: row['n'] for k, row in hops.items()})} hops; "
+          f"serialization_stall_s {payload['serialization_stall_s']}",
+          flush=True)
+    for arm, v in tok_s.items():
+        print(f"11(c) {arm:22s}: tok/s in turns: off {v['off'][0]:.2f}, "
+              f"on {v['on'][0]:.2f}, on {v['on'][1]:.2f}, off "
+              f"{v['off'][1]:.2f}", flush=True)
+    print("11(c) traced launches: " + json.dumps(counts), flush=True)
+    return {"events": n_events, "residual_ratio": ratios,
+            "hops": {k: row["n"] for k, row in hops.items()},
+            "serialization_stall_s": payload["serialization_stall_s"],
+            "tok_s": tok_s, "launches_traced": counts}
+
+
+def phase_comm_obs(dev):
+    """Phase 11: gemma-2b at full width in bfloat16 from seed 0 on the
+    paged engine bound to a one-rank threadcomm on the card: (a) bound
+    vs unbound, plain and ``speculate=3``; (b) a sampled burst trace;
+    (c) tracing through ``run_traffic`` and two profiled decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import threadcomm_init
+    from repro_torch.core.compat import make_mesh
+
+    t_phase = time.perf_counter()
+    free_cuda()
+    model, params = build_family("gemma-2b", dev)
+    root = threadcomm_init(make_mesh((1,), ("ranks",)), process_axes=(),
+                           thread_axes=("ranks",))
+    root.start()
+    try:
+        record = {"bound": bound_vs_unbound(model, params, dev, root)}
+        record["bound_spec"] = bound_vs_unbound(model, params, dev, root,
+                                                speculate=3)
+        free_cuda()
+        record["sampled_burst"] = sampled_burst(model, params, dev, root)
+        record["decode_profile"] = decode_profiles(model, params, dev, root)
+    finally:
+        root.finish()
+        root.free()
+    free_cuda()
+    require(get_config("gemma-2b").vocab_size == model.cfg.vocab_size,
+            "11: not gemma-2b's published config")
+    record["traffic"] = traced_traffic(params, dev)
+    del model, params
+    free_cuda()
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11: {record['seconds']:.1f} s", flush=True)
+    print("phase 11: " + json.dumps(record), flush=True)
+    return record
 
 
 def main() -> None:
@@ -3394,6 +3740,8 @@ def main() -> None:
     verify_err, verify_times, spec_runs, ring = phase_spec_prefix_ring(dev)
     torch.cuda.empty_cache()
     family_table, _ = phase_model_families(dev)
+    torch.cuda.empty_cache()
+    comm_obs = phase_comm_obs(dev)
 
     # launches: the --engine both run, which drives all three kernels;
     # the paged serve phase's own counts stand beside them
@@ -3430,6 +3778,21 @@ def main() -> None:
         table[name]["max_abs_err"] = max(table[name]["max_abs_err"],
                                          add.pop("max_abs_err"))
         table[name].update(add)
+    # phase 11: the bound engine's launches (plain, then speculate=3)
+    # and the traced run_traffic's
+    table["paged_decode"]["launches_comm_bound"] = \
+        comm_obs["bound"]["decode_launches"]
+    table["paged_mq"]["launches_comm_bound"] = \
+        comm_obs["bound"]["mq_launches"]
+    table["paged_decode"]["launches_comm_bound_spec"] = \
+        comm_obs["bound_spec"]["decode_launches"]
+    table["paged_mq"]["launches_comm_bound_spec"] = \
+        comm_obs["bound_spec"]["mq_launches"]
+    traced = comm_obs["traffic"]["launches_traced"]
+    for name, key in (("paged_decode", "decode_launches"),
+                      ("paged_mq", "mq_launches"),
+                      ("flash_attention", "flash_launches")):
+        table[name]["launches_traced"] = traced[key]
     print("model: " + json.dumps(model), flush=True)
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)

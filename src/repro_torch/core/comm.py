@@ -36,14 +36,19 @@ Lifetime rules extend the paper's §2 activation-window semantics: derived
 comms, groups, attributes AND requests die at ``finish`` — using any of
 them afterwards raises :class:`ThreadCommError`.
 
-Not ported in this module: the reference's runtime sanitizer and span
-tracer hooks (``REPRO_SANITIZE``, ``REPRO_TRACE``); they come with the
-port of ``analysis/`` and ``obs/``.
+Telemetry (``REPRO_TRACE=1``, :mod:`repro_torch.obs`): ``Request.wait``
+reports its wait to the tracer (a ``wait:<op>`` span, and blocked time
+charged to the serialization-stall detector while the thread has
+runnable work), and a ``with comm.stream(name)`` region is a
+``stream:<name>`` span. Off, each site is one global read and a ``None``
+check. Not ported in this module: the reference's runtime sanitizer
+hooks (``REPRO_SANITIZE``); they come with the port of ``analysis/``.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from itertools import combinations
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -56,6 +61,7 @@ from repro_torch.core import collectives as coll
 from repro_torch.core import p2p as p2p_mod
 from repro_torch.core import protocol
 from repro_torch.core.compat import P, axis_index, rank_view, shard_map
+from repro_torch.obs.trace import active as _tr_active
 
 
 class ThreadCommError(RuntimeError):
@@ -66,9 +72,12 @@ CommError = ThreadCommError  # preferred alias for new code
 
 
 def _tensors(value) -> List[torch.Tensor]:
-    """The tensors of a value (a tensor or nested tuples and lists)."""
+    """The tensors of a value (a tensor or nested tuples, lists and dict
+    values)."""
     if isinstance(value, torch.Tensor):
         return [value]
+    if isinstance(value, dict):
+        value = list(value.values())
     if isinstance(value, (tuple, list)):
         return [t for v in value for t in _tensors(v)]
     return []
@@ -120,9 +129,15 @@ class Request:
         where a device fault of the operation surfaces)."""
         self._check_window()
         self._done = True
+        tr = _tr_active()
+        # the completion point is where accidental serialization bites:
+        # under a trace the block is timed for the stall detector
+        t0 = time.perf_counter() if tr is not None else 0.0
         if self._event is not None:
             torch.cuda.current_stream().wait_event(self._event)
             self._event.synchronize()
+        if tr is not None:
+            tr.on_wait(self.op, t0, time.perf_counter())
         return self._value
 
     def test(self) -> Tuple[bool, Optional[object]]:
@@ -169,9 +184,13 @@ class CommStream:
             else None
         self._outer = None
         self._ctx = None
+        self._obs_span = None
 
     def __enter__(self) -> "CommStream":
         self.comm._root._check_active()
+        tr = _tr_active()
+        if tr is not None:        # stream-region span, closed in __exit__
+            self._obs_span = tr.span(f"stream:{self.name}", cat="comm")
         if self._cuda is not None:
             self._outer = torch.cuda.current_stream(self._cuda.device)
             self._cuda.wait_stream(self._outer)
@@ -187,6 +206,10 @@ class CommStream:
         if self._ctx is not None:
             ctx, self._ctx = self._ctx, None
             ctx.__exit__(*exc)
+        sp = self._obs_span
+        if sp is not None:
+            self._obs_span = None
+            sp.end()
         return False
 
     # ---- ordering (called by Comm.icollective / Comm.isend) ----

@@ -27,6 +27,19 @@ continuous engine alone. :func:`run_family_rows` (the CLI's
 ``--config``) drives each named family through the paged chunked engine
 and holds its tokens to the family's static monolithic baseline.
 
+Traces are Poisson (the default), bursts (``--arrival burst``: groups of
+``--burst`` at 1/rate spacing) or all at once, greedy or sampled at
+``--temperature`` (the speculative arm runs on greedy traces only). The
+prefix and speculative comparisons run by default, as the reference's
+do; ``--no-prefix-compare`` / ``--no-spec-compare`` skip them.
+
+Telemetry: under ``REPRO_TRACE=1`` (or after ``repro_torch.obs.install()``)
+each continuous arm's stats carry the registry's snapshot
+(``"metrics"``), its residual report and flat ``residual_<hop>_ratio``
+keys and ``serialization_stall_s``; ``--json`` merges them into one
+payload-level report (the reference's v8 keys) and ``--trace-out PATH``
+writes the tracer's ring as Chrome trace_event JSON for Perfetto.
+
 On the card (the default):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
       --engine both --requests 16 --slots 8 --prompt-len 16,256 \\
@@ -49,7 +62,10 @@ On the CPU, at the smoke config (the plain attention path):
       --prompt-len 16,40
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
       --smoke --device cpu --engine continuous --requests 6 --slots 3 \\
-      --prompt-len 40 --max-new-hi 12 --spec-compare --prefix-compare
+      --prompt-len 40 --max-new-hi 12
+  REPRO_TRACE=1 PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --smoke --device cpu --engine continuous --requests 6 --slots 3 \\
+      --arrival burst --temperature 0.7 --trace-out trace.json
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --smoke --device cpu --ring --no-paged-compare --requests 4 \\
       --slots 2 --prompt-len 24 --max-new-hi 8
@@ -77,10 +93,12 @@ from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import encdec, transformer
 from repro_torch.models.registry import build_model, cache_len_for
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import residuals as obs_residuals
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import (ContinuousEngine, ServeRequest, StaticEngine,
                                make_trace)
 from repro_torch.serve.engine import sequence_len
-from repro_torch.serve.scheduler import latency_stats_over
 
 #: registry families the ``--config`` sweep covers by default: one per
 #: serving structure (dense, MoE, SSM, hybrid, enc-dec), as the
@@ -154,7 +172,8 @@ def requests_from_trace(cfg, trace, *, seed: int = 0) -> List[ServeRequest]:
                 templates[entry.prefix_group][:, :entry.prefix_len]
         reqs.append(ServeRequest(rid=rid, batch={
             "tokens": tok, **frontend_arrays(cfg, 1, seed + 1000 + rid)},
-                                 max_new_tokens=entry.max_new, seed=seed,
+                                 max_new_tokens=entry.max_new,
+                                 temperature=entry.temperature, seed=seed,
                                  arrival=entry.arrival))
     return reqs
 
@@ -232,10 +251,30 @@ def device_info(device: torch.device) -> Dict:
     return info
 
 
+def _attach_telemetry(stats: Dict) -> None:
+    """When the tracer is live, stamp the trial's residual report, flat
+    per-hop ratios and the serialization-stall total onto the stats. The
+    capture is trial-clean: the engine's post-warm-up ``reset`` flushed
+    the ledger before the measured drive started."""
+    tr = obs_trace.active()
+    if tr is None:
+        return
+    rep = tr.residuals.report()
+    stats["residual_report"] = rep
+    for kind, row in rep["hops"].items():
+        if row["n"]:
+            stats[f"residual_{kind}_ratio"] = row["ratio"]
+    stats["serialization_stall_s"] = rep["serialization_stall_s"]
+
+
 def drive_continuous(eng: ContinuousEngine, requests: List[ServeRequest]
                      ) -> Dict[str, float]:
     """Submit each request at its arrival time, run micro-steps until all
-    have finished; return latency/throughput stats."""
+    have finished; return latency/throughput stats from the one merged
+    surface (:func:`repro_torch.obs.metrics.snapshot`: latency
+    percentiles, KV/prefix/spec accounting and, when the registry is
+    live, its counters, gauges and histograms) and the trial's residuals
+    when the tracer is live."""
     pending = sorted(requests, key=lambda r: r.arrival)
     n, i, done = len(pending), 0, 0
     t0 = time.perf_counter()
@@ -252,7 +291,7 @@ def drive_continuous(eng: ContinuousEngine, requests: List[ServeRequest]
     makespan = time.perf_counter() - t0
     toks = sum(useful_tokens(r.output[:r.generated], eng.eos_id)
                for r in requests)
-    stats = latency_stats_over(eng.scheduler.finished)
+    stats = obs_metrics.snapshot(engine=eng)
     stats.update(makespan_s=makespan, useful_tokens=float(toks),
                  tok_s=toks / makespan,
                  eager_admits=float(eng.scheduler.n_eager_admits),
@@ -260,9 +299,7 @@ def drive_continuous(eng: ContinuousEngine, requests: List[ServeRequest]
                  block_deferrals=float(eng.scheduler.n_block_deferrals),
                  modeled_admit_cost_us=1e6
                  * eng.scheduler.modeled_admit_cost_s)
-    stats.update(eng.kv_accounting())
-    stats.update(eng.prefix_stats())
-    stats.update(eng.spec_stats())
+    _attach_telemetry(stats)
     return stats
 
 
@@ -357,20 +394,24 @@ def _drafter(draft_arch: str, arch: str, smoke: bool, serve_cfg, device,
 
 def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
                 device="cuda", requests: int = 12, slots: int = 4,
-                prompt_len=16, max_new=(4, 32), rate: float = 50.0,
+                prompt_len=16, max_new=(4, 32), arrival: str = "poisson",
+                rate: float = 50.0, burst: int = 4, temperature: float = 0.0,
                 engine: str = "both", ring: bool = False, eos_id: int = -1,
                 seed: int = 0, parity_check: bool = True,
                 prefill_chunk: int = 64, max_prefill_per_step: int = 2,
                 chunk_compare: bool = True, paged_compare: bool = True,
-                block_size: int = 16, prefix_compare: bool = False,
+                block_size: int = 16, prefix_compare: bool = True,
                 shared_prefix_len: int = 0, share_ratio: float = 0.9,
-                spec_compare: bool = False, speculate: int = 3,
+                spec_compare: bool = True, speculate: int = 3,
                 draft_arch: str = "self", dtype: Optional[str] = None,
                 params=None, layers: Optional[int] = None) -> Dict:
     """Build the model once, warm each engine off the clock, then drive a
-    Poisson trace through the requested engine(s). Returns the full
-    measurement dict (the reference's keys, plus the port's ``backend``,
-    ``device``, ``kernels``, per-arm outputs and equal-token shares).
+    trace (``arrival``: ``"poisson"`` at ``rate``, ``"burst"`` of
+    ``burst`` at 1/rate spacing, or ``"all"``; every request sampled at
+    ``temperature``, 0 = greedy) through the requested engine(s). Returns
+    the full measurement dict (the reference's keys, plus the port's
+    ``backend``, ``device``, ``kernels``, per-arm outputs and equal-token
+    shares).
 
     ``prompt_len`` is an int or a sequence cycled across the trace (e.g.
     ``(16, 256)`` interleaves short and long prompts). With
@@ -384,9 +425,10 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
     batch of the longest prompt through static, continuous and paged
     engines.
 
-    With ``spec_compare`` (a family with the 'speculative' capability)
-    the trace runs once more through a paged engine at the equal-HBM
-    pool with ``speculate`` draft tokens a round: ``draft_arch="self"``
+    With ``spec_compare`` (a greedy trace on a family with the
+    'speculative' capability) the trace runs once more through a paged
+    engine at the equal-HBM pool with ``speculate`` draft tokens a
+    round: ``draft_arch="self"``
     self-speculates, another dense config drafts from its own seeded
     parameters. The result records ``spec_tok_s``, accepted tokens per
     dispatch and token identity with the non-speculative paged run.
@@ -434,7 +476,8 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
     reset_kernel_counters()
 
     trace = make_trace(requests, prompt_len=plens, max_new=max_new,
-                       rate=rate, seed=seed)
+                       arrival=arrival, rate=rate, burst=burst,
+                       temperature=temperature, seed=seed)
     result: Dict = {"backend": "torch", "arch": cfg.name,
                     "layers": cfg.num_layers, "device": device_info(dev),
                     "torch_version": torch.__version__,
@@ -442,7 +485,7 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
                     "requests": requests, "slots": slots,
                     "prompt_len": list(plens), "cache_len": cache_len,
                     "ring": ring,
-                    "arrival": "poisson", "rate": rate, "eos_id": eos_id,
+                    "arrival": arrival, "rate": rate, "eos_id": eos_id,
                     "prefill_chunk": 0,     # effective value set below
                     "max_prefill_per_step": max_prefill_per_step,
                     "distinct_prompt_lens": len(set(plens)),
@@ -507,7 +550,8 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
                else (3 * pmax // 4) // bs * bs)
         spl = max(bs, min(spl, pmax - 1))
         tr = make_trace(requests, prompt_len=pmax, max_new=max_new,
-                        rate=rate, shared_prefix_len=spl,
+                        arrival=arrival, rate=rate, burst=burst,
+                        temperature=temperature, shared_prefix_len=spl,
                         share_ratio=share_ratio, prefix_groups=groups,
                         seed=seed)
         nblocks = (slots * -(-cache_len // bs) + groups * -(-spl // bs)
@@ -595,9 +639,10 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
                 c["kv_bytes_per_resident_token"]
         result["continuous_tok_s"] = result["continuous"]["tok_s"]
         if (prefill_chunk and spec_compare and speculate > 0
-                and caps.speculative):
+                and temperature == 0.0 and caps.speculative):
             # the same trace and equal-HBM pool as the paged comparison,
-            # in draft-verify rounds: greedy tokens must not change
+            # in draft-verify rounds: greedy tokens must not change (a
+            # sampled trace skips the arm, as the reference's does)
             dmodel, dparams = _drafter(draft_arch, arch, smoke, serve_cfg,
                                        dev, seed)
             nblocks = max(1, (slots * cache_len) // block_size)
@@ -692,15 +737,17 @@ def run_traffic(arch: str = "gemma-2b", *, smoke: bool = True,
 
 def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
               device="cuda", requests: int = 16, slots: int = 8,
-              prompt_len=(16, 256), max_new=(4, 48), rate: float = 50.0,
-              prefill_chunk: int = 64, max_prefill_per_step: int = 2,
-              block_size: int = 16, seed: int = 0,
-              layers: Optional[int] = None) -> Dict:
-    """Build the model, warm the engine, drive the trace; return the
-    result dict (``backend: "torch"``). The chunk is floored to the
-    family's ``chunk_multiple`` (:func:`effective_chunk`). The kernel
-    counters in it (:func:`kernel_counters`) count the measured drive
-    only. ``layers`` cuts the depth (:func:`arch_config`)."""
+              prompt_len=(16, 256), max_new=(4, 48),
+              arrival: str = "poisson", rate: float = 50.0, burst: int = 4,
+              temperature: float = 0.0, prefill_chunk: int = 64,
+              max_prefill_per_step: int = 2, block_size: int = 16,
+              seed: int = 0, layers: Optional[int] = None) -> Dict:
+    """Build the model, warm the engine, drive the trace (``arrival``,
+    ``rate``, ``burst`` and ``temperature`` as in :func:`run_traffic`);
+    return the result dict (``backend: "torch"``). The chunk is floored
+    to the family's ``chunk_multiple`` (:func:`effective_chunk`). The
+    kernel counters in it (:func:`kernel_counters`) count the measured
+    drive only. ``layers`` cuts the depth (:func:`arch_config`)."""
     cfg = arch_config(arch, smoke, layers)
     dtype = "float32" if smoke else "bfloat16"
     model = build_model(cfg, ServeConfig(param_dtype=dtype,
@@ -721,7 +768,8 @@ def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
     eng.generate(synthetic_batch(cfg, min(2, slots), plens[0], seed), 2)
     eng.reset()
     trace = make_trace(requests, prompt_len=plens, max_new=max_new,
-                       rate=rate, seed=seed)
+                       arrival=arrival, rate=rate, burst=burst,
+                       temperature=temperature, seed=seed)
     reqs = requests_from_trace(cfg, trace, seed=seed)
     if model.device.type == "cuda":
         torch.cuda.synchronize()
@@ -738,7 +786,8 @@ def run_serve(arch: str = "gemma-2b", *, smoke: bool = False,
         "dtype": dtype,
         "requests": requests, "slots": slots, "prompt_len": list(plens),
         "max_new": list(max_new) if not isinstance(max_new, int) else max_new,
-        "rate": rate, "cache_len": cache_len,
+        "arrival": arrival, "rate": rate, "temperature": temperature,
+        "cache_len": cache_len,
         "prefill_chunk": eng.prefill_chunk,
         "max_prefill_per_step": eng.max_prefill_per_step,
         "block_size": block_size, "num_blocks": eng.kv.pool.num_blocks,
@@ -898,6 +947,52 @@ def print_traffic(result: Dict) -> None:
     print("kernels: " + json.dumps(result["kernels"]), flush=True)
 
 
+def _collect_reports(obj) -> List[dict]:
+    """Every sub-run residual report nested anywhere in a payload (the
+    drivers stamp one per measured trial)."""
+    reps: List[dict] = []
+    if isinstance(obj, dict):
+        rep = obj.get("residual_report")
+        if isinstance(rep, dict):
+            reps.append(rep)
+        for v in obj.values():
+            if isinstance(v, (dict, list)):
+                reps.extend(_collect_reports(v))
+    elif isinstance(obj, list):
+        for v in obj:
+            reps.extend(_collect_reports(v))
+    return reps
+
+
+def _finalize_payload(payload: Dict) -> Dict:
+    """The reference's v8 keys: every sub-run's residual report merged
+    into one payload-level ``residual_report``, with flat
+    ``residual_<hop>_ratio`` keys and the summed ``serialization_stall_s``
+    (all absent when telemetry was off)."""
+    reps = _collect_reports(payload)
+    if reps:
+        merged = obs_residuals.merge_reports(reps)
+        payload["residual_report"] = merged
+        for kind, row in merged["hops"].items():
+            if row["n"]:
+                payload[f"residual_{kind}_ratio"] = row["ratio"]
+        payload["serialization_stall_s"] = merged["serialization_stall_s"]
+    return payload
+
+
+def _write_trace(path) -> None:
+    """``--trace-out``: export the tracer's ring as Chrome trace_event
+    JSON (Perfetto / chrome://tracing)."""
+    if not path:
+        return
+    tr = obs_trace.active()
+    if tr is None:
+        print(f"--trace-out {path}: tracing is off (set REPRO_TRACE=1)")
+        return
+    tr.write_chrome(path)
+    print(f"wrote {path} ({tr.n_events} events, {tr.dropped} dropped)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="gemma-2b", choices=list(ARCH_NAMES))
@@ -918,7 +1013,14 @@ def main(argv=None):
     ap.add_argument("--prompt-len", default="16,256", metavar="N[,N...]")
     ap.add_argument("--max-new-lo", type=int, default=4)
     ap.add_argument("--max-new-hi", type=int, default=48)
-    ap.add_argument("--rate", type=float, default=50.0)
+    ap.add_argument("--arrival", default="poisson",
+                    choices=("poisson", "burst", "all"))
+    ap.add_argument("--rate", type=float, default=50.0,
+                    help="arrival rate (req/s); burst spacing is 1/rate")
+    ap.add_argument("--burst", type=int, default=4)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature of every request (0 = "
+                         "greedy; the speculative arm needs greedy)")
     ap.add_argument("--prefill-chunk", type=int, default=64)
     ap.add_argument("--max-prefill-per-step", type=int, default=2)
     ap.add_argument("--no-chunk-compare", action="store_true")
@@ -928,15 +1030,15 @@ def main(argv=None):
                     help="ring-buffer slot caches bounded by the sliding "
                          "window (the paged arms cannot hold a longer "
                          "prompt: pair with --no-paged-compare)")
-    ap.add_argument("--spec-compare", action="store_true",
-                    help="run the speculative-decoding arm")
+    ap.add_argument("--no-spec-compare", action="store_true",
+                    help="skip the speculative-decoding arm")
     ap.add_argument("--speculate", type=int, default=3,
                     help="draft tokens a draft-verify round")
     ap.add_argument("--draft-arch", default="self",
                     help="the drafter: 'self' or another config with the "
                          "target's vocabulary")
-    ap.add_argument("--prefix-compare", action="store_true",
-                    help="run the shared-prefix trace without, cold and "
+    ap.add_argument("--no-prefix-compare", action="store_true",
+                    help="skip the shared-prefix trace without, cold and "
                          "warm with the radix prefix cache")
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help="template tokens of the shared-prefix trace (0 = "
@@ -945,6 +1047,9 @@ def main(argv=None):
     ap.add_argument("--eos-id", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None, metavar="PATH")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the telemetry ring as Chrome trace_event "
+                         "JSON for Perfetto (needs REPRO_TRACE=1)")
     args = ap.parse_args(argv)
     plens = tuple(int(p) for p in args.prompt_len.split(","))
     if args.config is not None:
@@ -963,28 +1068,32 @@ def main(argv=None):
         print_family_rows(rows)
         if args.json:
             with open(args.json, "w") as f:
-                json.dump({"backend": "torch", "families": rows}, f,
-                          indent=1)
+                json.dump(_finalize_payload(
+                    {"backend": "torch", "families": rows}), f, indent=1)
+        _write_trace(args.trace_out)
         return
     result = run_traffic(
         args.arch, smoke=args.smoke, device=args.device,
         requests=args.requests, slots=args.slots,
         prompt_len=plens[0] if len(plens) == 1 else plens,
-        max_new=(args.max_new_lo, args.max_new_hi), rate=args.rate,
+        max_new=(args.max_new_lo, args.max_new_hi), arrival=args.arrival,
+        rate=args.rate, burst=args.burst, temperature=args.temperature,
         engine=args.engine, eos_id=args.eos_id, seed=args.seed,
         prefill_chunk=args.prefill_chunk,
         max_prefill_per_step=args.max_prefill_per_step,
         chunk_compare=not args.no_chunk_compare,
         paged_compare=not args.no_paged_compare,
         block_size=args.kv_block_size, ring=args.ring,
-        spec_compare=args.spec_compare, speculate=args.speculate,
-        draft_arch=args.draft_arch, prefix_compare=args.prefix_compare,
+        spec_compare=not args.no_spec_compare, speculate=args.speculate,
+        draft_arch=args.draft_arch,
+        prefix_compare=not args.no_prefix_compare,
         shared_prefix_len=args.shared_prefix_len,
         share_ratio=args.share_ratio, layers=args.layers)
     print_traffic(result)
     if args.json:
         with open(args.json, "w") as f:
-            json.dump(result, f, indent=2)
+            json.dump(_finalize_payload(result), f, indent=2)
+    _write_trace(args.trace_out)
 
 
 if __name__ == "__main__":

@@ -35,8 +35,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs.metrics import active as _reg_active
+from repro_torch.obs.trace import active as _tr_active
 from repro_torch.serve.kv_cache import (LeaseLeakError, LeaseLeakWarning,
-                                        SlotError)
+                                        SlotError, check_same_buffers)
 
 
 class BlockPool:
@@ -106,6 +108,7 @@ class BlockPool:
             self._ref[b] = 1
             self._owner[b] = owner
             self._last_owner[b] = owner
+        self._observe_occupancy()
         return blocks
 
     def ref(self, block: int, owner: object = None) -> None:
@@ -129,6 +132,22 @@ class BlockPool:
                 # the survivor may be the reclaimer's own reference: it
                 # parks the block if so
                 self._reclaimer.on_sole_ref(b)
+        self._observe_occupancy()
+
+    def _observe_occupancy(self) -> None:
+        """Telemetry: block-pool occupancy as a ``block_pool`` counter
+        track and two registry gauges, sampled at lease transitions (alloc
+        and free are the only places occupancy moves)."""
+        tr = _tr_active()
+        if tr is not None:
+            free = len(self._free)
+            tr.counter("block_pool", free=free,
+                       live=self.num_blocks - free)
+        reg = _reg_active()
+        if reg is not None:
+            reg.gauge("block_pool.free_blocks").set(len(self._free))
+            reg.gauge("block_pool.live_blocks").set(
+                self.num_blocks - len(self._free))
 
     def reset(self, *, strict: bool = False) -> None:
         """Wipe every lease. Blocks still live are leaks and are named:
@@ -339,6 +358,12 @@ class PagedKVCache:
         cross_k/cross_v: (L, num_slots, ...)), written in place by the
         model's steps."""
         return self._buf
+
+    def swap_buffers(self, new_buf) -> None:
+        """The reference's install of a step's donated output; here a
+        check that ``new_buf`` is the pool itself
+        (:func:`~repro_torch.serve.kv_cache.check_same_buffers`)."""
+        check_same_buffers(self._buf, new_buf)
 
     # -- accounting --------------------------------------------------------
     @property

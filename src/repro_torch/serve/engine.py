@@ -74,12 +74,38 @@ families forbid both through their capabilities):
   Rejected draft rows roll back structurally: the row advances by the
   accepted count only.
 
+With ``comm=`` a continuous engine takes four streams of that
+communicator, ``prefill``, ``decode``, ``draft`` and ``verify``
+(:class:`repro_torch.core.comm.CommStream`), and threads the pool
+through each stream's ``ordered`` at the reference's sites: after every
+write of the pool (encoder pre-chunk, CoW clone, prompt chunk, the
+drafter's chunk, a speculative round), before the decode step, and the
+monolithic prefill's cache before its insert. As in the reference the
+streams only order values: every dispatch stays on the current stream,
+so a bound engine's tokens, admissions, tables and pool equal the
+unbound one's bit for bit. Without a comm the streams are
+:class:`_NullStream`. Each cache's ``swap_buffers`` checks that what
+comes back is its own pool (the steps write it in place).
+
+Telemetry (``REPRO_TRACE=1``, :mod:`repro_torch.obs`), as in the
+reference: each micro-step sets the tracer's runnable hint; admissions
+are ``hop:admission`` (or ``hop:prefix_hit``) spans priced by the
+scheduler's ``admit_cost_s``; prompt chunks, decode steps and
+speculative rounds are ``prefill_chunk`` (``jobs``), ``decode``
+(``rows``) and ``spec_round`` spans, a round's dispatch a
+``hop:spec_verify`` priced by ``protocol.speculative_verify_latency``;
+``reset`` flushes the trial (:func:`repro_torch.obs.flush_trial`). A
+span is host wall clock around the call; it covers the card's work up
+to the call's last host sync. Off, each site is one global read and a
+``None`` check.
+
 The serving fabric's prefill/decode roles are not ported yet and raise
 ``NotImplementedError``, naming the slice that brings them.
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Deque, List, Optional
@@ -89,6 +115,9 @@ import torch
 
 from repro_torch.core import protocol
 from repro_torch.device import resolve_device
+from repro_torch.obs import flush_trial as _obs_flush_trial
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import active as _tr_active
 from repro_torch.serve.block_pool import PagedKVCache
 from repro_torch.serve.kv_cache import SlotError, SlotKVCache
 from repro_torch.serve.prefix_cache import PrefixCache
@@ -97,6 +126,13 @@ from repro_torch.serve.scheduler import CellQueueScheduler, ServeRequest
 #: parked decode position: so far below zero that a free or prefilling
 #: row's decode writes nothing and reads no token
 PARK_POS = -(2 ** 30)
+
+
+class _NullStream:
+    """Stand-in when no communicator is bound: no ordering constraints."""
+
+    def ordered(self, value):
+        return value
 
 
 def not_ported(what: str, slice_name: str) -> NotImplementedError:
@@ -229,7 +265,8 @@ class ContinuousEngine:
     def __init__(self, model, params, *, cache_len: int, num_slots: int,
                  eos_id: int = -1,
                  scheduler: Optional[CellQueueScheduler] = None,
-                 max_prefill_per_step: int = 1, prefill_chunk: int = 64,
+                 comm=None, max_prefill_per_step: int = 1,
+                 prefill_chunk: int = 64,
                  kv_layout: str = "slot", block_size: int = 16,
                  num_blocks: Optional[int] = None, role: str = "full",
                  prefix_cache: bool = False, speculate: int = 0,
@@ -324,6 +361,18 @@ class ContinuousEngine:
             prefill_chunk_bytes=4 * self.prefill_chunk,
             block_bytes=4 * int(block_size) if paged else 0,
             state_bytes=self._carried_state_bytes())
+        if comm is not None:
+            self._prefill_stream = comm.stream("prefill")
+            self._decode_stream = comm.stream("decode")
+            # draft and verify are distinct execution domains (the
+            # drafter's pool advances independently of the target's)
+            self._draft_stream = comm.stream("draft")
+            self._verify_stream = comm.stream("verify")
+        else:
+            self._prefill_stream = _NullStream()
+            self._decode_stream = _NullStream()
+            self._draft_stream = _NullStream()
+            self._verify_stream = _NullStream()
         #: partially-deposited requests, FIFO; each micro-step serves the
         #: first ``max_prefill_per_step`` of them with one fused dispatch
         self._prefilling: Deque[_PrefillJob] = deque()
@@ -459,6 +508,15 @@ class ContinuousEngine:
         return req.prompt_len + req.max_new_tokens
 
     @property
+    def num_active(self) -> int:
+        return self.kv.num_live
+
+    @property
+    def num_prefilling(self) -> int:
+        """Requests admitted to a row but still streaming their prompt."""
+        return len(self._prefilling)
+
+    @property
     def num_decoding(self) -> int:
         return sum(r is not None for r in self._slot_req)
 
@@ -473,6 +531,11 @@ class ContinuousEngine:
         dispatch; or, with ``prefill_chunk=0``, whole prompts), then
         advance every decoding row by one token. Returns the requests
         that finished this step."""
+        tr = _tr_active()
+        if tr is not None:
+            # runnable-work hint for the serialization-stall detector:
+            # rows + queued requests this engine could be advancing
+            tr.set_runnable(self.kv.num_live + self.scheduler.num_waiting)
         finished: List[ServeRequest] = []
         if self.prefill_chunk:
             budget = min(self.kv.num_free,
@@ -493,19 +556,56 @@ class ContinuousEngine:
                 admitted = self.scheduler.admit(now, 1, can_admit=can)
                 if not admitted:
                     break
-                self._begin_prefill(admitted[0])
+                req = admitted[0]
+                if tr is None:
+                    self._begin_prefill(req)
+                else:
+                    # the admission hop's wall-clock twin of the price
+                    # stamped on the request (repriced to the prefix-hit
+                    # model when the radix cache served it)
+                    t0 = time.perf_counter()
+                    self._begin_prefill(req)
+                    tr.hop("prefix_hit" if req.prefix_hit_tokens > 0
+                           else "admission", req.admit_cost_s, t0,
+                           time.perf_counter(), rid=req.rid)
                 budget -= 1
             if self._prefilling:
-                finished.extend(self._prefill_chunk_step(now))
+                if tr is None:
+                    finished.extend(self._prefill_chunk_step(now))
+                else:
+                    nj = min(len(self._prefilling),
+                             self.max_prefill_per_step)
+                    t0 = time.perf_counter()
+                    finished.extend(self._prefill_chunk_step(now))
+                    tr.complete("prefill_chunk", t0, time.perf_counter(),
+                                cat="engine", jobs=nj)
         else:
             n_admit = min(self.kv.num_free, self.max_prefill_per_step)
             for req in self.scheduler.admit(now, n_admit):
-                done = self._admit(req, now)
+                if tr is None:
+                    done = self._admit(req, now)
+                else:
+                    t0 = time.perf_counter()
+                    done = self._admit(req, now)
+                    tr.hop("admission", req.admit_cost_s, t0,
+                           time.perf_counter(), rid=req.rid)
                 if done is not None:
                     finished.append(done)
         if self.num_decoding:
-            finished.extend(self._spec_micro_step(now) if self.speculate
-                            else self._decode_micro_step(now))
+            if tr is None:
+                finished.extend(self._spec_micro_step(now) if self.speculate
+                                else self._decode_micro_step(now))
+            elif self.speculate:
+                t0 = time.perf_counter()
+                finished.extend(self._spec_micro_step(now))
+                tr.complete("spec_round", t0, time.perf_counter(),
+                            cat="engine")
+            else:
+                rows = self.num_decoding
+                t0 = time.perf_counter()
+                finished.extend(self._decode_micro_step(now))
+                tr.complete("decode", t0, time.perf_counter(),
+                            cat="engine", rows=rows)
         self._account()
         return finished
 
@@ -519,47 +619,13 @@ class ContinuousEngine:
                 if self.kv_layout == "paged" else live * self.cache_len)
 
     def kv_accounting(self) -> dict:
-        """HBM-efficiency evidence: total cache bytes, bytes pinned per
-        resident token (time-averaged over non-idle steps), and peak
-        concurrent in-flight requests. The slot pool's bytes include its
-        scratch column and position rows; its token capacity is
-        ``num_slots * cache_len``."""
-        total = self.kv.kv_bytes
-        cap_tokens = (self.kv.capacity_tokens if self.kv_layout == "paged"
-                      else self.kv.num_slots * self.cache_len)
-        per_tok = total / max(1, cap_tokens)
-        resident = max(1, self._resident_tok_sum)
-        return {
-            "kv_layout": self.kv_layout,
-            "kv_bytes_total": float(total),
-            "kv_capacity_tokens": float(cap_tokens),
-            "kv_bytes_per_token": per_tok,
-            "kv_reserved_over_resident": self._reserved_tok_sum / resident,
-            "kv_bytes_per_resident_token":
-                per_tok * self._reserved_tok_sum / resident,
-            "peak_concurrent": float(self.peak_live),
-        }
+        """Thin alias: the schema lives in
+        :func:`repro_torch.obs.metrics.engine_kv_accounting`."""
+        return obs_metrics.engine_kv_accounting(self)
 
     def prefix_stats(self) -> dict:
-        """Prefix-cache evidence (empty when the cache is off): hit rate
-        in tokens, prefill work saved, CoW clones, the modeled hit-path
-        cost and the trie's own counters (the reference's
-        ``obs.metrics.engine_prefix_stats`` schema)."""
-        pc = self.prefix_cache
-        if pc is None:
-            return {}
-        return {
-            "prefix_lookups": float(self.prefix_lookups),
-            "prefix_hits": float(self.prefix_hits),
-            "prefix_hit_rate": (self.prefix_hit_tokens
-                                / max(1, self.prefix_prompt_tokens)),
-            "prefill_tokens_saved": float(self.prefix_hit_tokens),
-            "prefill_dispatches_saved": float(self.prefill_dispatches_saved),
-            "prefix_cow_clones": float(self.prefix_cow_clones),
-            "prefix_modeled_hit_cost_us":
-                1e6 * self.scheduler.modeled_prefix_hit_cost_s,
-            **pc.stats(),
-        }
+        """Thin alias: :func:`repro_torch.obs.metrics.engine_prefix_stats`."""
+        return obs_metrics.engine_prefix_stats(self)
 
     @property
     def decode_tokens_per_dispatch(self) -> float:
@@ -574,12 +640,8 @@ class ContinuousEngine:
         return (self.speculate + 2) / 2
 
     def spec_stats(self) -> dict:
-        """Speculative-decoding evidence (empty when speculation is off):
-        the reference's ``obs.metrics.engine_spec_stats`` schema."""
-        if not self.speculate:
-            return {}
-        return {"speculate_k": float(self.speculate),
-                **self.scheduler.spec_stats()}
+        """Thin alias: :func:`repro_torch.obs.metrics.engine_spec_stats`."""
+        return obs_metrics.engine_spec_stats(self)
 
     # -- prompt deposit ----------------------------------------------------
     def _begin_prefill(self, req: ServeRequest) -> None:
@@ -610,6 +672,8 @@ class ContinuousEngine:
                     self.params, self.kv.buffers,
                     frontend_inputs(req.batch, self.device)["frames"],
                     [slot])
+                self.kv.swap_buffers(
+                    self._prefill_stream.ordered(self.kv.buffers))
         else:
             slot = self.kv.alloc(req)
             self.kv.reset_slot(slot)
@@ -641,6 +705,7 @@ class ContinuousEngine:
             # temporary source reference
             dst = self.kv.blocks_of(slot)[len(hit.blocks)]
             self.model.clone_paged_block(self.kv.buffers, hit.cow_src, dst)
+            self.kv.swap_buffers(self._prefill_stream.ordered(self.kv.buffers))
             self.prefix_cache.release_cow(hit.cow_src)
             resident += hit.cow_tokens
             self.prefix_cow_clones += 1
@@ -698,10 +763,13 @@ class ContinuousEngine:
                     self.draft_params, self.draft_kv.buffers, args[0],
                     torch.as_tensor(self.draft_kv.table_rows(slots)).to(dev),
                     torch.as_tensor(slots), *args[1:])
+                self.draft_kv.swap_buffers(
+                    self._draft_stream.ordered(self.draft_kv.buffers))
         else:
             rows = self.kv.rows_at(slots)
             logits = self.model.prefill_chunk(self.params, rows, *args)
             self.kv.rows_into(rows, slots)
+        self.kv.swap_buffers(self._prefill_stream.ordered(self.kv.buffers))
 
         final = []
         for i, job in enumerate(jobs):
@@ -739,6 +807,7 @@ class ContinuousEngine:
         logits, cache = self.model.prefill(
             self.params, tokens, self.cache_len,
             **frontend_inputs(req.batch, self.device))
+        cache = self._prefill_stream.ordered(cache)
         slot = self.kv.alloc(req)
         self.kv.insert(slot, cache,
                        length=sequence_len(self.model.cfg, req.prompt_len))
@@ -777,6 +846,8 @@ class ContinuousEngine:
         dev = self.device
         tok = torch.as_tensor(self._tok[:, None]).to(dev)
         pos = torch.as_tensor(self._pos).to(dev)
+        # the decode step's device-resident state is the pool
+        self._decode_stream.ordered(self.kv.buffers)
         if self.kv_layout == "paged":
             logits = self.model.decode_step_paged(
                 self.params, self.kv.buffers, tok, pos,
@@ -837,10 +908,20 @@ class ContinuousEngine:
             tpos[slot] = canon - 1
             n_draft[slot] = min(k, req.max_new_tokens - g - 1)
             live.append(slot)
+        tr = _tr_active()
+        t_disp = time.perf_counter() if tr is not None else 0.0
         greedy, n_emit = self._spec_round(cur, prev, u, sync_pos, tpos,
                                           n_draft)
+        self.kv.swap_buffers(self._verify_stream.ordered(self.kv.buffers))
+        self.draft_kv.swap_buffers(
+            self._draft_stream.ordered(self.draft_kv.buffers))
         self.spec_rounds += 1
         cost = protocol.speculative_verify_latency(k)
+        if tr is not None:
+            # the round's modeled price is per live row; the measured twin
+            # is the round's dispatches and its one read-back
+            tr.hop("spec_verify", cost * max(1, len(live)), t_disp,
+                   time.perf_counter(), rows=len(live), k=k)
         finished: List[ServeRequest] = []
         for slot in live:
             req = self._slot_req[slot]
@@ -951,6 +1032,10 @@ class ContinuousEngine:
         self._zero_accounting()
         if self.prefix_cache is not None:
             self.prefix_cache.reset_stats()
+        # telemetry is trial-scoped too, on both reset flavours: residual
+        # pairs and registry observations of a warm-up must not aggregate
+        # into the measured trial
+        _obs_flush_trial()
 
     # -- batch-API convenience ---------------------------------------------
     def generate(self, batch, max_new_tokens: int, *,

@@ -48,6 +48,19 @@ class LeaseLeakWarning(UserWarning):
     can't pass silently."""
 
 
+def check_same_buffers(buf: Dict[str, torch.Tensor], new_buf) -> None:
+    """``swap_buffers``'s check: the reference installs a step's donated
+    output pool; the port's steps write the pool in place, so what comes
+    back must be the pool's own tensors (a copy would be a lost write)."""
+    if new_buf is buf:
+        return
+    if not (isinstance(new_buf, dict) and new_buf.keys() == buf.keys()
+            and all(new_buf[k] is t for k, t in buf.items())):
+        raise SlotError("swap_buffers: the buffers handed back are not the "
+                        "pool's own tensors (the port's steps write the "
+                        "pool in place; nothing is swapped)")
+
+
 #: the slot axis of each cache leaf (k/v and the carried state, recurrent
 #: or cross-attention, are layer-major)
 _SLOT_AXIS = {"k": 1, "v": 1, "pos": 0, "conv": 1, "ssm": 1, "cross_k": 1,
@@ -141,6 +154,12 @@ class SlotKVCache:
         (num_slots, W+1); conv/ssm: (L, num_slots, ...)), written in place
         by the model's steps."""
         return self._buf
+
+    def swap_buffers(self, new_buf) -> None:
+        """The reference's install of a step's donated output; here a
+        check that ``new_buf`` is the pool itself
+        (:func:`check_same_buffers`)."""
+        check_same_buffers(self._buf, new_buf)
 
     @property
     def kv_bytes(self) -> int:

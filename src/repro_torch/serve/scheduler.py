@@ -14,8 +14,15 @@ rendezvous, FIFO within each class.
 
 Per-request arrival/admit/first-token/finish times are stamped on the
 :class:`ServeRequest` itself. :func:`make_trace` draws from numpy in the
-reference's order, so one seed gives the reference's trace, shared
-prefix groups included.
+reference's order, so one seed gives the reference's trace (Poisson,
+burst or all-at-once arrivals, sampling temperatures, shared prefix
+groups).
+
+Telemetry (``REPRO_TRACE=1``, :mod:`repro_torch.obs`): ``admit`` and
+``defer`` instants, the ``sched.admitted`` counter and
+``sched.queue_depth`` gauge at each admission, and the ``tokens_out``
+counter and ``latency_s`` / ``ttft_s`` histograms at each finish; off,
+each site is one global read and a ``None`` check.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 
 from repro_torch.core import protocol
+from repro_torch.obs.metrics import active as _reg_active
+from repro_torch.obs.trace import active as _tr_active
 
 #: scheduler classes mapped from the protocol model
 EAGER_CLASS = ("eager_fast", "eager")
@@ -252,6 +261,7 @@ class CellQueueScheduler:
         engine's second gate (free blocks); admission is head-of-line
         within the priority order."""
         out: List[ServeRequest] = []
+        tr = _tr_active()
         while free_slots > 0:
             if self._cellq:
                 queue = self._cellq
@@ -262,6 +272,9 @@ class CellQueueScheduler:
             req = queue[0]
             if can_admit is not None and not can_admit(req):
                 self.n_block_deferrals += 1
+                if tr is not None:
+                    tr.instant("defer", cat="sched", rid=req.rid,
+                               reason="blocks")
                 break
             queue.popleft()
             if queue is self._cellq:
@@ -269,7 +282,15 @@ class CellQueueScheduler:
                 self._promote()
             req.admit_time = now
             out.append(req)
+            if tr is not None:
+                tr.instant("admit", cat="sched", rid=req.rid,
+                           protocol=req.protocol)
             free_slots -= 1
+        reg = _reg_active()
+        if reg is not None:
+            if out:
+                reg.counter("sched.admitted").inc(len(out))
+            reg.gauge("sched.queue_depth").set(self.num_waiting)
         return out
 
     def record_spec_dispatch(self, accepted: int, drafted: int,
@@ -304,10 +325,25 @@ class CellQueueScheduler:
         req.finish_time = now
         req.state = "done"
         self.finished.append(req)
+        reg = _reg_active()
+        if reg is not None:
+            reg.counter("tokens_out").inc(req.generated)
+            reg.histogram("latency_s").observe(req.latency)
+            if req.first_token_time is not None:
+                reg.histogram("ttft_s").observe(req.ttft)
 
     @property
     def num_waiting(self) -> int:
         return len(self._cellq) + len(self._overflow) + len(self._rendezvous)
+
+    def queue_depths(self) -> Dict[str, int]:
+        return {"cells": len(self._cellq), "overflow": len(self._overflow),
+                "rendezvous": len(self._rendezvous),
+                "cells_free": self.cells_free}
+
+    def latency_stats(self) -> Dict[str, float]:
+        """Percentiles over finished requests (seconds)."""
+        return latency_stats_over(self.finished)
 
 
 def latency_stats_over(finished: List[ServeRequest]) -> Dict[str, float]:
@@ -343,6 +379,7 @@ def latency_stats_over(finished: List[ServeRequest]) -> Dict[str, float]:
 class TraceEntry:
     arrival: float
     max_new: int
+    temperature: float = 0.0
     prompt_len: int = 0
     # shared-prefix workloads: requests of one group open with the same
     # ``prefix_len`` template tokens; -1 = an independent prompt
@@ -350,13 +387,17 @@ class TraceEntry:
     prefix_len: int = 0
 
 
-def make_trace(n_requests: int, *, prompt_len, max_new, rate: float = 100.0,
-               arrival: str = "poisson", shared_prefix_len: int = 0,
-               share_ratio: float = 1.0, prefix_groups: int = 1,
+def make_trace(n_requests: int, *, prompt_len, max_new,
+               arrival: str = "poisson", rate: float = 100.0,
+               burst: int = 4, temperature: float = 0.0,
+               shared_prefix_len: int = 0, share_ratio: float = 1.0,
+               prefix_groups: int = 1,
                seed: int = 0) -> List[TraceEntry]:
     """Arrival trace: ``arrival`` is ``"poisson"`` (exponential gaps at
-    ``rate`` req/s) or ``"all"`` (everything at t=0). ``max_new`` is an
-    int or an inclusive ``(lo, hi)`` range sampled per request.
+    ``rate`` req/s), ``"burst"`` (groups of ``burst`` at 1/rate spacing)
+    or ``"all"`` (everything at t=0). Every entry samples at
+    ``temperature`` (0 = greedy). ``max_new`` is an int or an inclusive
+    ``(lo, hi)`` range sampled per request.
     ``prompt_len`` is an int or a sequence cycled across requests — e.g.
     ``(16, 256)``. ``shared_prefix_len > 0`` makes a shared-prefix trace:
     each request joins one of ``prefix_groups`` template families with
@@ -369,11 +410,14 @@ def make_trace(n_requests: int, *, prompt_len, max_new, rate: float = 100.0,
     if arrival == "poisson":
         gaps = rng.exponential(1.0 / rate, size=n_requests)
         times = np.cumsum(gaps) - gaps[0]
+    elif arrival == "burst":
+        times = np.array([(i // burst) * (1.0 / rate)
+                          for i in range(n_requests)])
     elif arrival == "all":
         times = np.zeros(n_requests)
     else:
-        raise ValueError(f"unknown arrival kind {arrival!r} (poisson or "
-                         "all)")
+        raise ValueError(f"unknown arrival kind {arrival!r} (poisson, "
+                         "burst or all)")
     if isinstance(max_new, int):
         news = np.full(n_requests, max_new)
     else:
@@ -382,6 +426,7 @@ def make_trace(n_requests: int, *, prompt_len, max_new, rate: float = 100.0,
     plens = ([int(prompt_len)] if isinstance(prompt_len, (int, np.integer))
              else [int(p) for p in prompt_len])
     out = [TraceEntry(arrival=float(times[i]), max_new=int(news[i]),
+                      temperature=temperature,
                       prompt_len=plens[i % len(plens)])
            for i in range(n_requests)]
     if shared_prefix_len > 0:

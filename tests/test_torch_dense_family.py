@@ -232,6 +232,7 @@ def test_run_traffic_and_drafter_match_reference(monkeypatch):
     monkeypatch.setattr(launch, "_drafter",
                         lambda *a, **k: (dmodel, dparams))
     res = launch.run_traffic("qwen3-14b", device="cpu", params=params,
+                             prefix_compare=False,
                              spec_compare=True, engine="continuous",
                              chunk_compare=False, parity_check=False, **kw)
     arms = res["outputs_by_arm"]

@@ -229,7 +229,8 @@ def test_run_traffic_matches_reference(monkeypatch):
     ref = jlaunch.run_traffic(ARCH, prefix_compare=False,
                               spec_compare=False, **kw)
     res = launch.run_traffic(ARCH, device="cpu",
-                             params=tp.bundle(ARCH)[3], **kw)
+                             params=tp.bundle(ARCH)[3], prefix_compare=False,
+                             spec_compare=False, **kw)
     arms = res["outputs_by_arm"]
     assert [arms["continuous"], arms["continuous_paged"],
             arms["static"]] == seen

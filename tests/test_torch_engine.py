@@ -225,7 +225,8 @@ def test_unported_paths_raise_naming_the_slice(bundles):
     # qwen3-smoke shares gemma-smoke's vocabulary (256): it drafts
     res = launch.run_traffic(smoke=True, device="cpu", engine="continuous",
                              requests=2, slots=2, parity_check=False,
-                             chunk_compare=False, spec_compare=True,
+                             chunk_compare=False, prefix_compare=False,
+                             spec_compare=True,
                              draft_arch="qwen3-14b", max_new=(3, 6))
     assert res["draft_arch"] == "qwen3-14b"
     assert res["spec_token_identical_trace"]
@@ -267,7 +268,8 @@ def test_launch_serve_cpu_smoke(tmp_path):
     out = tmp_path / "serve.json"
     launch.main(["--smoke", "--device", "cpu", "--requests", "4",
                  "--slots", "2", "--prompt-len", "16,40", "--max-new-hi",
-                 "8", "--json", str(out)])
+                 "8", "--no-prefix-compare", "--no-spec-compare", "--json",
+                 str(out)])
     res = json.loads(out.read_text())
     assert res["backend"] == "torch" and res["device"]["name"] == "cpu"
     assert res["prefill_compiles"] is None

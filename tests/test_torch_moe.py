@@ -204,7 +204,7 @@ def test_run_traffic_and_family_row_match_reference(monkeypatch):
     # they are
     params = tp.bundle("olmoe-1b-7b")[3]
     res = launch.run_traffic("olmoe-1b-7b", device="cpu", params=params,
-                             **kw)
+                             prefix_compare=False, spec_compare=False, **kw)
     arms = res["outputs_by_arm"]
     assert [arms["continuous"], arms["continuous_monolithic"],
             arms["continuous_paged"], arms["static"]] == seen

@@ -340,7 +340,7 @@ def test_run_traffic_prefix_compare_matches_reference(bundles, monkeypatch):
               prefill_chunk=8, block_size=BS, prefix_compare=True)
     ref = jlaunch.run_traffic("gemma-2b", spec_compare=False, **kw)
     res = launch.run_traffic("gemma-2b", device="cpu", params=bundles[3],
-                             **kw)
+                             spec_compare=False, **kw)
     assert res["prefix_token_identical"] and ref["prefix_token_identical"]
     for key in ("prefix_hit_rate", "prefill_tokens_saved",
                 "prefill_dispatches_saved"):

@@ -199,7 +199,7 @@ def test_run_traffic_ring_reproduces_reference(monkeypatch):
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
                                get_smoke_config("hymba-1.5b"))
     res = launch.run_traffic("hymba-1.5b", device="cpu", params=params,
-                             **kw)
+                             prefix_compare=False, spec_compare=False, **kw)
     arms = res["outputs_by_arm"]
     assert arms["continuous"] == seen["continuous"][0]
     assert arms["continuous_monolithic"] == seen["continuous"][1]
@@ -212,6 +212,7 @@ def test_run_traffic_ring_reproduces_reference(monkeypatch):
     # a paged arm: the prompt and its budget exceed the ring's capacity
     with pytest.raises(ValueError, match="admittable capacity"):
         launch.run_traffic("hymba-1.5b", device="cpu", params=params,
+                           prefix_compare=False, spec_compare=False,
                            **{**kw, "paged_compare": True})
 
 

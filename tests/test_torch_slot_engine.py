@@ -280,7 +280,8 @@ def test_run_traffic_matches_reference(bundles, monkeypatch):
         jax.random.PRNGKey(0))
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
                                get_smoke_config("gemma-2b"))
-    res = launch.run_traffic("gemma-2b", device="cpu", params=params, **kw)
+    res = launch.run_traffic("gemma-2b", device="cpu", params=params,
+                             prefix_compare=False, spec_compare=False, **kw)
     arms = res["outputs_by_arm"]
     cont = seen["continuous"]          # chunked, monolithic, paged
     assert arms["continuous"] == cont[0]

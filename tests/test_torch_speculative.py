@@ -324,7 +324,8 @@ def test_run_traffic_spec_arm(models):
         "gemma-2b", device="cpu", params=models["params0"],
         engine="continuous", requests=5, slots=2, prompt_len=(9, 20),
         max_new=(3, 10), rate=400.0, chunk_compare=False, parity_check=False,
-        prefill_chunk=8, block_size=4, spec_compare=True, speculate=3)
+        prefill_chunk=8, block_size=4, prefix_compare=False,
+        spec_compare=True, speculate=3)
     assert res["spec_token_identical_trace"]
     assert res["spec_baseline_arm"] == "continuous_paged"
     assert res["spec_accepted_per_dispatch"] > 1.0
@@ -340,8 +341,9 @@ def test_run_traffic_spec_arm(models):
     other = launch.run_traffic(
         "gemma-2b", device="cpu", engine="continuous", requests=3, slots=2,
         prompt_len=(9, 20), max_new=(3, 8), rate=400.0, chunk_compare=False,
-        parity_check=False, prefill_chunk=8, block_size=4, spec_compare=True,
-        speculate=2, draft_arch="yi-9b")
+        parity_check=False, prefill_chunk=8, block_size=4,
+        prefix_compare=False, spec_compare=True, speculate=2,
+        draft_arch="yi-9b")
     assert other["draft_arch"] == "yi-9b"
     assert other["spec_token_identical_trace"]
     sp = other["continuous_spec"]

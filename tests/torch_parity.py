@@ -82,8 +82,9 @@ def check_slot_cache(cache, jcache, rows=None):
 
 def requests(cls, cfg, trace, seed=100):
     """One request per trace entry, prompts and frontend inputs from
-    ``seed + rid``; an entry of a shared-prefix group opens with its
-    group's template (from ``seed - 1 - group``)."""
+    ``seed + rid``, sampled at the entry's temperature; an entry of a
+    shared-prefix group opens with its group's template (from ``seed - 1
+    - group``)."""
     out = []
     for rid, e in enumerate(trace):
         batch = prompt(cfg, 1, e.prompt_len, seed + rid)
@@ -91,7 +92,8 @@ def requests(cls, cfg, trace, seed=100):
             batch["tokens"][:, :e.prefix_len] = tokens(
                 cfg, (1, e.prefix_len), seed - 1 - e.prefix_group)
         out.append(cls(rid=rid, batch=batch, max_new_tokens=e.max_new,
-                       seed=0, arrival=e.arrival))
+                       temperature=e.temperature, seed=0,
+                       arrival=e.arrival))
     return out
 
 
@@ -256,12 +258,19 @@ ENGINE_KW = dict(cache_len=36, num_slots=3, prefill_chunk=8, block_size=4,
                  max_prefill_per_step=2)
 
 
-def check_engine(bundle, layout, shared_prefix_len=0, **extra):
+def check_engine(bundle, layout, shared_prefix_len=0, comm=None,
+                 trace_kw=None, **extra):
     """One Poisson trace through the port's and the reference's continuous
     engine (``layout``: paged, slot, or slot-monolithic), step by step:
     the same admissions, finishes and block tables after every step, the
     same greedy tokens. ``shared_prefix_len``: most prompts open with one
-    of two templates of that length. Returns the port's engine."""
+    of two templates of that length. ``comm``: a pair (the port's
+    communicator, the reference's) each engine is bound to.
+    ``trace_kw``: more arguments of ``make_trace`` (``arrival``,
+    ``burst``, ``temperature``); a sampled trace holds the admissions,
+    finishes and tables alone (``eos_id=-1``: they do not depend on the
+    tokens, whose bits the two samplers do not share). Returns the
+    port's engine."""
     from repro.serve import ContinuousEngine as JaxEngine
     from repro.serve import ServeRequest as JaxRequest
     from repro_torch.serve import ContinuousEngine, ServeRequest, make_trace
@@ -272,13 +281,16 @@ def check_engine(bundle, layout, shared_prefix_len=0, **extra):
         kw["prefill_chunk"] = 0
     trace = make_trace(6, prompt_len=(5, 19), max_new=(2, 7), rate=400.0,
                        seed=0, shared_prefix_len=shared_prefix_len,
-                       share_ratio=0.9, prefix_groups=2)
+                       share_ratio=0.9, prefix_groups=2, **(trace_kw or {}))
     ours = requests(ServeRequest, cfg, trace)
     theirs = requests(JaxRequest, cfg, trace)
-    eng = ContinuousEngine(model, params, device="cpu", **kw)
+    ocomm, tcomm = comm or (None, None)
+    eng = ContinuousEngine(model, params, device="cpu", comm=ocomm, **kw)
     a = drive(eng, ours)
-    b = drive(JaxEngine(jmodel, jparams, **kw), theirs)
+    b = drive(JaxEngine(jmodel, jparams, comm=tcomm, **kw), theirs)
     same_log(a, b)
+    if any(e.temperature > 0 for e in trace):
+        return eng
     for r, j in zip(ours, theirs):
         assert np.array_equal(r.output[:r.generated],
                               np.asarray(j.output)[:j.generated])
