@@ -197,6 +197,32 @@ Phases (any failure exits non-zero and prints no result):
    residual ratio of each hop kind, one untraced and one traced decode
    step of the bound engine profiled, tok/s with tracing off and on, and
    the phase's seconds.
+12. The serving fabric (a router rank and two engine ranks of 4 rows on
+   threads, ``repro_torch.serve.fabric``) on gemma-2b at full width from
+   seed 0, on 16 requests of phase 5's mixed 16/256 Poisson trace (50
+   req/s, 4-48 new tokens), chunk 64, 16-token blocks. (a) Float32:
+   ``run_fabric`` (the launcher's ``--fabric both``), the replicated and
+   the disaggregated placement each token-identical to the single
+   engine; 16 migrations of sum(ceil(prompt_len / 16)) blocks; the
+   prefill rank emits no token; a lease leaked at any close fails. (b)
+   The disaggregated fabric driven once under a fresh tracer: no
+   ``decode`` span on the prefill rank's lane, no ``prefill_chunk`` on
+   the decode rank's, one ``hop:migration`` and one ``kv_transfer`` a
+   request, a ``hop:router_dispatch`` a request, no dropped event;
+   ``paged_decode`` and ``paged_mq`` launched 18x the decode and chunk
+   forwards the trace records, no plain version; both pools free after
+   the drain and ``close(strict=True)`` clean. (c) Float32: the
+   replicated fabric with ``speculate=3``, and a trace sampled at 0.8
+   through the disaggregated one, each token-identical to the single
+   engine. (d) The transport at full width: 16 blocks of a random bf16
+   pool (294,912 B a block) moved between two pools, bitwise; the
+   per-block copy's device time (CUDA events, L2 flushed) and the
+   host-inclusive ``migrate`` time beside the byte bound and the
+   modeled price. The bf16 ``run_fabric``: each fabric drive, counted
+   from zero just before it, launches ``paged_decode`` and ``paged_mq``
+   and no plain version; printed, not gated: its tok/s, TTFT p50/p95,
+   per-rank utilization, equal-token shares and ``speedup_vs_single_*``,
+   and the phase's seconds.
 
 The last lines are the kernel table (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -3690,6 +3716,333 @@ def phase_comm_obs(dev):
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the serving fabric
+# ---------------------------------------------------------------------------
+
+#: phase 12's trace and fabric: 16 requests of phase 5's mixed 16/256
+#: Poisson trace (50 req/s, 4-48 new tokens), 2 engine ranks of 4 rows,
+#: chunk 64 (two a step), 16-token blocks
+FABRIC = dict(requests=16, ranks=2, slots=4, prompt_len=(16, 256),
+              max_new=(4, 48), rate=50.0, prefill_chunk=64,
+              max_prefill_per_step=2, block_size=16, seed=0)
+#: blocks migrated by phase 12(d)'s transport check, and the pools' size
+FABRIC_BLOCKS = 16
+FABRIC_POOL_BLOCKS = 64
+
+
+def fabric_run(params, dtype, **kw):
+    """``run_fabric`` at phase 12's configuration; a lease leaked at a
+    fabric's close fails the phase (the warning is raised)."""
+    import warnings
+
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import LeaseLeakWarning
+
+    args = dict(FABRIC, **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", LeaseLeakWarning)
+        res = launch.run_fabric("gemma-2b", smoke=False, device="cuda",
+                                dtype=dtype, params=params, **args)
+    for p in res["placements"]:
+        for name in ("single", f"fabric_{p}"):
+            require(res[name].get("n") == float(args["requests"]),
+                    f"12 {dtype} {name}: {res[name].get('n')} of "
+                    f"{args['requests']} finished")
+        launched = res[f"fabric_{p}"]["kernels"]
+        require(launched["ref_calls"] == 0,
+                f"12 {dtype} fabric_{p}: plain attention ran on the card")
+        require(launched["decode_launches"] > 0
+                and launched["mq_launches"] > 0,
+                f"12 {dtype} fabric_{p}: paged_decode or paged_mq was not "
+                f"launched in the drive: {launched}")
+    return res
+
+
+def fabric_blocks_expected():
+    """Blocks the disaggregated run migrates: each prompt's whole blocks
+    and its tail, sum of ceil(prompt_len / block_size)."""
+    from repro_torch.serve import make_trace
+    bs = FABRIC["block_size"]
+    trace = make_trace(FABRIC["requests"], prompt_len=FABRIC["prompt_len"],
+                       max_new=FABRIC["max_new"], rate=FABRIC["rate"],
+                       seed=FABRIC["seed"])
+    return sum(-(-e.prompt_len // bs) for e in trace)
+
+
+def fabric_gated_f32(params):
+    """12(a): both placements token-identical to the single engine in
+    float32; 16 migrations of sum(ceil(prompt_len / 16)) blocks; the
+    prefill rank emits no token."""
+    res = fabric_run(params, "float32")
+    for p in ("replicated", "disagg"):
+        require(res[f"fabric_token_identical_{p}"],
+                f"12(a) {p}: tokens differ from the single engine's "
+                f"(equal share {res[f'fabric_equal_token_share_{p}']})")
+    dis = res["fabric_disagg"]
+    blocks = fabric_blocks_expected()
+    require(dis["n_migrations"] == float(FABRIC["requests"]),
+            f"12(a): {dis['n_migrations']} migrations, not "
+            f"{FABRIC['requests']}")
+    require(dis["blocks_moved"] == float(blocks),
+            f"12(a): {dis['blocks_moved']} blocks moved, not {blocks}")
+    pre = dis["per_rank"][0]
+    require(pre["role"] == "prefill" and pre["tokens"] == 0.0,
+            f"12(a): the prefill rank emitted tokens: {pre}")
+    print(f"12(a) float32: replicated and disagg token-identical to the "
+          f"single engine; {dis['n_migrations']:.0f} migrations, "
+          f"{dis['blocks_moved']:.0f} blocks, {dis['bytes_moved']:.0f} "
+          f"bytes; prefill rank 0 tokens", flush=True)
+    return res
+
+
+def fabric_traced(params, dev):
+    """12(b): the disaggregated fabric (float32) warmed, then driven once
+    under a fresh tracer: spans on the right rank lanes, one
+    ``hop:migration`` and one ``kv_transfer`` a request, router dispatch
+    hops, no dropped event; ``paged_decode`` / ``paged_mq`` launches 18x
+    the decode / chunk forwards the trace records; both pools free after
+    the drain and ``close(strict=True)`` clean."""
+    from repro_torch import obs
+    from repro_torch.config import ServeConfig
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import ServingFabric, make_trace
+
+    cfg = launch.arch_config("gemma-2b")
+    model = build_model(cfg, ServeConfig(param_dtype="float32",
+                                         compute_dtype="float32"),
+                        device=dev)
+    F = FABRIC
+    fab = ServingFabric(model, params, ranks=F["ranks"], placement="disagg",
+                        cache_len=max(F["prompt_len"]) + F["max_new"][1],
+                        slots_per_rank=F["slots"],
+                        prefill_chunk=F["prefill_chunk"],
+                        max_prefill_per_step=F["max_prefill_per_step"],
+                        block_size=F["block_size"], device=dev)
+    obs.uninstall()
+    try:
+        launch._warm_fabric(fab, cfg, seed=0, prompt_len=F["prompt_len"][0])
+        trace = make_trace(F["requests"], prompt_len=F["prompt_len"],
+                           max_new=F["max_new"], rate=F["rate"], seed=0)
+        reqs = launch.requests_from_trace(cfg, trace, seed=0)
+        tr = obs.install(capacity=1 << 18)
+        torch.cuda.synchronize()
+        launch.reset_kernel_counters()
+        stats = launch.drive_fabric(fab, reqs)
+        counts = launch.kernel_counters()
+        events = tr.events()
+        dropped = tr.dropped
+    finally:
+        obs.uninstall()
+    try:
+        free = [w.engine.kv.pool.num_free == w.engine.kv.pool.num_blocks
+                for w in fab.workers]
+        require(all(free), f"12(b): a pool is not free after the drain: "
+                f"{free}")
+    finally:
+        fab.close(strict=True)
+    names = {}
+    for e in events:
+        names.setdefault((e["name"], e["tid"]), 0)
+        names[(e["name"], e["tid"])] += 1
+
+    def n(name, tid=None):
+        return sum(v for (k, t), v in names.items()
+                   if k == name and (tid is None or t == tid))
+
+    n_req = F["requests"]
+    require(n("decode", 0) == 0, "12(b): a decode span on the prefill rank")
+    require(n("prefill_chunk", 1) == 0,
+            "12(b): a prefill_chunk span on the decode rank")
+    require(n("hop:migration") == n_req and n("kv_transfer") == n_req,
+            f"12(b): {n('hop:migration')} hop:migration and "
+            f"{n('kv_transfer')} kv_transfer spans for {n_req} requests")
+    require(n("hop:router_dispatch") == n_req,
+            f"12(b): {n('hop:router_dispatch')} router dispatch hops")
+    require(n("rank_step", 0) > 0 and n("rank_step", 1) > 0,
+            "12(b): a rank lane holds no rank_step span")
+    require(dropped == 0, f"12(b): {dropped} events dropped")
+    L = cfg.num_layers
+    decodes, chunks = n("decode"), n("prefill_chunk")
+    require(counts["decode_launches"] == L * decodes
+            and counts["mq_launches"] == L * chunks,
+            f"12(b): launches {counts} against {decodes} decode and "
+            f"{chunks} chunk forwards x {L} layers")
+    require(decodes > 0 and chunks > 0 and counts["ref_calls"] == 0,
+            f"12(b): launches {counts}")
+    require(stats.get("n") == float(n_req) and all(
+        r.state == "done" for r in reqs), "12(b): a request did not finish")
+    print(f"12(b): traced disaggregated run: {len(events)} events, 0 "
+          f"dropped; {decodes} decode spans (rank 1 only), {chunks} "
+          f"prefill_chunk spans (rank 0 only), {n('hop:migration')} "
+          f"migrations, {n('kv_transfer')} kv_transfer, "
+          f"{n('hop:router_dispatch')} dispatch hops; paged_decode "
+          f"x{counts['decode_launches']} = {L} x {decodes}, paged_mq "
+          f"x{counts['mq_launches']} = {L} x {chunks}; pools free, "
+          f"close(strict=True) clean", flush=True)
+    return {"events": len(events), "decode_spans": decodes,
+            "chunk_spans": chunks, "decode_launches":
+            counts["decode_launches"], "mq_launches": counts["mq_launches"],
+            "residual_migration_ratio": stats.get(
+                "residual_migration_ratio"),
+            "residual_router_dispatch_ratio": stats.get(
+                "residual_router_dispatch_ratio")}
+
+
+def fabric_spec_sampled(params):
+    """12(c): the replicated fabric with ``speculate=3`` and a sampled
+    (0.8) trace through the disaggregated fabric, each token-identical
+    to the single engine (float32)."""
+    spec = fabric_run(params, "float32", placements=("replicated",),
+                      speculate=3)
+    require(spec["fabric_speculate_k_replicated"] == 3,
+            "12(c): the replicated ranks did not speculate")
+    require(spec["fabric_token_identical_replicated"],
+            "12(c): speculate=3 tokens differ from the single engine's")
+    require(spec["fabric_replicated"]["kernels"]["verify_calls"] > 0,
+            "12(c): no verify forward ran")
+    sampled = fabric_run(params, "float32", placements=("disagg",),
+                         temperature=0.8)
+    require(sampled["fabric_token_identical_disagg"],
+            "12(c): the sampled trace's tokens differ between the single "
+            "engine and the disaggregated fabric")
+    print(f"12(c): speculate=3 replicated fabric token-identical "
+          f"({spec['fabric_replicated']['kernels']['verify_calls']} verify "
+          f"forwards); sampled (0.8) disaggregated fabric token-identical "
+          f"to the single engine", flush=True)
+    return {"spec": spec["fabric_replicated"]["kernels"],
+            "sampled_equal": sampled["fabric_equal_token_share_disagg"]}
+
+
+def fabric_transport(model, dev, timer):
+    """12(d): a random bf16 pool at gemma-2b's geometry; 16 blocks moved
+    to another pool, bitwise; the per-block copy timed (CUDA events, L2
+    flushed) and host-inclusive (``migrate``: copies, requests, waitall)
+    beside its byte bound and the modeled price."""
+    from repro_torch.core import threadcomm_init
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.serve import KVBlockTransport, PagedKVCache
+
+    mbr = -(-(max(FABRIC["prompt_len"]) + FABRIC["max_new"][1])
+            // FABRIC["block_size"])
+    geo = dict(num_blocks=FABRIC_POOL_BLOCKS,
+               block_size=FABRIC["block_size"], num_slots=4,
+               max_blocks_per_req=mbr)
+    src, dst = PagedKVCache(model, **geo), PagedKVCache(model, **geo)
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    for t in src.buffers.values():
+        t.copy_(torch.randn(t.shape, generator=g, device=dev,
+                            dtype=torch.float32))
+    perm = torch.randperm(FABRIC_POOL_BLOCKS, generator=torch.Generator()
+                          .manual_seed(3)).tolist()
+    sb, db = perm[:FABRIC_BLOCKS], perm[FABRIC_BLOCKS:2 * FABRIC_BLOCKS]
+    root = threadcomm_init(make_mesh((1,), ("serve",)), process_axes=(),
+                           thread_axes=("serve",))
+    root.start()
+    try:
+        tp = KVBlockTransport(root)
+        tp.migrate(src, dst, sb, db)
+        for name, t in dst.buffers.items():
+            s = src.buffers[name]
+            require(torch.equal(t[:, db], s[:, sb]),
+                    f"12(d): migrated {name} blocks differ from the source")
+            rest = [b for b in range(FABRIC_POOL_BLOCKS) if b not in db]
+            require(not t[:, rest].any(),
+                    "12(d): a block outside the destination list changed")
+        nb = tp.block_nbytes(src)
+        require(nb == 294_912, f"12(d): {nb} bytes a block, not 294,912")
+        modeled_us = tp.stats()["kv_migration_us_per_block"]
+
+        def copies():
+            for a, b in zip(sb, db):
+                tp._copy_impl(dst.buffers, src.buffers, a, b)
+        dev_us = 1e3 * timer.ms(copies) / FABRIC_BLOCKS
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tp.migrate(src, dst, sb, db)
+            host.append(time.perf_counter() - t0)
+        host_us = 1e6 * statistics.median(host) / FABRIC_BLOCKS
+    finally:
+        root.finish()
+        root.free()
+    bound_us = 1e6 * 2 * nb / HBM_BYTES_PER_S
+    print(f"12(d): {FABRIC_BLOCKS} blocks of {nb} B (bf16, 18 layers x k,v "
+          f"x 16 tokens x 1 kv head x 256) moved bitwise; device "
+          f"{dev_us:.3f} us a block (CUDA events, L2 flushed), host-"
+          f"inclusive {host_us:.3f} us a block (migrate, median of 20); "
+          f"bound {bound_us:.4f} us ({2 * nb} B read + written over 3.35 "
+          f"TB/s); modeled {modeled_us:.4f} us a block", flush=True)
+    return {"block_bytes": nb, "device_us_per_block": dev_us,
+            "host_us_per_block": host_us, "bound_us_per_block": bound_us,
+            "modeled_us_per_block": modeled_us}
+
+
+def fabric_bf16(params):
+    """Printed, not gated: the bf16 comparison (the serving dtype)."""
+    res = fabric_run(params, "bfloat16")
+    out = {}
+    for name in ("single", "fabric_replicated", "fabric_disagg"):
+        m = res[name]
+        out[name] = {"tok_s": m["tok_s"], "ttft_p50_ms": 1e3 * m[
+            "ttft_p50_s"], "ttft_p95_ms": 1e3 * m["ttft_p95_s"],
+            "makespan_s": m["makespan_s"]}
+        if "per_rank" in m:
+            out[name]["utilization"] = [r["utilization"]
+                                        for r in m["per_rank"]]
+        print(f"12 bf16 {name:>17}: {m['tok_s']:.2f} tok/s, TTFT p50 "
+              f"{out[name]['ttft_p50_ms']:.2f} ms p95 "
+              f"{out[name]['ttft_p95_ms']:.2f} ms, makespan "
+              f"{m['makespan_s']:.3f} s"
+              + (f", rank utilization {out[name]['utilization']}"
+                 if "per_rank" in m else ""), flush=True)
+    for p in ("replicated", "disagg"):
+        out[f"speedup_vs_single_{p}"] = res[f"speedup_vs_single_{p}"]
+        out[f"equal_token_share_{p}"] = res[f"fabric_equal_token_share_{p}"]
+    out["kernels"] = {p: res[f"fabric_{p}"]["kernels"]
+                      for p in ("replicated", "disagg")}
+    print("12 bf16: " + json.dumps({k: v for k, v in out.items()
+                                    if k.startswith(("speedup", "equal"))}),
+          flush=True)
+    return out
+
+
+def phase_fabric(dev):
+    """Phase 12: the serving fabric on gemma-2b at full width from seed
+    0: (a) float32 token identity of both placements and the migration
+    counts; (b) the traced disaggregated run; (c) speculation and a
+    sampled trace; (d) the transport at full width; then the bf16
+    comparison, printed."""
+    t_phase = time.perf_counter()
+    free_cuda()
+    model, params = build_family("gemma-2b", dev, dtype="float32")
+    record = {"a": fabric_gated_f32(params)}
+    record["b"] = fabric_traced(params, dev)
+    record["c"] = fabric_spec_sampled(params)
+    a = record.pop("a")
+    record["f32"] = {k: a[k] for k in ("speedup_vs_single_replicated",
+                                       "speedup_vs_single_disagg")}
+    record["f32_migration"] = {k: a["fabric_disagg"][k] for k in (
+        "n_migrations", "blocks_moved", "bytes_moved",
+        "kv_migration_us_per_block")}
+    del model, params
+    free_cuda()
+    model, params = build_family("gemma-2b", dev)
+    timer = Timer(dev)
+    record["d"] = fabric_transport(model, dev, timer)
+    del timer
+    record["bf16"] = fabric_bf16(params)
+    del model, params
+    free_cuda()
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 12: {record['seconds']:.1f} s", flush=True)
+    print("phase 12: " + json.dumps(record), flush=True)
+    return record
+
+
 def main() -> None:
     require((SRC / "repro_torch").is_dir(),
             "src/repro_torch not found: run from the root of a checkout")
@@ -3742,6 +4095,8 @@ def main() -> None:
     family_table, _ = phase_model_families(dev)
     torch.cuda.empty_cache()
     comm_obs = phase_comm_obs(dev)
+    torch.cuda.empty_cache()
+    fabric = phase_fabric(dev)
 
     # launches: the --engine both run, which drives all three kernels;
     # the paged serve phase's own counts stand beside them
@@ -3793,6 +4148,14 @@ def main() -> None:
                       ("paged_mq", "mq_launches"),
                       ("flash_attention", "flash_launches")):
         table[name]["launches_traced"] = traced[key]
+    # phase 12: the traced disaggregated fabric's launches (float32) and
+    # each bf16 fabric drive's, every one counted from zero just before it
+    for name, key in (("paged_decode", "decode_launches"),
+                      ("paged_mq", "mq_launches")):
+        table[name]["launches_fabric_disagg"] = fabric["b"][key]
+        for p in ("replicated", "disagg"):
+            table[name][f"launches_fabric_bf16_{p}"] = \
+                fabric["bf16"]["kernels"][p][key]
     print("model: " + json.dumps(model), flush=True)
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)

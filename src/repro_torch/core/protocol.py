@@ -142,6 +142,23 @@ def prefix_hit_latency(nbytes: int, block_bytes: int,
     return cost
 
 
+def kv_migration_latency(nbytes: int, block_bytes: int,
+                         m: HostModel = HostModel()) -> float:
+    """Price of migrating a finished prefill's KV to another rank block
+    by block (the disaggregated serving fabric's handoff): one
+    rendezvous handshake (the decode rank has already leased the
+    destination blocks, the posted receive), then every block its own
+    message, priced under the protocol the block's payload selects; a
+    partial tail block is priced at its own size."""
+    if block_bytes < 1:
+        raise ValueError("block_bytes must be >= 1")
+    full, tail = divmod(max(0, nbytes), block_bytes)
+    cost = m.t_handshake + full * interthread_latency(block_bytes, m)
+    if tail:
+        cost += interthread_latency(tail, m)
+    return cost
+
+
 def speculative_verify_latency(k: int, token_bytes: int = 4,
                                m: HostModel = HostModel()) -> float:
     """Price of one draft-verify round of speculative decoding, three

@@ -31,12 +31,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+#: one lock for every launch and forward count of the port (the kernels'
+#: ``ops`` modules, ``models.transformer``, ``models.encdec``): the
+#: serving fabric's rank threads launch kernels and run forwards at once
+count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: what the last build printed (``-Xptxas -v``: registers, shared memory,
 #: spills per kernel) and how long it took; empty when every library was
 #: already cached
 build_log: Dict[str, str] = {}
 build_seconds = 0.0
+
+
+def count(counts: dict, name: str) -> None:
+    """Add one to the module-level integer ``counts[name]`` (a module's
+    ``globals()``) under :data:`count_lock`."""
+    with count_lock:
+        counts[name] += 1
 
 
 def sources() -> List[Path]:

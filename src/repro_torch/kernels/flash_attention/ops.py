@@ -53,7 +53,14 @@ _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 
 def reset_counters() -> None:
     global flash_launches, ref_calls
-    flash_launches = ref_calls = 0
+    with _build.count_lock:
+        flash_launches = ref_calls = 0
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name`` (``flash_launches`` or
+    ``ref_calls``) under the port's count lock."""
+    _build.count(globals(), name)
 
 
 def counters() -> dict:
@@ -131,7 +138,6 @@ def launch(q, k, v, *, causal: bool = True, window: int = 0,
     hd), each with any (batch, head, position) strides. Returns (B, H, Sq,
     hd): a view of an output stored as (B, Sq, H, hd), the model's
     layout. ``splits`` overrides :func:`splits_for`."""
-    global flash_launches
     _check_inputs(q, k, v)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -158,7 +164,7 @@ def launch(q, k, v, *, causal: bool = True, window: int = 0,
             0 if acc is None else acc.data_ptr(),
             0 if ml is None else ml.data_ptr(), stream)
     _build.check(lib, err, "flash_attention")
-    flash_launches += 1
+    count("flash_launches")
     return out
 
 
@@ -167,10 +173,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Sq, H, hd); k, v: (B, Sk, Hkv, hd) -> (B, Sq, H, hd). Query
     ``i`` sits at position ``q_offset + i``; ``window`` > 0 adds the
     sliding-window mask."""
-    global ref_calls
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cpu":
-        ref_calls += 1
+        count("ref_calls")
         out = flash_attention_ref(qt, kt, vt, causal=causal, window=window,
                                   q_offset=q_offset)
     elif q.device.type == "cuda":

@@ -19,14 +19,16 @@ The module counts what it ran, in plain integers: ``decode_launches``
 and ``mq_launches`` (one per wrapper call that launched on the card),
 ``mq_launches_by_k`` (the same ``paged_mq`` launches by their query
 width K) and ``ref_calls`` (one per plain-version call).
-:func:`reset_counters` zeroes them.
+:func:`reset_counters` zeroes them. Each count is bumped under the
+port's count lock (``_build.count_lock``): the serving fabric's rank
+threads launch at once.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -93,8 +95,19 @@ def plan(B: int, K: int, H: int, Hkv: int, bs: int, NB: int, *,
 
 def reset_counters() -> None:
     global decode_launches, mq_launches, ref_calls
-    decode_launches = mq_launches = ref_calls = 0
-    mq_launches_by_k.clear()
+    with _build.count_lock:
+        decode_launches = mq_launches = ref_calls = 0
+        mq_launches_by_k.clear()
+
+
+def count(name: str, K: Optional[int] = None) -> None:
+    """Add one to the counter ``name`` (``decode_launches``,
+    ``mq_launches`` or ``ref_calls``) under the port's count lock; a
+    ``paged_mq`` launch also counts under its query width ``K``."""
+    with _build.count_lock:
+        globals()[name] += 1
+        if K is not None:
+            mq_launches_by_k[K] = mq_launches_by_k.get(K, 0) + 1
 
 
 def counters() -> dict:
@@ -153,7 +166,6 @@ def launch(q, k_pages, v_pages, block_tables, lengths, window=0,
     included (unlike :func:`paged_attention`, which sends a K = 1 block to
     the decode kernel). ``target_ctas`` goes to :func:`plan`. Returns the
     output, same shape as q."""
-    global decode_launches, mq_launches
     _check_inputs(q, k_pages, v_pages, block_tables, lengths)
     q = q.contiguous()
     tables = block_tables.to(torch.int32).contiguous()
@@ -184,12 +196,11 @@ def launch(q, k_pages, v_pages, block_tables, lengths, window=0,
         if mq:
             err = lib.paged_mq(dt, *ptrs, B, K, H, *shape, stream)
             _build.check(lib, err, "paged_mq")
-            mq_launches += 1
-            mq_launches_by_k[K] = mq_launches_by_k.get(K, 0) + 1
+            count("mq_launches", K)
         else:
             err = lib.paged_decode(dt, *ptrs, B, H, *shape, stream)
             _build.check(lib, err, "paged_decode")
-            decode_launches += 1
+            count("decode_launches")
     return out
 
 
@@ -198,12 +209,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     """q: (B, H, hd), (B, 1, H, hd), or (B, K, H, hd) with K > 1;
     k_pages, v_pages: (P, bs, Hkv, hd); block_tables: (B, NB) int
     (-1 = absent); lengths: (B,) int -> same shape as q."""
-    global ref_calls
     squeezed = q.dim() == 4 and q.shape[1] == 1
     if squeezed:
         q = q[:, 0]
     if q.device.type == "cpu":
-        ref_calls += 1
+        count("ref_calls")
         out = paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
                                   window=window, softcap=softcap)
     elif q.device.type == "cuda":

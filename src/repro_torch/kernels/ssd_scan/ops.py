@@ -50,7 +50,14 @@ _I, _P = ctypes.c_int, ctypes.c_void_p
 
 def reset_counters() -> None:
     global ssd_launches, ref_calls
-    ssd_launches = ref_calls = 0
+    with _build.count_lock:
+        ssd_launches = ref_calls = 0
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name`` (``ssd_launches`` or
+    ``ref_calls``) under the port's count lock."""
+    _build.count(globals(), name)
 
 
 def counters() -> dict:
@@ -137,7 +144,6 @@ def launch(x, dt, A, Bm, Cm, initial_state=None, *, chunk: int = 128):
     strides with a contiguous last dimension (dt and A float32). Returns
     (y (B, H, S, p) in x's dtype — a view of a (B, S, H, p) tensor —,
     final state (B, H, p, n) float32)."""
-    global ssd_launches
     _check_inputs(x, dt, A, Bm, Cm, initial_state, chunk)
     B, H, S, p = x.shape
     n = Bm.shape[-1]
@@ -159,7 +165,7 @@ def launch(x, dt, A, Bm, Cm, initial_state=None, *, chunk: int = 128):
             None if s0 is None else s0.data_ptr(), y.data_ptr(),
             final.data_ptr(), strides, B, H, S, p, n, int(chunk), stream)
     _build.check(lib, err, "ssd_scan")
-    ssd_launches += 1
+    count("ssd_launches")
     return y, final
 
 
@@ -169,9 +175,8 @@ def ssd_scan(x, dt, A, Bm, Cm, initial_state=None, *, chunk: int = 128,
     Cm: (B,S,n). Returns y (B,H,S,p) in x's dtype, and with
     ``return_state`` the final state (B,H,p,n) float32. ``initial_state``
     (B,H,p,n) seeds the carried state (zeros when None)."""
-    global ref_calls
     if x.device.type == "cpu":
-        ref_calls += 1
+        count("ref_calls")
         return ssd_chunked_scan(x, dt, A, Bm, Cm, initial_state, chunk=chunk,
                                 return_state=return_state)
     if x.device.type != "cuda":

@@ -96,8 +96,8 @@ from repro_torch.models.registry import build_model, cache_len_for
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import residuals as obs_residuals
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serve import (ContinuousEngine, ServeRequest, StaticEngine,
-                               make_trace)
+from repro_torch.serve import (ContinuousEngine, ServeRequest,
+                               ServingFabric, StaticEngine, make_trace)
 from repro_torch.serve.engine import sequence_len
 
 #: registry families the ``--config`` sweep covers by default: one per
@@ -267,6 +267,28 @@ def _attach_telemetry(stats: Dict) -> None:
     stats["serialization_stall_s"] = rep["serialization_stall_s"]
 
 
+def _drive_wall_clock(target, requests: List[ServeRequest]) -> float:
+    """The wall-clock traffic loop over anything with the serving drive
+    surface (``submit`` / ``step`` / ``idle`` / ``device``: an engine or
+    a fabric): submit each request at its arrival time, run micro-steps
+    until everything has finished, return the makespan in seconds (the
+    device's queued work included)."""
+    pending = sorted(requests, key=lambda r: r.arrival)
+    n, i, done = len(pending), 0, 0
+    t0 = time.perf_counter()
+    while done < n:
+        now = time.perf_counter() - t0
+        while i < n and pending[i].arrival <= now:
+            target.submit(pending[i], now)
+            i += 1
+        if target.idle and i < n:
+            time.sleep(min(1e-3, max(0.0, pending[i].arrival - now)))
+            continue
+        done += len(target.step(time.perf_counter() - t0))
+    _sync(target.device)
+    return time.perf_counter() - t0
+
+
 def drive_continuous(eng: ContinuousEngine, requests: List[ServeRequest]
                      ) -> Dict[str, float]:
     """Submit each request at its arrival time, run micro-steps until all
@@ -275,20 +297,7 @@ def drive_continuous(eng: ContinuousEngine, requests: List[ServeRequest]
     percentiles, KV/prefix/spec accounting and, when the registry is
     live, its counters, gauges and histograms) and the trial's residuals
     when the tracer is live."""
-    pending = sorted(requests, key=lambda r: r.arrival)
-    n, i, done = len(pending), 0, 0
-    t0 = time.perf_counter()
-    while done < n:
-        now = time.perf_counter() - t0
-        while i < n and pending[i].arrival <= now:
-            eng.submit(pending[i], now)
-            i += 1
-        if eng.idle and i < n:
-            time.sleep(min(1e-3, max(0.0, pending[i].arrival - now)))
-            continue
-        done += len(eng.step(time.perf_counter() - t0))
-    _sync(eng.device)
-    makespan = time.perf_counter() - t0
+    makespan = _drive_wall_clock(eng, requests)
     toks = sum(useful_tokens(r.output[:r.generated], eng.eos_id)
                for r in requests)
     stats = obs_metrics.snapshot(engine=eng)
@@ -882,6 +891,207 @@ def run_family_rows(archs=FAMILY_ARCHS, *, smoke: bool = True,
     return rows
 
 
+def drive_fabric(fab: ServingFabric, requests: List[ServeRequest]
+                 ) -> Dict[str, float]:
+    """The wall-clock traffic loop through the serving fabric (router
+    dispatch, every rank's micro-step, migration): latency, TTFT and
+    throughput over every finished request, the router's census, the
+    per-rank rows and (disaggregated) the migration accounting."""
+    makespan = _drive_wall_clock(fab, requests)
+    eos = fab.workers[0].engine.eos_id
+    toks = sum(useful_tokens(r.output[:r.generated], eos) for r in requests)
+    stats = obs_metrics.snapshot(extra=fab.stats())
+    stats.update(makespan_s=makespan, useful_tokens=float(toks),
+                 tok_s=toks / makespan)
+    _attach_telemetry(stats)
+    return stats
+
+
+def _warm_fabric(fab: ServingFabric, cfg, *, seed: int,
+                 prompt_len: int) -> None:
+    """Warm every rank off the clock (kernel build and load, the chunk
+    and decode paths, and on the disaggregated path the migration and
+    the state import), then reset the whole fabric: warm requests leave
+    no queue entries, leases, decode state or accounting behind."""
+    trace = make_trace(2 * fab.ranks, prompt_len=prompt_len, max_new=2,
+                       arrival="all", seed=seed + 7)
+    for req in requests_from_trace(cfg, trace, seed=seed + 7):
+        fab.submit(req, 0.0)
+    guard = 0
+    while not fab.idle:
+        fab.step(0.0)
+        guard += 1
+        if guard > 10_000:
+            raise RuntimeError("fabric warm-up failed to drain")
+    fab.reset()
+
+
+def run_fabric(arch: str = "gemma-2b", *, smoke: bool = True,
+               device="cuda", requests: int = 16, ranks: int = 2,
+               slots: int = 4, prompt_len=(16, 256), max_new=(4, 32),
+               arrival: str = "poisson", rate: float = 50.0,
+               burst: int = 4, temperature: float = 0.0, eos_id: int = -1,
+               seed: int = 0, prefill_chunk: int = 64,
+               max_prefill_per_step: int = 2, block_size: int = 16,
+               placements=("replicated", "disagg"),
+               n_prefill_ranks: int = 1, speculate: int = 0,
+               dtype: Optional[str] = None, params=None,
+               layers: Optional[int] = None) -> Dict:
+    """Fabric against one engine: drive the same arrival trace through a
+    single paged ``ContinuousEngine`` of one rank's size, then through an
+    N-rank :class:`~repro_torch.serve.fabric.ServingFabric` under each
+    placement in ``placements``. Records tok/s and TTFT p50/p95 per
+    placement, per-rank utilization, the disaggregated path's migration
+    accounting, and the token identity of each placement against the
+    single engine (every rank runs the same chunked paged engine, so
+    placement must not change a token; a sampled request's generator
+    migrates with it). ``speculate`` > 0 makes the replicated ranks
+    speculative (greedy traces only). The reference's keys, plus the
+    port's ``backend``, ``layers``, ``device``, ``torch_version``,
+    ``cuda_version``, ``dtype``, ``kernels`` (the launch counts of the
+    measured drives summed; each measured drive's stats carry its own,
+    counted from zero just before it, so no warm-up is in them) and
+    ``fabric_equal_token_share_<placement>``.
+
+    ``params`` replaces the seeded random parameters; ``layers`` cuts
+    the depth (:func:`arch_config`); ``dtype`` is float32 at the smoke
+    configs and bfloat16 at full width unless given."""
+    cfg = arch_config(arch, smoke, layers)
+    dtype = dtype or ("float32" if smoke else "bfloat16")
+    model = build_model(cfg, ServeConfig(param_dtype=dtype,
+                                         compute_dtype=dtype,
+                                         attn_chunk_threshold=4096),
+                        device=device)
+    if model.decode_step_paged is None:
+        raise ValueError(f"arch {cfg.name!r} has no paged decode path; "
+                         "the serving fabric runs paged engines only")
+    dev = model.device
+    prefill_chunk = effective_chunk(model.capabilities, prefill_chunk)
+    if params is None:
+        params = model.init(seed)
+    plens = ((int(prompt_len),) if isinstance(prompt_len, int)
+             else tuple(int(p) for p in prompt_len))
+    pmax = max(plens)
+    hi = max_new if isinstance(max_new, int) else max_new[1]
+    cache_len = pmax + hi
+
+    trace = make_trace(requests, prompt_len=plens, max_new=max_new,
+                       arrival=arrival, rate=rate, burst=burst,
+                       temperature=temperature, seed=seed)
+    result: Dict = {"arch": cfg.name, "requests": requests, "ranks": ranks,
+                    "slots_per_rank": slots, "prompt_len": list(plens),
+                    "cache_len": cache_len, "arrival": arrival,
+                    "rate": rate, "eos_id": eos_id,
+                    "prefill_chunk": prefill_chunk,
+                    "block_size": block_size,
+                    "n_prefill_ranks": n_prefill_ranks,
+                    "placements": list(placements),
+                    "backend": "torch", "layers": cfg.num_layers,
+                    "device": device_info(dev),
+                    "torch_version": torch.__version__,
+                    "cuda_version": torch.version.cuda, "dtype": dtype}
+
+    def _measure(target, drive):
+        reqs = requests_from_trace(cfg, trace, seed=seed)
+        _sync(dev)
+        reset_kernel_counters()
+        stats = drive(target, reqs)
+        stats["kernels"] = kernel_counters()
+        return stats, reqs
+
+    # -- single-engine baseline (one paged engine, one rank's size) --
+    eng = ContinuousEngine(model, params, cache_len=cache_len,
+                           num_slots=slots, eos_id=eos_id,
+                           prefill_chunk=prefill_chunk,
+                           max_prefill_per_step=max_prefill_per_step,
+                           kv_layout="paged", block_size=block_size,
+                           device=dev)
+    warm = synthetic_batch(cfg, 1, plens[0], seed)
+    eng.generate({k: np.concatenate([v] * min(2, eng.kv.num_slots))
+                  for k, v in warm.items()}, 2)
+    eng.reset()
+    result["single"], base_reqs = _measure(eng, drive_continuous)
+    base_rows = _rows(base_reqs)
+    del eng
+
+    # -- fabric runs, one per placement --
+    for placement in placements:
+        # speculative ranks are replicated-only (a decode rank imports
+        # leases its drafter's pool cannot host) and greedy-only
+        spec_k = (speculate if (placement == "replicated"
+                                and temperature == 0.0
+                                and model.verify_step_paged is not None)
+                  else 0)
+        result[f"fabric_speculate_k_{placement}"] = spec_k
+        fab = ServingFabric(model, params, ranks=ranks,
+                            placement=placement, cache_len=cache_len,
+                            slots_per_rank=slots, eos_id=eos_id,
+                            prefill_chunk=prefill_chunk,
+                            max_prefill_per_step=max_prefill_per_step,
+                            block_size=block_size,
+                            n_prefill_ranks=n_prefill_ranks,
+                            speculate=spec_k, device=dev)
+        try:
+            _warm_fabric(fab, cfg, seed=seed, prompt_len=plens[0])
+            stats, reqs = _measure(fab, drive_fabric)
+            rows = _rows(reqs)
+            result[f"fabric_{placement}"] = stats
+            result[f"fabric_token_identical_{placement}"] = _identical(
+                base_rows, rows)
+            result[f"fabric_equal_token_share_{placement}"] = _equal_share(
+                base_rows, rows)
+            spd = stats["tok_s"] / result["single"]["tok_s"]
+            stats["speedup_vs_single"] = spd
+            result[f"speedup_vs_single_{placement}"] = spd
+        finally:
+            fab.close()
+    result["kernels"] = {k: sum(result[name]["kernels"][k] for name in (
+        "single", *(f"fabric_{p}" for p in placements)))
+        for k in result["single"]["kernels"]}
+    return result
+
+
+def print_fabric(result: Dict) -> None:
+    """Human-readable summary of a :func:`run_fabric` result."""
+    print(f"arch={result['arch']} layers={result['layers']} "
+          f"device={result['device']['name']} dtype={result['dtype']} "
+          f"requests={result['requests']} ranks={result['ranks']} "
+          f"slots/rank={result['slots_per_rank']} "
+          f"prompt_len={result['prompt_len']}", flush=True)
+    for name in ("single", "fabric_replicated", "fabric_disagg"):
+        if name not in result:
+            continue
+        m = result[name]
+        print(f"{name:>18}: {m['tok_s']:9.2f} tok/s  makespan "
+              f"{m['makespan_s']:.3f} s  latency p50 "
+              f"{m['latency_p50_s'] * 1e3:.2f} ms p95 "
+              f"{m['latency_p95_s'] * 1e3:.2f} ms  ttft p50 "
+              f"{m['ttft_p50_s'] * 1e3:.2f} ms p95 "
+              f"{m['ttft_p95_s'] * 1e3:.2f} ms", flush=True)
+        for row in m.get("per_rank", ()):
+            print(f"{'':>18}  rank {row['rank']} [{row['role']:>7}] util "
+                  f"{row['utilization']:.3f}  dispatched "
+                  f"{row['dispatched']:.0f}  migrated "
+                  f"{row['migrated_in']:.0f} in / "
+                  f"{row['migrated_out']:.0f} out  tokens "
+                  f"{row['tokens']:.0f}", flush=True)
+        if "n_migrations" in m:
+            print(f"{'':>18}  kv_migration: {m['n_migrations']:.0f} "
+                  f"handoffs, {m['blocks_moved']:.0f} blocks, "
+                  f"{m['bytes_moved']:.0f} bytes, modeled "
+                  f"{m['kv_migration_us_per_block']:.4f} us a block",
+                  flush=True)
+    for p in result["placements"]:
+        print(f"   token_identical[{p}]="
+              f"{result.get(f'fabric_token_identical_{p}')} (equal share "
+              f"{result.get(f'fabric_equal_token_share_{p}', 0.0):.3f})  "
+              f"speedup_vs_single[{p}]="
+              f"{result.get(f'speedup_vs_single_{p}', 0.0):.3f}x  "
+              f"speculate_k={result.get(f'fabric_speculate_k_{p}')}",
+              flush=True)
+    print("kernels: " + json.dumps(result["kernels"]), flush=True)
+
+
 def print_family_rows(rows: List[Dict]) -> None:
     for row in rows:
         if "skipped" in row:
@@ -1044,6 +1254,17 @@ def main(argv=None):
                     help="template tokens of the shared-prefix trace (0 = "
                          "3/4 of the longest prompt, in whole blocks)")
     ap.add_argument("--share-ratio", type=float, default=0.9)
+    ap.add_argument("--fabric", default="off",
+                    choices=("off", "replicated", "disagg", "both"),
+                    help="run the multi-rank serving fabric comparison "
+                         "instead of the engine comparison")
+    ap.add_argument("--ranks", type=int, default=2,
+                    help="engine ranks in the serving fabric")
+    ap.add_argument("--prefill-ranks", type=int, default=1,
+                    help="dedicated prefill ranks (disaggregated fabric)")
+    ap.add_argument("--fabric-speculate", type=int, default=0,
+                    help="draft tokens a round on the fabric's replicated "
+                         "ranks (0 = off; greedy traces only)")
     ap.add_argument("--eos-id", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None, metavar="PATH")
@@ -1070,6 +1291,29 @@ def main(argv=None):
             with open(args.json, "w") as f:
                 json.dump(_finalize_payload(
                     {"backend": "torch", "families": rows}), f, indent=1)
+        _write_trace(args.trace_out)
+        return
+    if args.fabric != "off":
+        placements = (("replicated", "disagg") if args.fabric == "both"
+                      else (args.fabric,))
+        result = run_fabric(
+            args.arch, smoke=args.smoke, device=args.device,
+            requests=args.requests, ranks=args.ranks, slots=args.slots,
+            prompt_len=plens[0] if len(plens) == 1 else plens,
+            max_new=(args.max_new_lo, args.max_new_hi),
+            arrival=args.arrival, rate=args.rate, burst=args.burst,
+            temperature=args.temperature, eos_id=args.eos_id,
+            seed=args.seed, prefill_chunk=args.prefill_chunk,
+            max_prefill_per_step=args.max_prefill_per_step,
+            block_size=args.kv_block_size, placements=placements,
+            n_prefill_ranks=args.prefill_ranks,
+            speculate=args.fabric_speculate, layers=args.layers)
+        print_fabric(result)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(_finalize_payload(
+                    {"schema": "repro-serve-bench-v8", **result}), f,
+                    indent=1)
         _write_trace(args.trace_out)
         return
     result = run_traffic(

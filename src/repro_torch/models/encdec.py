@@ -47,6 +47,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.models import layers as L
@@ -66,7 +67,14 @@ decode_calls = 0
 
 def reset_counters() -> None:
     global encode_calls, decode_calls
-    encode_calls = decode_calls = 0
+    with _build.count_lock:
+        encode_calls = decode_calls = 0
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name`` (``encode_calls`` or
+    ``decode_calls``) under the port's count lock."""
+    _build.count(globals(), name)
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +174,6 @@ def encode(cfg, params, frames, *, compute_dtype, serve,
            attention=flash_ops.flash_attention):
     """frames (B, T_enc, d) (stub embeddings) -> the encoder's normed
     output (B, T_enc, d) in ``compute_dtype``."""
-    global encode_calls
     x = frames.to(compute_dtype)
     T_enc = x.shape[1]
     x = x + L.sinusoidal_pos(T_enc, cfg.d_model, x.device).to(compute_dtype)
@@ -178,7 +185,7 @@ def encode(cfg, params, frames, *, compute_dtype, serve,
                                  attention=attention)
         x = x + a_out
         x = x + L.mlp_apply(p_l["mlp"], L.apply_norm(x, p_l["ln2"], cfg), cfg)
-    encode_calls += 1
+    count("encode_calls")
     return L.apply_norm(x, params["enc_norm"], cfg)
 
 
@@ -247,7 +254,7 @@ def prefill(cfg, params, tokens, cache_len: int, *, compute_dtype, serve,
         h = _dec_tail(cfg, p_l, h + a_out, ck, cv, attention)
     cache["pos"][:, :S] = positions.to(torch.int32)
     h = L.apply_norm(h, params["final_norm"], cfg)
-    T.prefill_calls += 1
+    T.count("prefill_calls")
     return T._logits(cfg, params, h[:, -1], compute_dtype), cache
 
 
@@ -256,7 +263,6 @@ def decode_step(cfg, params, cache, tokens, positions, *, compute_dtype,
     """Batched one-token decode over a slot cache: tokens (B,1) int,
     positions (B,) int -> logits (B,Vp) float32; ``cache`` is updated in
     place. A negative (parked) position writes nothing visible."""
-    global decode_calls
     B = tokens.shape[0]
     qpos = positions.long()[:, None]                  # (B, 1)
     valid = qpos >= 0
@@ -274,7 +280,7 @@ def decode_step(cfg, params, cache, tokens, positions, *, compute_dtype,
         h = _dec_tail(cfg, p_l, h + a_out, cache["cross_k"][i],
                       cache["cross_v"][i], attention)
     h = L.apply_norm(h, params["final_norm"], cfg)
-    decode_calls += 1
+    count("decode_calls")
     return T._logits(cfg, params, h[:, 0], compute_dtype)
 
 
@@ -353,7 +359,7 @@ def prefill_chunk_paged(cfg, params, cache, tokens, block_tables, rows, pos0,
     x = _dec_embed(cfg, params, tokens, qpos, compute_dtype)
     h = _paged_dec_backbone(cfg, params, x, cache, block_tables, qpos, wvalid,
                             lengths, attention, cross_attention, rows=rows)
-    T.chunk_calls += 1
+    T.count("chunk_calls")
     last = (n_valid.long() - 1).clamp(0, C - 1)
     return T._logits(cfg, params, h[torch.arange(B, device=dev), last],
                      compute_dtype)
@@ -366,11 +372,10 @@ def decode_step_paged(cfg, params, cache, tokens, positions, block_tables, *,
     carried cross K/V (batch row i is engine row i): tokens (B,1),
     positions (B,) (negative = parked: writes nothing), block_tables
     (B,NB) -> logits (B,Vp) float32."""
-    global decode_calls
     qpos = positions.long()[:, None]
     lengths = (positions.long() + 1).to(torch.int32)
     x = _dec_embed(cfg, params, tokens, qpos, compute_dtype)
     h = _paged_dec_backbone(cfg, params, x, cache, block_tables, qpos,
                             qpos >= 0, lengths, attention, cross_attention)
-    decode_calls += 1
+    count("decode_calls")
     return T._logits(cfg, params, h[:, 0], compute_dtype)

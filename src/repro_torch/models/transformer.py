@@ -83,6 +83,7 @@ import torch
 
 from repro_torch.config import (BLOCK_DENSE, BLOCK_HYBRID, BLOCK_MOE,
                                 BLOCK_SSM, ModelConfig, ServeConfig)
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -105,7 +106,14 @@ verify_calls = 0
 
 def reset_counters() -> None:
     global prefill_calls, chunk_calls, verify_calls
-    prefill_calls = chunk_calls = verify_calls = 0
+    with _build.count_lock:
+        prefill_calls = chunk_calls = verify_calls = 0
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name`` (``prefill_calls``,
+    ``chunk_calls`` or ``verify_calls``) under the port's count lock."""
+    _build.count(globals(), name)
 
 
 def has_state(cfg: ModelConfig) -> bool:
@@ -354,7 +362,6 @@ def prefill_chunk_paged(cfg, params, cache, tokens, block_tables, rows, pos0,
     all ``-1`` table, ``n_valid == 0`` and an out-of-range ``rows`` entry:
     nothing is written and their logits are garbage. ``rows`` matters only
     to the families with carried state."""
-    global chunk_calls
     B, C = tokens.shape
     dev = tokens.device
     x = embed_tokens(cfg, params, tokens, compute_dtype)
@@ -364,7 +371,7 @@ def prefill_chunk_paged(cfg, params, cache, tokens, block_tables, rows, pos0,
     lengths = (pos0.long() + C).to(torch.int32)
     h = _paged_backbone(cfg, params, x, cache, block_tables, qpos, wvalid,
                         lengths, attention, scan, chunk=(rows, pos0, n_valid))
-    chunk_calls += 1
+    count("chunk_calls")
     last = (n_valid.long() - 1).clamp(0, C - 1)
     hidden = h[torch.arange(B, device=dev), last]
     return _logits(cfg, params, hidden, compute_dtype)
@@ -383,7 +390,6 @@ def verify_step_paged(cfg, params, cache, tokens, positions, block_tables,
     engine advances the row by the accepted count only, and the stale
     rows beyond stay out of causal range until overwritten. Dense family
     only (carried state cannot be rewound)."""
-    global verify_calls
     if has_state(cfg):
         raise ValueError(f"{cfg.name}: speculative verify cannot rewind "
                          "carried recurrent state")
@@ -397,7 +403,7 @@ def verify_step_paged(cfg, params, cache, tokens, positions, block_tables,
     lengths = (pos + K).to(torch.int32)
     h = _paged_backbone(cfg, params, x, cache, block_tables, qpos, wvalid,
                         lengths, attention, None)
-    verify_calls += 1
+    count("verify_calls")
     return _logits(cfg, params, h.reshape(B * K, -1),
                    compute_dtype).reshape(B, K, -1)
 
@@ -533,7 +539,6 @@ def prefill(cfg, params, tokens, cache_len: int, *, compute_dtype, serve,
     runs over the whole prompt). With the patch_stub frontend,
     ``patch_embeds`` (B, F, d) are prepended: the sequence is F + S long
     and its positions run over all of it."""
-    global prefill_calls
     dev = tokens.device
     x = embed_tokens(cfg, params, tokens, compute_dtype)
     if cfg.frontend == "patch_stub":
@@ -546,7 +551,7 @@ def prefill(cfg, params, tokens, cache_len: int, *, compute_dtype, serve,
     if cfg.uses_attention:
         first, cols = _ring_columns(S, cache_len, dev)
         cache["pos"][:, cols] = positions[first:].to(torch.int32)
-    prefill_calls += 1
+    count("prefill_calls")
     return _logits(cfg, params, hidden[:, -1], compute_dtype), cache
 
 
@@ -646,7 +651,6 @@ def prefill_chunk(cfg, params, cache, tokens, pos0, n_valid, *,
     position (B,Vp) float32; ``cache`` is updated in place. Padding
     positions (``j >= n_valid``) write no visible entry, draw no attention
     weight from valid queries and leave the carried state as it was."""
-    global chunk_calls
     B, C = tokens.shape
     dev = tokens.device
     x = embed_tokens(cfg, params, tokens, compute_dtype)
@@ -655,7 +659,7 @@ def prefill_chunk(cfg, params, cache, tokens, pos0, n_valid, *,
     h = _slot_backbone(cfg, params, x, cache, qpos,
                        j < n_valid.long()[:, None], scan,
                        chunk=(pos0.to(dev), n_valid))
-    chunk_calls += 1
+    count("chunk_calls")
     last = (n_valid.long() - 1).clamp(0, C - 1)
     hidden = h[torch.arange(B, device=dev), last]
     return _logits(cfg, params, hidden, compute_dtype)

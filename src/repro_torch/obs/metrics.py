@@ -14,9 +14,10 @@ occupancy, queue depth). Enabled with the tracer (``REPRO_TRACE=1``) or
 ``engine_kv_accounting`` / ``engine_prefix_stats`` /
 ``engine_spec_stats``; the engine's ``kv_accounting`` / ``prefix_stats``
 / ``spec_stats`` are thin aliases of them. :func:`snapshot` merges them
-into the one dict the launcher consumes. The fabric's collectors
-(``worker_utilization``, ``scheduler_census``) come with the port of the
-serving fabric.
+into the one dict the launcher consumes. The serving fabric's
+collectors, ``worker_utilization`` (one per-rank row) and
+``scheduler_census`` (the router's trial census), are the schema of its
+``stats()``; ``snapshot(workers=)`` adds the per-rank rows.
 
 No imports from ``repro_torch.serve``: the collectors duck-type their
 argument, so serve modules import this registry without a cycle.
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 
@@ -215,12 +216,52 @@ def engine_spec_stats(engine) -> dict:
             **engine.scheduler.spec_stats()}
 
 
-def snapshot(engine=None, scheduler=None,
+def worker_utilization(worker) -> dict:
+    """One per-rank row of the fabric's stats."""
+    return {
+        "rank": worker.rank,
+        "role": worker.role,
+        "steps": float(worker.total_steps),
+        "busy_steps": float(worker.busy_steps),
+        "utilization": (worker.busy_steps / worker.total_steps
+                        if worker.total_steps else 0.0),
+        "dispatched": float(worker.n_dispatched),
+        "migrated_in": float(worker.n_migrated_in),
+        "migrated_out": float(worker.n_migrated_out),
+        "finished": float(worker.n_finished),
+        "tokens": float(worker.tokens_out),
+        # residual predicted work (0 after a drained trial): the JSQ key
+        # the router balanced on
+        "predicted_load_s": float(worker._load_s),
+    }
+
+
+def scheduler_census(scheduler, prefix: str = "router_") -> dict:
+    """Trial-scoped census from a scheduler's rid-keyed ``req_log``:
+    everything submitted this trial, what is still in flight, the arrival
+    window, and the hop's admission accounting."""
+    log = scheduler.req_log
+    out = {
+        prefix + "eager_admits": float(scheduler.n_eager_admits),
+        prefix + "deferred": float(scheduler.n_deferred),
+        prefix + "dispatch_cost_us": 1e6 * scheduler.modeled_admit_cost_s,
+        prefix + "submitted": float(len(log)),
+        prefix + "in_flight": float(sum(1 for r in log.values()
+                                        if r.state != "done")),
+    }
+    if log:
+        arr = [r.arrival for r in log.values()]
+        out["arrival_span_s"] = max(arr) - min(arr)
+    return out
+
+
+def snapshot(engine=None, scheduler=None, workers: Iterable = (),
              registry: Optional[MetricsRegistry] = None,
              extra: Optional[dict] = None) -> dict:
     """The one merged stats dict the launcher consumes: latency
     percentiles from the scheduler's finished list, the engine's
-    KV/prefix/spec accounting, and (when the push registry is live) its
+    KV/prefix/spec accounting, per-rank utilization rows (``workers``,
+    under ``"per_rank"``), and (when the push registry is live) its
     counters, gauges and histograms under ``"metrics"``."""
     out: dict = {}
     if scheduler is not None:
@@ -231,6 +272,9 @@ def snapshot(engine=None, scheduler=None,
         out.update(engine.kv_accounting())
         out.update(engine.prefix_stats())
         out.update(engine.spec_stats())
+    rows = [worker_utilization(w) for w in workers]
+    if rows:
+        out["per_rank"] = rows
     reg = registry if registry is not None else _REG
     if reg is not None:
         out["metrics"] = reg.snapshot()

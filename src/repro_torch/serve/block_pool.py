@@ -221,6 +221,9 @@ class PagedKVCache:
     def live_slots(self) -> List[int]:
         return [s for s in range(self.num_slots) if self._owner[s] is not None]
 
+    def owner(self, slot: int):
+        return self._owner[slot]
+
     def length(self, slot: int) -> int:
         return int(self._len[slot])
 

@@ -99,8 +99,18 @@ span is host wall clock around the call; it covers the card's work up
 to the call's last host sync. Off, each site is one global read and a
 ``None`` check.
 
-The serving fabric's prefill/decode roles are not ported yet and raise
-``NotImplementedError``, naming the slice that brings them.
+Roles (the serving fabric, :mod:`repro_torch.serve.fabric`): a
+``role="prefill"`` engine (paged only) leases blocks for the prompt alone,
+never decodes, and parks each prefill-complete request in
+``ready_handoffs`` (:class:`KVHandoff`) with its rows and blocks still
+leased; a ``role="decode"`` engine takes such a request in through
+:meth:`ContinuousEngine.begin_import` (a full-budget lease: the posted
+receive), the transport's block copies, then
+:meth:`ContinuousEngine.finish_import`, which installs the row's host
+decode state (next token, position, temperature and the request's own
+``torch.Generator`` object, so a sampled stream continues where it
+stopped). ``role="full"`` is the single engine. Prefix caching and
+speculation need ``role="full"``.
 """
 
 from __future__ import annotations
@@ -133,12 +143,6 @@ class _NullStream:
 
     def ordered(self, value):
         return value
-
-
-def not_ported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet; it arrives with the "
-        f"{slice_name} slice of the port")
 
 
 def _check_device(device, model) -> torch.device:
@@ -254,6 +258,20 @@ class _PrefillJob:        # field-compare requests (ndarray __eq__ raises)
     off: int = 0
 
 
+@dataclass(eq=False)
+class KVHandoff:
+    """A prefill-complete request ready to migrate to a decode rank: its
+    row still holds the prompt's KV blocks and the first token's decode
+    state. The owning engine keeps the lease until
+    :meth:`ContinuousEngine.release_handoff`: the source blocks must not
+    be recycled while the transport still copies out of them."""
+    req: ServeRequest
+    slot: int                     # source request row
+    out: np.ndarray               # (max_new,) output buffer, out[0] = tok0
+    length: int                   # resident prompt tokens
+    blocks: List[int]             # source pool block ids, table order
+
+
 class ContinuousEngine:
     """Continuous-batching engine: slot-pool or paged-pool decode +
     cell-queue admission + chunked, batched (or monolithic) prefill.
@@ -275,8 +293,17 @@ class ContinuousEngine:
         if kv_layout not in ("slot", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r} "
                              "(expected 'slot' or 'paged')")
-        if role != "full":
-            raise not_ported(f"role={role!r}", "serving-fabric")
+        if role not in ("full", "prefill", "decode"):
+            raise ValueError(f"unknown role {role!r} "
+                             "(expected 'full', 'prefill' or 'decode')")
+        if role == "prefill" and kv_layout != "paged":
+            raise ValueError("a prefill-rank engine hands its KV off "
+                             "block-by-block; it requires kv_layout='paged'")
+        #: fabric role: "prefill" leases the prompt only, never decodes and
+        #: parks finished prefills in ready_handoffs; "decode" takes
+        #: requests in through begin_import / finish_import; "full" is
+        #: the single engine
+        self.role = role
         self.model = model
         self.params = params
         self.device = dev
@@ -345,6 +372,10 @@ class ContinuousEngine:
             if not paged:
                 raise ValueError("prefix caching shares paged KV blocks; "
                                  "it requires kv_layout='paged'")
+            if role != "full":
+                raise ValueError("prefix caching is not supported on "
+                                 "disaggregated prefill/decode ranks "
+                                 "(migrated blocks leave the local pool)")
             if not caps.prefix_cache:
                 raise ValueError("model lacks capability 'prefix_cache': "
                                  + caps.reason)
@@ -376,6 +407,9 @@ class ContinuousEngine:
         #: partially-deposited requests, FIFO; each micro-step serves the
         #: first ``max_prefill_per_step`` of them with one fused dispatch
         self._prefilling: Deque[_PrefillJob] = deque()
+        #: role="prefill": prefill-complete requests awaiting migration
+        #: (their rows and blocks stay leased until release_handoff)
+        self.ready_handoffs: List[KVHandoff] = []
         self._fresh_state()
         self._zero_accounting()
 
@@ -402,6 +436,10 @@ class ContinuousEngine:
             raise ValueError("speculative decoding rolls rejected draft KV "
                              "back through block tables; it requires "
                              "kv_layout='paged'")
+        if self.role != "full":
+            raise ValueError("speculative decoding needs draft and verify on "
+                             "one engine; it is not supported on "
+                             "disaggregated prefill/decode ranks")
         if self.prefix_cache is not None:
             raise ValueError(
                 "speculative decoding does not compose with prefix "
@@ -482,13 +520,19 @@ class ContinuousEngine:
             budget = self._token_budget(req)
             cap = self.admittable_tokens
             if budget > cap:
+                # a prefill-rank lease is prompt-only: the message names
+                # the quantity actually rejected
+                what = ("prompt" if self.role == "prefill"
+                        else "prompt+max_new")
+                fix = ("" if self.role == "prefill"
+                       else " or lower max_new_tokens")
                 raise ValueError(
-                    f"request {req.rid}: prompt+max_new = {budget} tokens "
-                    f"exceeds the admittable capacity {cap} (= min(table "
-                    f"cap {self.kv.max_blocks_per_req}, pool "
+                    f"request {req.rid}: {what} = {budget} tokens exceeds "
+                    f"the admittable capacity {cap} (= min(table cap "
+                    f"{self.kv.max_blocks_per_req}, pool "
                     f"{self.kv.pool.num_blocks}) blocks x "
-                    f"{self.kv.block_size}); raise cache_len/num_blocks or "
-                    "lower max_new_tokens")
+                    f"{self.kv.block_size}); raise cache_len/num_blocks"
+                    f"{fix}")
         return self.scheduler.submit(req, now)
 
     @property
@@ -501,10 +545,13 @@ class ContinuousEngine:
         return (min(self.kv.max_blocks_per_req, self.kv.pool.num_blocks)
                 * self.kv.block_size)
 
-    @staticmethod
-    def _token_budget(req: ServeRequest) -> int:
+    def _token_budget(self, req: ServeRequest) -> int:
         """Tokens leased at admission: the prompt plus every token the
-        request may generate (no mid-decode block exhaustion)."""
+        request may generate (no mid-decode block exhaustion). A
+        prefill-rank engine leases the prompt only: every generated
+        token's KV is written on the decode rank that imports it."""
+        if self.role == "prefill":
+            return req.prompt_len
         return req.prompt_len + req.max_new_tokens
 
     @property
@@ -838,6 +885,14 @@ class ContinuousEngine:
         req.generated = 1
         if (0 <= self.eos_id == tok0) or req.max_new_tokens == 1:
             return self._finish(slot, req, out, now)
+        if self.role == "prefill":
+            # the request never enters this engine's decode rows (so no
+            # decode step can advance its held state before it ships)
+            req.state = "migrating"
+            self.ready_handoffs.append(KVHandoff(
+                req=req, slot=slot, out=out, length=self.kv.length(slot),
+                blocks=self.kv.blocks_of(slot)))
+            return None
         self._slot_req[slot] = req
         self._slot_out[slot] = out
         return None
@@ -1007,6 +1062,60 @@ class ContinuousEngine:
         self.scheduler.record_finish(req, now)
         return req
 
+    # -- disaggregated KV handoff (the fabric's transport surface) ---------
+    def take_handoffs(self) -> List[KVHandoff]:
+        """Drain the prefill-complete requests awaiting migration. The
+        caller gets each one to a decode rank and then calls
+        :meth:`release_handoff`; until then this engine keeps the source
+        blocks leased."""
+        out, self.ready_handoffs = self.ready_handoffs, []
+        return out
+
+    def handoff_state(self, slot: int) -> dict:
+        """The decode-state row that migrates with the KV: the next input
+        token (the first sampled one), the next position (the prompt's
+        end), the temperature and the request's generator object, which
+        has drawn the first token and goes on from there."""
+        return {"tok": int(self._tok[slot]), "pos": int(self._pos[slot]),
+                "temp": float(self._temp[slot]), "gen": self._gen[slot]}
+
+    def release_handoff(self, slot: int) -> None:
+        """Migration complete: return the source row and its blocks to
+        the pools and park the row."""
+        self.kv.free(slot)
+        self._pos[slot] = PARK_POS
+        self._temp[slot] = 0.0
+        self._gen[slot] = None
+
+    def begin_import(self, req: ServeRequest):
+        """Decode-rank half of the handoff, part 1: claim a request row
+        and lease blocks for the request's whole budget (prompt +
+        max_new) before the transport copies: the posted receive.
+        Returns ``(slot, dst_blocks)``; the transport writes the prompt's
+        KV into the first ``blocks_for(prompt_len)`` of ``dst_blocks``."""
+        if self.kv_layout != "paged":
+            raise ValueError("KV-block import needs kv_layout='paged'")
+        slot = self.kv.alloc(req, req.prompt_len + req.max_new_tokens)
+        return slot, self.kv.blocks_of(slot)
+
+    def finish_import(self, slot: int, handoff: KVHandoff, state_row: dict,
+                      now: float) -> None:
+        """Decode-rank half, part 2 (after the transport's waitall):
+        install the migrated decode state at ``slot`` and enter the
+        request into this engine's decode rows, where the prefill rank
+        stopped (generated == 1, next position == the prompt's end). The
+        generator object itself moves: re-deriving it from ``(seed,
+        rid)`` would replay the first token's draw."""
+        req = handoff.req
+        self.kv.advance(slot, handoff.length)    # resident prompt tokens
+        self._tok[slot] = state_row["tok"]
+        self._pos[slot] = state_row["pos"]
+        self._temp[slot] = state_row["temp"]
+        self._gen[slot] = state_row["gen"]
+        req.state = "decoding"
+        self._slot_req[slot] = req
+        self._slot_out[slot] = handoff.out
+
     def reset(self, *, strict: bool = False,
               preserve_prefix: bool = False) -> None:
         """Return the engine to its post-construction state: every row
@@ -1017,6 +1126,7 @@ class ContinuousEngine:
         ``LeaseLeakWarning``, or ``LeaseLeakError`` when ``strict``."""
         self._fresh_state()
         self._prefilling.clear()
+        self.ready_handoffs.clear()
         if self.prefix_cache is not None and preserve_prefix:
             self.kv.reset_rows(strict=strict)
         else:

@@ -121,6 +121,12 @@ class SlotKVCache:
     def live_slots(self) -> List[int]:
         return [s for s in range(self.num_slots) if self._owner[s] is not None]
 
+    def owner(self, slot: int):
+        return self._owner[slot]
+
+    def length(self, slot: int) -> int:
+        return int(self._len[slot])
+
     @property
     def lengths(self) -> np.ndarray:
         return self._len.copy()
@@ -196,6 +202,25 @@ class SlotKVCache:
         for k, b in self._buf.items():
             b.select(_SLOT_AXIS[k], slot).fill_(-1 if k == "pos" else 0)
         self._len[slot] = 0
+
+    def take_rows(self, slots) -> Dict[str, torch.Tensor]:
+        """A copy of the cache rows of ``slots`` (:meth:`rows_at`)."""
+        return self.rows_at(slots)
+
+    def insert_at(self, slots, rows: Dict[str, torch.Tensor],
+                  lengths=None) -> None:
+        """Deposit cache rows back into their ``slots`` (:meth:`rows_into`:
+        out-of-range slots write nothing). ``lengths`` (same order as
+        ``slots``) sets the resident-token count of each in-range slot;
+        chunk streaming instead accounts entries with :meth:`advance`."""
+        slots = np.asarray(slots)
+        self.rows_into(rows, slots)
+        if lengths is not None:
+            for s, n in zip(slots.tolist(), np.asarray(lengths).tolist()):
+                if 0 <= s < self.num_slots:
+                    if self._owner[s] is None:
+                        raise SlotError(f"insert_at into free slot {s}")
+                    self._len[s] = int(n)
 
     def reset(self, *, strict: bool = False) -> None:
         """Return every slot to the free pool and zero the accounting

@@ -17,6 +17,9 @@ Per-request arrival/admit/first-token/finish times are stamped on the
 reference's order, so one seed gives the reference's trace (Poisson,
 burst or all-at-once arrivals, sampling temperatures, shared prefix
 groups).
+The scheduler keeps every request of the trial in ``req_log`` (by rid;
+the serving fabric's router census reads it), and :func:`shard_trace`
+deals a trace to data-parallel replicas.
 
 Telemetry (``REPRO_TRACE=1``, :mod:`repro_torch.obs`): ``admit`` and
 ``defer`` instants, the ``sched.admitted`` counter and
@@ -57,11 +60,18 @@ class ServeRequest:
     nbytes: int = 0
     cells: int = 0
     admit_cost_s: float = 0.0             # protocol-model admission price
-    # lifecycle: queued -> prefilling -> decoding -> done
+    # lifecycle: queued -> prefilling -> decoding -> done; a prefill
+    # rank's request is "migrating" between its first token and its
+    # import on a decode rank
     state: str = "queued"
     prefill_chunks: int = 0               # chunk dispatches this rode in
     prefix_hit_tokens: int = 0            # prompt tokens served from the
                                           # radix prefix cache (no prefill)
+    # -- stamped by the serving fabric --
+    rank: int = -1                        # engine rank that served/prefilled
+    decode_rank: int = -1                 # disagg: rank that decoded
+    kv_migration_s: float = 0.0           # modeled KV-handoff latency
+    kv_blocks_moved: int = 0              # blocks migrated for this request
     submit_time: Optional[float] = None
     admit_time: Optional[float] = None
     first_token_time: Optional[float] = None
@@ -128,6 +138,11 @@ class CellQueueScheduler:
         self._overflow: Deque[ServeRequest] = deque()   # eager, pool full
         self._rendezvous: Deque[ServeRequest] = deque() # 1-copy sized
         self.finished: List[ServeRequest] = []
+        # every request submitted this trial, keyed by rid: the fabric's
+        # router reads its dispatch-hop scheduler's log (in-flight
+        # census, arrival span). rids restart at 0 every trial, so reset
+        # clears it: a warm-up entry would alias the next trial's request
+        self.req_log: Dict[int, ServeRequest] = {}
         self.n_submitted = 0
         self.n_eager_admits = 0       # buffered straight into cells
         self.n_deferred = 0           # overflow + rendezvous submissions
@@ -157,6 +172,7 @@ class CellQueueScheduler:
         self._overflow.clear()
         self._rendezvous.clear()
         self.finished = []
+        self.req_log.clear()
         self.n_submitted = 0
         self.n_eager_admits = 0
         self.n_deferred = 0
@@ -223,6 +239,7 @@ class CellQueueScheduler:
         (``"cells" | "overflow" | "rendezvous"``)."""
         proto = self._classify(req, now)
         self.n_submitted += 1
+        self.req_log[req.rid] = req
         req.state = "queued"
         if proto in EAGER_CLASS and req.cells <= self.num_cells:
             if req.cells <= self.cells_free:
@@ -440,3 +457,24 @@ def make_trace(n_requests: int, *, prompt_len, max_new,
                 e.prefix_group = int(rng.integers(prefix_groups))
                 e.prefix_len = min(int(shared_prefix_len), e.prompt_len)
     return out
+
+
+def shard_trace(trace: List[TraceEntry], replica: int,
+                n_replicas: int, seed: Optional[int] = None
+                ) -> List[TraceEntry]:
+    """Data-parallel fan-out: the slice of the trace that replica
+    ``replica`` of ``n_replicas`` serves. ``seed=None`` deals entry ``i``
+    to replica ``i % n_replicas``; with a seed the entries are dealt
+    through a seeded numpy permutation instead (the reference's draw), an
+    exact partition still, decorrelated from any period of the trace
+    (round robin hands every long prompt of a 16/256 interleave to one
+    replica when ``n_replicas`` divides its cycle). Arrival order within
+    a shard is kept."""
+    if not 0 <= replica < n_replicas:
+        raise ValueError(f"replica {replica} out of range({n_replicas})")
+    if seed is None:
+        return [e for i, e in enumerate(trace) if i % n_replicas == replica]
+    perm = np.random.default_rng(seed).permutation(len(trace))
+    mine = sorted(int(perm[j]) for j in range(replica, len(trace),
+                                              n_replicas))
+    return [trace[i] for i in mine]

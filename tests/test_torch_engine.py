@@ -204,16 +204,23 @@ def test_counts_plain_attention_calls_on_cpu(bundles):
 
 
 def test_unported_paths_raise_naming_the_slice(bundles):
-    """What the port does not serve yet raises ``NotImplementedError``
-    naming the slice that brings it: the serving fabric's roles. Prefix
-    caching, speculation, ring buffers, another dense config as the
-    drafter and every registry config are ported: they build and run. A
-    drafter of another vocabulary (every full-width pair) raises the
-    engine's ValueError, the reference's words."""
+    """Every path of the reference's engine is ported: the serving
+    fabric's roles build, and refuse what the reference's refuse with its
+    ValueErrors (an unknown role; a prefill rank on the slot layout).
+    Prefix caching, speculation, ring buffers, another dense config as
+    the drafter and every registry config build and run. A drafter of
+    another vocabulary (every full-width pair) raises the engine's
+    ValueError, the reference's words."""
     _, _, model, params = bundles
     kw = dict(cache_len=16, num_slots=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="fabric"):
-        ContinuousEngine(model, params, role="prefill", **kw)
+    with pytest.raises(ValueError, match="unknown role 'router'"):
+        ContinuousEngine(model, params, role="router", **kw)
+    with pytest.raises(ValueError, match="requires kv_layout='paged'"):
+        ContinuousEngine(model, params, kv_layout="slot", role="prefill",
+                         **kw)
+    for role in ("prefill", "decode"):
+        assert ContinuousEngine(model, params, kv_layout="paged",
+                                role=role, **kw).role == role
     for extra in (dict(kv_layout="paged", prefix_cache=True),
                   dict(kv_layout="paged", speculate=2)):
         ContinuousEngine(model, params, **kw, **extra)
