@@ -223,6 +223,32 @@ Phases (any failure exits non-zero and prints no result):
    and no plain version; printed, not gated: its tok/s, TTFT p50/p95,
    per-rank utilization, equal-token shares and ``speedup_vs_single_*``,
    and the phase's seconds.
+13. Training (``repro_torch.train``, ``launch.train``). (a) gemma-2b at
+   full width and depth in bf16 through ``launch.train.run_train`` (the
+   launcher's defaults: remat on, loss_chunk 64, lr 3e-3 with 10 warmup
+   steps), B=8 S=128, 4 steps: every loss finite; the median step (host
+   wall clock, synchronised), tokens/s, peak memory and the idle share of
+   the 4th step, profiled. (b) gemma-2b's widths at 2 of 18 layers
+   (0.74 B parameters) in float32 on a pod 2 x data 2 x model 1 mesh (R
+   = 4 ranks, M = 2 threads a process), 3 steps each on the same
+   batches: ``spmd``, ``threadcomm`` and ``flat`` losses within rtol =
+   atol = 1e-4 of each other, every rank's new parameters equal
+   (``params_rank_spread`` 0), the largest parameter difference
+   printed; then ``threadcomm`` over a bf16 wire: losses within 2e-2 of
+   float32's and ``msgq_one_copy`` launched (counted each step; the
+   float32 syncs launch none); each run's peak memory. (c)
+   ``msgq_one_copy`` at (b)'s wire message (4 ranks x plen / 2 bf16, the
+   pod pairs of the recursive doubling) bitwise against ``ref.py``, timed
+   (CUDA events, median of 30, L2 flushed) beside its byte bound, the
+   plain version and ``index_select``; its launches and this time join
+   the msgq row of the kernel table. (d) (b)'s float32 threadcomm state
+   checkpointed after step 2 (under the git-ignored ``build/``), restored
+   into a fresh state, takes step 3: bitwise the uninterrupted step 3.
+   (e) gemma-2b's widths at 1 layer in float32, B=2 S=64, the same
+   parameters on the card and the CPU: loss and gradient norm within
+   1e-4 relative; every other architecture's smoke config, 2 spmd steps
+   in float32 on both: finite, within 1e-4. No training path reaches
+   the attention or scan kernels (they have no backward).
 
 The last lines are the kernel table (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -4043,6 +4069,422 @@ def phase_fabric(dev):
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the training path
+# ---------------------------------------------------------------------------
+
+#: 13(b)'s mesh: two processes ("pod") of two threads ("data"), model 1:
+#: R = 4 ranks, M = 2 threads a process, the smallest with both levels
+TRAIN_MESH = ((2, 2, 1), ("pod", "data", "model"))
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+#: 13(b)'s depth: gemma-2b's widths at 2 of 18 layers (0.74 B
+#: parameters): an explicit step holds ~50 bytes a parameter at R = 4
+TRAIN_SYNC_LAYERS = 2
+#: the three gradient syncs' losses against each other (float32): the
+#: reference's own grad-sync parity bound (``tests/mp_cases.py``)
+SYNC_TOL = 1e-4
+#: the bf16 wire's losses against float32's: the reference's bound
+WIRE_TOL = 2e-2
+#: the port's loss and gradient norm on the card against the CPU's, and
+#: each family's smoke losses (float32 on both, sums in other orders)
+DEVICE_TOL = 1e-4
+#: where 13(d) writes its checkpoint (git-ignored, removed after)
+TRAIN_CKPT = ROOT / "build" / "phase13_ckpt"
+
+
+def train_gemma_full(dev):
+    """13(a): gemma-2b at full width and depth in bf16 through the
+    launcher (``launch.train.run_train``: TrainConfig defaults with remat
+    on, loss_chunk 64, lr 3e-3 with 10 warmup steps), B=8 S=128, 4
+    steps, the 4th profiled; every loss finite."""
+    from repro_torch.launch.train import run_train
+    free_cuda()
+    wall_ms, prof = [], {}
+
+    def wrapper(i, thunk):
+        if i < 3:
+            t0 = time.perf_counter()
+            out = thunk()
+            torch.cuda.synchronize()
+            wall_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+        box = {}
+
+        def step():
+            box["out"] = thunk()
+        prof.update(profile_step("13(a) train step, gemma-2b bf16", step,
+                                 statistics.median(wall_ms), names=())
+                    or {})
+        return box["out"]
+
+    t0 = time.perf_counter()
+    res = run_train("gemma-2b", steps=4, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    lr=3e-3, device=dev, step_wrapper=wrapper,
+                    log=lambda line: print("13(a) " + line, flush=True))
+    losses = res["losses"]
+    require(len(losses) == 4 and all(math.isfinite(x) for x in losses),
+            f"13(a): the losses are not 4 finite values: {losses}")
+    med = statistics.median(wall_ms)
+    out = {"losses": losses, "step_ms": wall_ms, "median_step_ms": med,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "params": res["params"], "idle_share": prof.get("idle_share"),
+           "device_busy_ms": prof.get("device_busy_ms"),
+           "device_launches": prof.get("device_launches"),
+           "seconds": time.perf_counter() - t0}
+    print(f"13(a) gemma-2b 18 layers bf16 B={TRAIN_BATCH} S={TRAIN_SEQ}: "
+          f"losses {losses}; steps 1-3 {wall_ms} ms (host wall clock, "
+          f"synchronised), median {med:.3f} ms, "
+          f"{out['tokens_per_s']:.1f} tokens/s; peak "
+          f"{out['max_memory_allocated']} bytes allocated; idle share "
+          f"{out['idle_share']}; {out['seconds']:.1f} s", flush=True)
+    del res
+    free_cuda()
+    # the same 4 steps at a tenth of the rate: is a loss that rises over
+    # the warmup the schedule's (printed, not gated)
+    slow = run_train("gemma-2b", steps=4, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     lr=3e-4, device=dev, log=lambda line: None)
+    require(all(math.isfinite(x) for x in slow["losses"]),
+            f"13(a): a non-finite loss at lr 3e-4: {slow['losses']}")
+    out["losses_lr_3e-4"] = slow["losses"]
+    print(f"13(a) the same at lr 3e-4: losses {slow['losses']}", flush=True)
+    del slow
+    free_cuda()
+    return out
+
+
+def sync_model(dev, grad_sync, wire="float32"):
+    """gemma-2b at full width, 2 layers, float32, for 13(b)-(d)."""
+    from repro_torch.config import ServeConfig, TrainConfig
+    from repro_torch.launch.serve import arch_config
+    from repro_torch.models.registry import build_model
+    tcfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                       learning_rate=3e-3, warmup_steps=10, total_steps=100,
+                       grad_sync=grad_sync, grad_comm_dtype=wire,
+                       loss_chunk=64, attn_chunk_threshold=256)
+    cfg = arch_config("gemma-2b", layers=TRAIN_SYNC_LAYERS)
+    return build_model(cfg, ServeConfig(), device=dev, train=tcfg), tcfg
+
+
+def train_batches(cfg, dev, steps=3):
+    from repro_torch.data import SyntheticPipeline
+    pipe = SyntheticPipeline(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             seed=0)
+    return [{k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.get_batch(i).items()} for i in range(steps)]
+
+
+def flat_params(state):
+    from repro_torch.train.explicit import flatten_tree
+    return flatten_tree(state.params)
+
+
+def sync_run(dev, grad_sync, wire="float32", save_at=None, profile=False):
+    """3 steps of 13(b) in one gradient sync; returns the losses, the
+    final flat params on the host, the metrics, each step's msgq 1-copy
+    launches, the peak memory and the step times (host wall clock, the
+    loss read back). ``save_at``: checkpoint the state after that many
+    steps (13(d)) and keep the next step's state on the host.
+    ``profile``: profile the 3rd step against the 2nd's time."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.kernels.msgq import ops as mq
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.explicit import init_explicit_state
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    free_cuda()
+    model, tcfg = sync_model(dev, grad_sync, wire)
+    mesh_cfg = MeshConfig(shape=TRAIN_MESH[0], axis_names=TRAIN_MESH[1],
+                          process_axes=("pod",))
+    if grad_sync == "spmd":
+        state = init_train_state(model, 0)
+        step = make_train_step(model, mesh_cfg, tcfg)
+    else:
+        state = init_explicit_state(model, 0, dp=mesh_cfg.dp)
+        step = make_train_step(model, mesh_cfg, tcfg, mesh=make_mesh(
+            *TRAIN_MESH, device=dev))
+    losses, metrics, launches, ms, kept, prof = [], [], [], [], None, None
+    for i, batch in enumerate(train_batches(model.cfg, dev)):
+        before = mq.one_copy_launches
+        t0 = time.perf_counter()
+        if profile and i == 2:
+            box = {}
+
+            def one(state=state, batch=batch):
+                box["out"] = step(state, batch)
+            prof = profile_step(f"13(b) {grad_sync} step", one, ms[-1],
+                                names=())
+            state, met = box["out"]
+        else:
+            state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        launches.append(mq.one_copy_launches - before)
+        metrics.append({k: float(v) for k, v in met.items()})
+        if save_at is not None and i + 1 == save_at:
+            ckpt.save(str(TRAIN_CKPT), i + 1, state, keep=1)
+        if save_at is not None and i == save_at:
+            kept = tree_host(state)
+    out = {"losses": losses, "metrics": metrics, "one_copy": launches,
+           "step_ms": ms, "params": flat_params(state).cpu(),
+           "plen": (None if grad_sync == "spmd" else state.opt.m.numel()),
+           "peak": torch.cuda.max_memory_allocated(dev), "kept": kept,
+           "idle_share": prof and prof.get("idle_share")}
+    if grad_sync != "spmd":
+        step.comm.finish()
+    print(f"13(b) {grad_sync} wire {wire}: losses {losses}, step ms {ms}, "
+          f"msgq_one_copy launches a step {launches}, peak "
+          f"{out['peak']} bytes allocated, params_rank_spread "
+          f"{[m.get('params_rank_spread') for m in metrics]}", flush=True)
+    del state, step, model
+    free_cuda()
+    return out
+
+
+def tree_host(state):
+    from repro_torch.interop import tree_map
+    return tree_map(lambda t: t.detach().cpu().clone(), state)
+
+
+def train_sync(dev):
+    """13(b): spmd, threadcomm and flat (float32), then threadcomm over
+    a bf16 wire, 3 steps each on the same batches; 13(d) rides on the
+    float32 threadcomm run (checkpoint after step 2)."""
+    runs = {"spmd": sync_run(dev, "spmd", profile=True),
+            "threadcomm": sync_run(dev, "threadcomm", save_at=2,
+                                   profile=True),
+            "flat": sync_run(dev, "flat")}
+    ref = runs["spmd"]["losses"]
+    diffs = {}
+    for mode in ("threadcomm", "flat"):
+        got = runs[mode]["losses"]
+        require(all(abs(a - b) <= SYNC_TOL + SYNC_TOL * abs(b)
+                    for a, b in zip(got, ref)),
+                f"13(b): {mode} losses {got} part from spmd's {ref} "
+                f"beyond rtol=atol={SYNC_TOL}")
+        spread = max(m["params_rank_spread"] for m in runs[mode]["metrics"])
+        require(spread == 0.0, f"13(b): {mode}: the ranks' new params "
+                f"differ by up to {spread}")
+        diffs[mode] = float((runs[mode]["params"]
+                             - runs["spmd"]["params"]).abs().max())
+    print(f"13(b) max |params - spmd params| after 3 steps: {diffs}",
+          flush=True)
+    runs["bf16_wire"] = sync_run(dev, "threadcomm", wire="bfloat16")
+    got, f32 = runs["bf16_wire"]["losses"], runs["threadcomm"]["losses"]
+    require(all(abs(a - b) <= WIRE_TOL + WIRE_TOL * abs(b)
+                for a, b in zip(got, f32)),
+            f"13(b): bf16-wire losses {got} part from float32's {f32} "
+            f"beyond {WIRE_TOL}")
+    wire_launches = sum(runs["bf16_wire"]["one_copy"])
+    require(wire_launches > 0, "13(b): the bf16-wire run launched no "
+            "msgq_one_copy")
+    require(sum(runs["threadcomm"]["one_copy"]) == 0
+            and sum(runs["flat"]["one_copy"]) == 0,
+            "13(b): a float32 sync launched msgq_one_copy")
+    return runs, diffs
+
+
+def train_wire_kernel(dev, timer, plen):
+    """13(c): ``msgq_one_copy`` at 13(b)'s wire message: one round of the
+    slow-domain recursive doubling (pod 0 <-> pod 1 in every thread
+    family), plen / M bf16 elements a rank, against its plain version
+    bitwise; its time (CUDA events, median of 30, L2 flushed), bound,
+    plain and library (``index_select``) times."""
+    from repro_torch.core import protocol
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.kernels.msgq import ops as mq
+    from repro_torch.kernels.msgq.ref import msgq_round_ref
+    free_cuda()
+    mesh = make_mesh(*TRAIN_MESH, device=dev)
+    region = mesh.region(TRAIN_MESH[1])
+    R, n = region.size, plen // region.axis_size("data")
+    pairs = region.pairs(("pod",), [(0, 1), (1, 0)])
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn((R, n), generator=g).to(dev, torch.bfloat16)
+    proto = protocol.select_protocol(n * 2)
+    require(not mq.is_eager(proto), f"13(c): a {n * 2}-byte message "
+            f"takes {proto}, not the 1-copy kernel")
+    before = mq.one_copy_launches
+    out = mq.msgq_round(x, pairs, proto=proto)
+    require(mq.one_copy_launches == before + 1 and mq.last_path == "direct",
+            "13(c): the round did not launch msgq_one_copy's direct copy")
+    ref = msgq_round_ref(x, pairs)
+    err = float((out.float() - ref.float()).abs().max())
+    require(bitwise(out, ref), f"13(c): msgq_one_copy differs from "
+            f"ref.py at the wire message (max abs err {err:.3e})")
+    del out, ref
+    inverse = torch.tensor([s for s, _ in sorted(pairs, key=lambda p: p[1])],
+                           device=dev)
+    nbytes = 2 * R * n * 2
+    row = {"train_wire_shape": f"(R={R}, {n}) bf16, pod pairs "
+                               f"{pairs}",
+           "train_wire_ms": timer.ms(lambda: mq.msgq_round(
+               x, pairs, proto=proto)),
+           "train_wire_plain_ms": timer.ms(lambda: msgq_round_ref(x, pairs)),
+           "train_wire_library_ms": timer.ms(
+               lambda: x.index_select(0, inverse)),
+           "train_wire_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+           "train_wire_bound_bytes": nbytes, "train_wire_max_abs_err": err}
+    row["train_wire_bound_share"] = (row["train_wire_bound_ms"]
+                                     / row["train_wire_ms"])
+    print(f"13(c) msgq_one_copy at the wire message {row['train_wire_shape']}"
+          f": bitwise; ms={row['train_wire_ms']:.4f} plain_ms="
+          f"{row['train_wire_plain_ms']:.4f} library_ms="
+          f"{row['train_wire_library_ms']:.4f} bound_ms="
+          f"{row['train_wire_bound_ms']:.4f} (bytes: {nbytes}), share "
+          f"{row['train_wire_bound_share']:.3f}", flush=True)
+    del x
+    free_cuda()
+    return row, err
+
+
+def train_resume(dev, kept):
+    """13(d): the float32 threadcomm state checkpointed after step 2,
+    restored into a fresh state, takes step 3: bitwise the uninterrupted
+    step 3's state."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.interop import named_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.explicit import init_explicit_state
+    from repro_torch.train.trainer import make_train_step
+    free_cuda()
+    t0 = time.perf_counter()
+    model, tcfg = sync_model(dev, "threadcomm")
+    mesh_cfg = MeshConfig(shape=TRAIN_MESH[0], axis_names=TRAIN_MESH[1],
+                          process_axes=("pod",))
+    fresh = init_explicit_state(model, 1, dp=mesh_cfg.dp)
+    state, at, _ = ckpt.restore(str(TRAIN_CKPT), fresh)
+    del fresh
+    require(at == 2, f"13(d): restored step {at}, not 2")
+    step = make_train_step(model, mesh_cfg, tcfg,
+                           mesh=make_mesh(*TRAIN_MESH, device=dev))
+    state, _ = step(state, train_batches(model.cfg, dev)[2])
+    step.comm.finish()
+    got, want = named_leaves(state), named_leaves(kept)
+    differ = [a.name for a, b in zip(got, want)
+              if not all(bitwise(s.cpu(), t) for s, t in
+                         zip(a.tensors, b.tensors))]
+    require([a.name for a in got] == [b.name for b in want] and not differ,
+            f"13(d): the resumed step 3 differs from the uninterrupted "
+            f"one in {differ}")
+    size = sum(p.stat().st_size for p in TRAIN_CKPT.rglob("*")
+               if p.is_file())
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    print(f"13(d) checkpoint of {size} bytes after step 2, restored, "
+          f"step 3 bitwise the uninterrupted one ({len(got)} leaves), "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del state
+    free_cuda()
+    return {"bytes": size}
+
+
+def train_card_vs_cpu(dev):
+    """13(e): gemma-2b's widths at 1 layer in float32, B=2 S=64, the same
+    parameters on the card and on the CPU: the loss and the gradient
+    norm within DEVICE_TOL relative; then every other architecture at its
+    smoke config, 2 spmd steps in float32 on both: finite losses, equal
+    within DEVICE_TOL."""
+    from repro_torch.config import MeshConfig, ServeConfig, TrainConfig
+    from repro_torch.configs import ARCH_NAMES, get_smoke_config
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.interop import tree_map
+    from repro_torch.launch.serve import arch_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw_init, global_norm
+    from repro_torch.train.trainer import (TrainState, make_train_step,
+                                           value_and_grad)
+    free_cuda()
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "13(e): float32 matmuls would run in TF32")
+    cpu = torch.device("cpu")
+    tcfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                       learning_rate=3e-3, warmup_steps=10, total_steps=100,
+                       loss_chunk=64, attn_chunk_threshold=256)
+    cfg = arch_config("gemma-2b", layers=1)
+    batch = SyntheticPipeline(cfg, batch=2, seq_len=64, seed=0).get_batch(0)
+    res = {}
+    for d in (dev, cpu):
+        model = build_model(cfg, ServeConfig(), device=d, train=tcfg)
+        params = (model.init(0) if d == dev else
+                  tree_map(lambda t: t.cpu(), res[dev]["params"]))
+        loss, _, grads = value_and_grad(
+            model.train_loss, params,
+            {k: torch.as_tensor(v, device=d) for k, v in batch.items()})
+        res[d] = {"params": params, "loss": float(loss),
+                  "gnorm": float(global_norm(grads))}
+        del grads
+    a, b = res[dev], res[cpu]
+    rel = {k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "gnorm")}
+    print(f"13(e) gemma-2b 1 layer f32 B=2 S=64: card loss {a['loss']} "
+          f"gnorm {a['gnorm']}, CPU loss {b['loss']} gnorm {b['gnorm']}, "
+          f"relative {rel}", flush=True)
+    require(all(v <= DEVICE_TOL for v in rel.values()),
+            f"13(e): card and CPU part beyond {DEVICE_TOL}: {rel}")
+    del res, a, b
+    free_cuda()
+    families = {}
+    mesh_cfg = MeshConfig(shape=(1,), axis_names=("data",))
+    for arch in ARCH_NAMES:
+        if arch == "gemma-2b":
+            continue
+        scfg = get_smoke_config(arch)
+        seq = 32 + (scfg.num_frontend_tokens
+                    if scfg.frontend == "patch_stub" else 0)
+        pipe = SyntheticPipeline(scfg, batch=4, seq_len=seq, seed=0)
+        losses, start = {}, None
+        for d in (dev, cpu):
+            model = build_model(scfg, ServeConfig(), device=d, train=tcfg)
+            params = (model.init(0) if d == dev else
+                      tree_map(lambda t: t.cpu(), start))
+            if d == dev:
+                start = tree_map(torch.clone, params)
+            state = TrainState(params, adamw_init(params))
+            step = make_train_step(model, mesh_cfg, tcfg)
+            losses[d] = []
+            for i in range(2):
+                state, met = step(state, {
+                    k: torch.as_tensor(v, device=d)
+                    for k, v in pipe.get_batch(i).items()})
+                losses[d].append(float(met["loss"]))
+        ok = all(math.isfinite(x) for x in losses[dev]) and all(
+            abs(x - y) <= DEVICE_TOL * max(1.0, abs(y))
+            for x, y in zip(losses[dev], losses[cpu]))
+        families[arch] = {"card": losses[dev], "cpu": losses[cpu]}
+        print(f"13(e) {scfg.name}: 2 spmd steps f32, card {losses[dev]}, "
+              f"CPU {losses[cpu]}", flush=True)
+        require(ok, f"13(e) {arch}: card losses {losses[dev]} against the "
+                f"CPU's {losses[cpu]} beyond {DEVICE_TOL}")
+    free_cuda()
+    return {"gemma_1_layer": rel, "families": families}
+
+
+def phase_train(dev):
+    """Phase 13: the training path (see the module docstring)."""
+    t0 = time.perf_counter()
+    full = train_gemma_full(dev)
+    runs, diffs = train_sync(dev)
+    timer = Timer(dev)
+    wire_row, wire_err = train_wire_kernel(dev, timer, runs["threadcomm"][
+        "plen"])
+    del timer
+    resume = train_resume(dev, runs["threadcomm"].pop("kept"))
+    devices = train_card_vs_cpu(dev)
+    launches = sum(runs["bf16_wire"]["one_copy"])
+    out = {"a": full, "b": {
+        m: {k: r[k] for k in ("losses", "one_copy", "step_ms", "peak",
+                              "plen", "idle_share")}
+        for m, r in runs.items()},
+        "b_param_diffs": diffs, "d": resume, "e": devices,
+        "seconds": time.perf_counter() - t0}
+    print("train: " + json.dumps(out), flush=True)
+    print(f"phase 13: {out['seconds']:.1f} s", flush=True)
+    wire_row["launches_train_bf16_wire"] = launches
+    wire_row["launches_train_bf16_wire_per_step"] = \
+        runs["bf16_wire"]["one_copy"]
+    return wire_row, wire_err
+
+
 def main() -> None:
     require((SRC / "repro_torch").is_dir(),
             "src/repro_torch not found: run from the root of a checkout")
@@ -4097,6 +4539,8 @@ def main() -> None:
     comm_obs = phase_comm_obs(dev)
     torch.cuda.empty_cache()
     fabric = phase_fabric(dev)
+    torch.cuda.empty_cache()
+    train_row, train_err = phase_train(dev)
 
     # launches: the --engine both run, which drives all three kernels;
     # the paged serve phase's own counts stand beside them
@@ -4156,6 +4600,11 @@ def main() -> None:
         for p in ("replicated", "disagg"):
             table[name][f"launches_fabric_bf16_{p}"] = \
                 fabric["bf16"]["kernels"][p][key]
+    # phase 13: the training path's bf16-wire launches (one round a step)
+    # and the kernel at its wire message
+    table["msgq_one_copy"]["max_abs_err"] = max(
+        table["msgq_one_copy"]["max_abs_err"], train_err)
+    table["msgq_one_copy"].update(train_row)
     print("model: " + json.dumps(model), flush=True)
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)

@@ -1,11 +1,14 @@
 """Configuration for the PyTorch port: its own copy of the reference's
-``ModelConfig``, ``ServeConfig``, ``ShapeConfig``, ``pad_to_multiple``
-and block-family constants (``src/repro/config.py``), field for field,
-so the port never imports the JAX package."""
+``ModelConfig``, ``ServeConfig``, ``ShapeConfig``, ``MeshConfig``,
+``TrainConfig``, ``RunConfig``, ``pad_to_multiple`` and block-family
+constants (``src/repro/config.py``), field for field, so the port never
+imports the JAX package."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import math
+from dataclasses import dataclass, field
 from typing import Tuple
 
 # Block families. A model is a stack of identical-structure blocks plus
@@ -172,3 +175,91 @@ class ShapeConfig:
     @property
     def is_train(self) -> bool:
         return self.kind == "train"
+
+
+# ---------------------------------------------------------------------------
+# Mesh and training knobs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    # which axes carry the batch dim, which carry tensor parallelism, and
+    # which are the "process-level" (inter-pod) axes for ThreadComm
+    batch_axes: Tuple[str, ...] = ("data",)
+    model_axes: Tuple[str, ...] = ("model",)
+    process_axes: Tuple[str, ...] = ()
+
+    @property
+    def num_devices(self) -> int:
+        return math.prod(self.shape)
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.axis_names.index(name)]
+
+    @property
+    def dp(self) -> int:
+        return math.prod(self.axis_size(a)
+                         for a in self.batch_axes + self.process_axes)
+
+    @property
+    def tp(self) -> int:
+        return math.prod(self.axis_size(a) for a in self.model_axes)
+
+
+SINGLE_POD = MeshConfig(shape=(16, 16), axis_names=("data", "model"))
+MULTI_POD = MeshConfig(
+    shape=(2, 16, 16), axis_names=("pod", "data", "model"),
+    process_axes=("pod",))
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    # gradient synchronization: "spmd" (one step on the global batch),
+    # "flat" (explicit flat allreduce = MPI-everywhere analogue),
+    # "threadcomm" (explicit two-level hierarchical schedule = the paper's
+    # technique)
+    grad_sync: str = "spmd"
+    remat: bool = True
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    # gradient accumulation: split the global batch into k sequential
+    # microbatches inside the step (activation memory drops ~k x)
+    microbatches: int = 1
+    # FSDP-shard MoE expert weights over the data axis (dist/sharding.py)
+    moe_fsdp: bool = True
+    # wire dtype for explicit gradient collectives ("bfloat16" halves the
+    # slow-domain bytes: level-1 gradient compression)
+    grad_comm_dtype: str = "float32"
+    # FSDP at all (False = replicate params over the data axes)
+    fsdp: bool = True
+    # cross-entropy computed in seq chunks of this size to bound logits
+    # memory
+    loss_chunk: int = 512
+    # attention switches to chunked online-softmax above this seq length
+    attn_chunk_threshold: int = 2_048
+    attn_chunk: int = 512
+    # kv-block size for the chunked path (0 = same as attn_chunk)
+    attn_chunk_kv: int = 0
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig
+    train: TrainConfig = field(default_factory=TrainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

@@ -148,11 +148,16 @@ def psum_scatter(x: torch.Tensor, axes: Axes) -> torch.Tensor:
     if x.dim() < 2 or x.shape[1] % k:
         raise ValueError(f"psum_scatter of local shape {tuple(x.shape[1:])}"
                          f" over {k} ranks")
-    total = psum(x, axes)
-    chunks = total.reshape((x.shape[0], k, x.shape[1] // k)
+    # the family sums, each rank then taking its chunk of its family's:
+    # never a full (R, ...) copy of the sum
+    g = region.grouped(x, axes)                       # (F, k, *local)
+    total = g.sum(1, dtype=x.dtype)
+    chunks = total.reshape((total.shape[0], k, x.shape[1] // k)
                            + tuple(x.shape[2:]))
-    ranks = region.axis_index(region.order)
-    return chunks[ranks, region.axis_index(axes)]
+    _, fam = region.family(axes)
+    fam = region.on_device(("family_index", tuple(region.order), axes),
+                           lambda: fam)
+    return chunks[fam, region.axis_index(axes)]
 
 
 def all_to_all(x: torch.Tensor, axes: Axes) -> torch.Tensor:

@@ -1,14 +1,24 @@
-"""Parameter and cache bridge from the JAX reference to the port.
+"""Parameter and cache bridge between the JAX reference and the port.
 
 ``jax.random`` init cannot be reproduced in PyTorch, so the tests make
 both sides compute the same function by moving the reference's
 parameters (and, for the cached steps, its slot cache) over, as numpy
-arrays. Nothing here imports JAX.
+arrays. The other direction (:func:`tree_to_numpy`) carries the port's
+parameters or gradients back as the reference's stacked tree, so they
+compare leaf by leaf.
+
+The reference stacks each layer's leaves on a leading ``L`` axis; the
+port keeps a list of per-layer dicts. :func:`named_leaves` walks a port
+tree in the reference's flat leaf order — dict keys sorted, a
+NamedTuple by its fields, a layer stack as its ``(L, ...)`` leaves,
+layer-major — naming each leaf by the reference's tree path. The flat
+optimizer vector (``train.explicit.flatten_tree``), the checkpoint's
+names and :func:`tree_leaves` all follow it. Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -111,4 +121,137 @@ def slot_cache_from_numpy(cache: Dict[str, Any], *, device="cpu",
     rows = np.full((B, W + 1), -1, np.int32)
     rows[:, :W] = pos[0]
     out["pos"] = torch.from_numpy(rows).to(device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The port's trees in the reference's leaf order
+# ---------------------------------------------------------------------------
+
+#: tree keys whose value is a layer stack: the reference's stacked
+#: ``(L, ...)`` subtree, the port's list of per-layer dicts
+STACKED_KEYS = ("blocks", "enc_blocks", "dec_blocks")
+
+
+class Leaf(NamedTuple):
+    """One leaf of the reference's tree: its path name, the port's
+    tensors that make it (one per layer for a stacked leaf, else one),
+    and whether it is stacked."""
+    name: str
+    tensors: List[torch.Tensor]
+    stacked: bool
+
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def _children(node):
+    """(name, child) of a dict (keys sorted), a NamedTuple (fields in
+    order) or a list/tuple (indices), in the reference's order."""
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if _is_namedtuple(node):
+        return [(f, getattr(node, f)) for f in node._fields]
+    return [(str(i), v) for i, v in enumerate(node)]
+
+
+def _stack_leaves(layers, path) -> List[Leaf]:
+    """The leaves of a layer stack: each path of layer 0's subtree,
+    gathered across the layers."""
+    out = []
+
+    def walk(node, sub):
+        if isinstance(node, (dict, list, tuple)):
+            for k, v in _children(node):
+                walk(v, sub + (k,))
+        elif node is not None:
+            ts = []
+            for layer in layers:
+                for k in sub:
+                    layer = layer[int(k) if isinstance(layer, (list, tuple))
+                                  else k]
+                ts.append(layer)
+            out.append(Leaf("/".join(path + sub), ts, True))
+
+    walk(layers[0], ())
+    return out
+
+
+def named_leaves(tree) -> List[Leaf]:
+    """Every leaf of a port tree (dicts, NamedTuples, lists, tensors;
+    None is an empty subtree) in the reference's flat order."""
+    out: List[Leaf] = []
+
+    def walk(node, path):
+        if node is None:
+            return
+        if isinstance(node, (dict, list, tuple)):
+            for k, v in _children(node):
+                if (k in STACKED_KEYS and isinstance(node, dict)
+                        and isinstance(v, list) and v):
+                    out.extend(_stack_leaves(v, path + (k,)))
+                else:
+                    walk(v, path + (k,))
+        else:
+            out.append(Leaf("/".join(path), [node], False))
+
+    walk(tree, ())
+    return out
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The port's tensors of a tree in the reference's flat order (a
+    stacked leaf's layers in turn)."""
+    return [t for leaf in named_leaves(tree) for t in leaf.tensors]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the tensors of ``tree`` (and the matching tensors of
+    ``rest``), keeping the structure; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_unflatten(template, leaves: List[torch.Tensor]):
+    """``template``'s structure with its tensors replaced, in the order of
+    :func:`tree_leaves`, by ``leaves`` (every tensor of ``template`` a
+    distinct object)."""
+    old = tree_leaves(template)
+    if len(old) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for a tree of {len(old)}")
+    new = {id(t): n for t, n in zip(old, leaves)}
+    return tree_map(lambda t: new[id(t)], template)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.numpy()
+
+
+def tree_to_numpy(tree) -> Dict[str, Any]:
+    """A port tree (parameters or gradients) -> the reference's nested
+    dict of numpy arrays: each layer stack as stacked ``(L, ...)`` leaves,
+    bfloat16 widened to float32 (numpy has no bfloat16)."""
+    out: Dict[str, Any] = {}
+    for leaf in named_leaves(tree):
+        arr = (np.stack([_numpy(t) for t in leaf.tensors]) if leaf.stacked
+               else _numpy(leaf.tensors[0]))
+        node = out
+        *head, last = leaf.name.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = arr
     return out

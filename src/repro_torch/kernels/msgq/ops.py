@@ -14,10 +14,10 @@ bytes each protocol moves.
 Tensors on the CPU take the plain version (``ref.py``); tensors on the
 card launch the hand-written CUDA kernels (``csrc/msgq.cu``), or raise.
 There is no fallback from one to the other. The module counts what it
-ran, in plain integers: ``eager_launches`` and ``one_copy_launches`` (one
-per kernel launch, a whole program included) and ``ref_calls`` (one per
-plain-version call: a round, or a whole program). :func:`reset_counters`
-zeroes them.
+ran, in plain integers bumped through ``kernels/_build.count``:
+``eager_launches`` and ``one_copy_launches`` (one per kernel launch, a
+whole program included) and ``ref_calls`` (one per plain-version call: a
+round, or a whole program). :func:`reset_counters` zeroes them.
 """
 
 from __future__ import annotations
@@ -55,7 +55,14 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 def reset_counters() -> None:
     global eager_launches, one_copy_launches, ref_calls
-    eager_launches = one_copy_launches = ref_calls = 0
+    with _build.count_lock:
+        eager_launches = one_copy_launches = ref_calls = 0
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name`` (``eager_launches``,
+    ``one_copy_launches`` or ``ref_calls``) under the port's count lock."""
+    _build.count(globals(), name)
 
 
 def counters() -> dict:
@@ -131,7 +138,7 @@ def launch(x: torch.Tensor, pairs: Optional[List[Tuple[int, int]]] = None,
     """Launch one round (``pairs``) or a whole ``program`` on the card: x
     (R, ...) with each rank's slab one contiguous run of bytes (any
     stride between slabs). Returns a fresh contiguous (R, ...) tensor."""
-    global eager_launches, one_copy_launches, last_path
+    global last_path
     stride = slab_stride(x)
     if stride is None:
         raise ValueError("each rank's slab must be one contiguous run of "
@@ -187,10 +194,7 @@ def launch(x: torch.Tensor, pairs: Optional[List[Tuple[int, int]]] = None,
     _build.check(lib, err, "msgq_eager" if eager else "msgq_one_copy")
     last_path = ("direct" if not eager else "bulk" if vec == 16
                  else "vector")
-    if eager:
-        eager_launches += 1
-    else:
-        one_copy_launches += 1
+    count("eager_launches" if eager else "one_copy_launches")
     return out
 
 
@@ -200,11 +204,10 @@ def msgq_round(x: torch.Tensor, pairs: Sequence[Tuple[int, int]], *,
     dst) pair delivers src's slab to dst, through the eager kernel (cells
     of ``cell_elems`` elements) or the 1-copy kernel by ``proto``. Returns
     a fresh (R, ...) tensor, zero at every rank named as no dst."""
-    global ref_calls
     pairs = _check_pairs(pairs, x.shape[0])
     protocol.validate_protocol(proto)
     if x.device.type == "cpu":
-        ref_calls += 1
+        count("ref_calls")
         return msgq_round_ref(x, pairs)
     if x.device.type == "cuda":
         return launch(x, pairs, proto=proto, cell_elems=cell_elems)
@@ -217,14 +220,13 @@ def msgq_program(x: torch.Tensor, program: Program, *, proto: str,
     ONE launch of the eager kernel (cells of ``cell_elems`` elements) or
     the 1-copy kernel by ``proto``; on the CPU its plain version, round by
     round. Returns a fresh contiguous (R, ...) tensor."""
-    global ref_calls
     protocol.validate_protocol(proto)
     if x.dim() == 0:
         raise ValueError("a program runs on per-rank slabs (R, ...)")
     R = x.shape[0]
     program.check(R, x[0].numel() if R else 0)
     if x.device.type == "cpu":
-        ref_calls += 1
+        count("ref_calls")
         return msgq_program_ref(x, program)
     if x.device.type == "cuda":
         if slab_stride(x) is None:

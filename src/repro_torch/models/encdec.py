@@ -18,6 +18,12 @@ Slot layout (the static engine and slot monolithic admission):
 There is no slot chunk (the reference's capabilities: an encoder-decoder
 chunks on the paged path only).
 
+Training: :func:`make_train_loss` (the encoder, :func:`decode_full`'s
+teacher-forced decoder and the chunked cross-entropy, under autograd;
+every attention the plain ``full_attention`` / ``chunked_attention`` on
+both devices, as the reference's training computes it: the flash kernel
+has no backward).
+
 Paged layout: the decoder's self-attention KV pages like any dense
 model's; the cross K/V is per-request carried state, ``cross_k`` /
 ``cross_v`` ``(L, rows, encoder_seq, Hkv, hd)``, one row per engine
@@ -379,3 +385,99 @@ def decode_step_paged(cfg, params, cache, tokens, positions, block_tables, *,
                             qpos >= 0, lengths, attention, cross_attention)
     count("decode_calls")
     return T._logits(cfg, params, h[:, 0], compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Training: encoder + teacher-forced decoder + chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+def _train_self_attn(cfg, p, xn, positions, *, causal, knobs):
+    """Self-attention of training (no rope): the plain full attention, or
+    the plain chunked one above ``attn_chunk_threshold``."""
+    q, k, v = L.project_qkv(p, xn, cfg, positions, use_rope=False)
+    kf, vf = L.repeat_kv(k, cfg.num_heads), L.repeat_kv(v, cfg.num_heads)
+    if xn.shape[1] > knobs["attn_chunk_threshold"]:
+        ctx = L.chunked_attention(q, kf, vf, q_pos=positions,
+                                  k_pos=positions, causal=causal,
+                                  chunk_q=knobs["attn_chunk"],
+                                  chunk_k=knobs["attn_chunk"])
+    else:
+        ctx = L.full_attention(q, kf, vf, q_pos=positions, k_pos=positions,
+                               causal=causal)
+    return L.attn_output(p, ctx, xn.dtype)
+
+
+def _train_cross_attn(cfg, p_x, xn, enc_out):
+    """Cross-attention of training: the plain full attention over the
+    encoder output's K/V."""
+    ck, cv = _cross_kv(cfg, p_x, enc_out)
+    q = L._proj_heads(xn, p_x["wq"])
+    if cfg.qkv_bias:
+        q = q + p_x["bq"].to(xn.dtype)
+    dev = xn.device
+    ctx = L.full_attention(
+        q, L.repeat_kv(ck, cfg.num_heads), L.repeat_kv(cv, cfg.num_heads),
+        q_pos=torch.arange(xn.shape[1], device=dev),
+        k_pos=torch.arange(ck.shape[1], device=dev), causal=False)
+    return L.attn_output(p_x, ctx, xn.dtype)
+
+
+def train_encode(cfg, params, frames, knobs):
+    """frames (B, T_enc, d) -> the encoder's normed output, each layer
+    recomputed in the backward when ``knobs["remat"]``."""
+    compute_dtype = L.dtype_of(knobs["compute_dtype"])
+    x = frames.to(compute_dtype)
+    T_enc = x.shape[1]
+    x = x + L.sinusoidal_pos(T_enc, cfg.d_model, x.device).to(compute_dtype)
+    positions = torch.arange(T_enc, device=x.device)
+    for p_l in params["enc_blocks"]:
+        def body(h, p_l=p_l):
+            hn = L.apply_norm(h, p_l["ln1"], cfg)
+            h = h + _train_self_attn(cfg, p_l["attn"], hn, positions,
+                                     causal=False, knobs=knobs)
+            return h + L.mlp_apply(p_l["mlp"],
+                                   L.apply_norm(h, p_l["ln2"], cfg), cfg)
+        x = T.remat_call(body, x, remat=knobs["remat"])
+    return L.apply_norm(x, params["enc_norm"], cfg)
+
+
+def decode_full(cfg, params, tokens, enc_out, knobs, pos_offset: int = 0):
+    """Teacher-forced decoder pass (the reference's): tokens (B, S) at
+    positions ``pos_offset..`` -> final-normed hidden (B, S, d)."""
+    compute_dtype = L.dtype_of(knobs["compute_dtype"])
+    S = tokens.shape[1]
+    x = params["embed"][tokens.long()].to(compute_dtype)
+    x = x + params["dec_pos"][pos_offset:pos_offset + S].to(compute_dtype)
+    positions = torch.arange(pos_offset, pos_offset + S, device=x.device)
+    for p_l in params["dec_blocks"]:
+        def body(h, p_l=p_l):
+            hn = L.apply_norm(h, p_l["ln1"], cfg)
+            h = h + _train_self_attn(cfg, p_l["attn"], hn, positions,
+                                     causal=True, knobs=knobs)
+            h = h + _train_cross_attn(cfg, p_l["xattn"],
+                                      L.apply_norm(h, p_l["ln_x"], cfg),
+                                      enc_out)
+            return h + L.mlp_apply(p_l["mlp"],
+                                   L.apply_norm(h, p_l["ln2"], cfg), cfg)
+        x = T.remat_call(body, x, remat=knobs["remat"])
+    return L.apply_norm(x, params["final_norm"], cfg)
+
+
+def make_train_loss(cfg: ModelConfig, knobs):
+    """``train_loss(params, batch) -> (loss, {"loss": loss})`` over a batch
+    of ``frames`` (B, T_enc, d), ``tokens`` and ``labels`` (B, S)."""
+
+    def train_loss(params, batch):
+        enc_out = train_encode(cfg, params, batch["frames"], knobs)
+        hidden = decode_full(cfg, params, batch["tokens"], enc_out, knobs)
+        labels = batch["labels"].long()
+        w_out = (params["embed"].t() if cfg.tie_embeddings
+                 else params["lm_head"])
+        loss_sum, n_valid = L.chunked_cross_entropy(
+            hidden, w_out.to(hidden.dtype), labels.clamp(min=0),
+            valid=labels >= 0, vocab_size=cfg.vocab_size,
+            chunk=knobs["loss_chunk"])
+        loss = loss_sum / n_valid.clamp(min=1.0)
+        return loss, {"loss": loss}
+
+    return train_loss

@@ -1,7 +1,8 @@
 """Shared layers of the port: norms (RMSNorm, LayerNorm), RoPE, the
 sinusoid table, q/k/v projection (biases, per-head q/k norm,
 cross-attention), the plain full and chunked attention, attention output,
-gated MLP, and the reference's initializers.
+gated MLP, the chunked cross-entropy of training, and the reference's
+initializers.
 
 Plain functions on tensors; parameters are dicts of tensors in the
 reference's layout (``wq`` is ``(d, H, hd)``, ``wo`` is ``(H, hd, d)``,
@@ -16,6 +17,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 DTYPES = {
     "float32": torch.float32,
@@ -329,3 +331,45 @@ def mlp_apply(p, x, cfg):
     else:
         h = F.gelu(x @ p["w_up"].to(x.dtype), approximate="tanh")
     return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(h, w_out, lbl, ok, vocab_size: int):
+    """One sequence chunk's (sum of masked NLL, valid count), float32."""
+    logits = (h @ w_out.to(h.dtype)).float()                  # (B, c, Vp)
+    logits = logits.masked_fill(
+        torch.arange(logits.shape[-1], device=h.device) >= vocab_size,
+        NEG_INF)
+    mx = logits.amax(dim=-1)
+    lse = mx + torch.log(torch.exp(logits - mx[..., None]).sum(dim=-1))
+    gold = logits.gather(-1, lbl.long()[..., None])[..., 0]
+    okf = ok.float()
+    return ((lse - gold) * okf).sum(), okf.sum()
+
+
+def chunked_cross_entropy(hidden, w_out, labels, *, valid, vocab_size: int,
+                          chunk: int = 512):
+    """Cross-entropy without materialising full (B, S, V) logits (the
+    reference's ``layers.chunked_cross_entropy``).
+
+    hidden (B,S,d), w_out (d,Vp), labels (B,S) int, valid (B,S) bool.
+    Logits are formed one sequence chunk at a time in the activation
+    dtype, their statistics in float32; padded vocab entries (>=
+    vocab_size) are masked out. Each chunk runs under
+    ``torch.utils.checkpoint``, so its (B, c, Vp) logits are recomputed
+    in the backward, never saved. Returns (sum_loss, sum_valid), float32
+    0-d tensors, so callers control normalisation."""
+    B, S, _ = hidden.shape
+    c = min(chunk, S)
+    loss_sum = hidden.new_zeros((), dtype=torch.float32)
+    n_valid = hidden.new_zeros((), dtype=torch.float32)
+    for s0 in range(0, S, c):
+        l, n = torch.utils.checkpoint.checkpoint(
+            _ce_chunk, hidden[:, s0:s0 + c], w_out, labels[:, s0:s0 + c],
+            valid[:, s0:s0 + c], vocab_size, use_reentrant=False)
+        loss_sum = loss_sum + l
+        n_valid = n_valid + n
+    return loss_sum, n_valid

@@ -4,7 +4,11 @@
 The chunked SSD scan goes through ``kernels.ssd_scan.ops.ssd_scan`` (the
 hand-written kernel on the card, its plain version on the CPU), unless
 the caller hands another function of the same signature in ``scan``
-(the plain version, for a comparison on the card). Every scan runs on the
+(the plain version, for a comparison on the card, or training's
+differentiable scan). The module owns that plain algorithm,
+:func:`ssd_chunked` (the reference's); the kernel has no backward, so
+training runs it under autograd on both devices, as the reference's
+training runs ``mamba.ssd_chunked``. Every scan runs on the
 fixed ``cfg.ssm_chunk`` grid anchored at position 0, never shrunk to the
 sequence: a prompt split at ``ssm_chunk`` multiples resumes the scan on
 the same grid. ngroups is 1, as in every config.
@@ -53,6 +57,69 @@ def init_ssm(cfg, generator: torch.Generator, device, dtype):
 def _softplus(x):
     """``jax.nn.softplus``: log(1 + exp(x)), computed as logaddexp(x, 0)."""
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _segsum(x):
+    """x (..., L) -> (..., L, L): S[i,j] = sum_{k=j+1..i} x[k], -inf above
+    the diagonal."""
+    L = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    return seg.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, initial_state=None):
+    """Chunked SSD scan (the reference's ``mamba.ssd_chunked``) in the
+    model's layout: intra-chunk quadratic term, chunk-local states, the
+    inter-chunk recurrence and the state-to-output term, with a ragged
+    tail identity-padded by ``dt = 0``. xh (b,s,h,p); dt (b,s,h) positive
+    rates; A (h,) negative decay; Bm, Cm (b,s,n) shared across heads
+    (ngroups = 1). Returns (y (b,s,h,p), final_state (b,h,p,n)), in xh's
+    dtype, as the reference computes them. Plain tensor ops, so it runs
+    under autograd: training's scan (``kernels.ssd_scan.ref.
+    ssd_chunked_scan`` puts it behind the kernel's signature)."""
+    b, s, h, p = xh.shape
+    n = Bm.shape[-1]
+    s_out = s
+    pad = (-s) % chunk
+    if pad:
+        # identity-pad ragged sequences: dt = 0 makes the padded steps
+        # exact no-ops on the state (decay exp(0) = 1, contribution 0)
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+        s = s + pad
+    c = s // chunk
+
+    xd = (xh * dt[..., None]).reshape(b, c, chunk, h, p)
+    dA = (dt * A).reshape(b, c, chunk, h).permute(0, 3, 1, 2)   # (b,h,c,l)
+    Bc = Bm.reshape(b, c, chunk, n)
+    Cc = Cm.reshape(b, c, chunk, n)
+
+    dA_cum = torch.cumsum(dA, dim=-1)                           # (b,h,c,l)
+    # 1) intra-chunk (quadratic within the chunk)
+    Lm = torch.exp(_segsum(dA))                                 # (b,h,c,l,l)
+    y_diag = torch.einsum("bcln,bcsn,bhcls,bcshp->bclhp", Cc, Bc, Lm, xd)
+    # 2) chunk-local states (each chunk's contribution to the state)
+    decay_states = torch.exp(dA_cum[..., -1:] - dA_cum)         # (b,h,c,l)
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", Bc, decay_states, xd)
+    # 3) inter-chunk recurrence; keep the state entering each chunk
+    chunk_decay = torch.exp(dA_cum[..., -1])                    # (b,h,c)
+    st = (torch.zeros((b, h, p, n), dtype=xh.dtype, device=xh.device)
+          if initial_state is None else initial_state.to(xh.dtype))
+    prev = []
+    for ci in range(c):
+        prev.append(st)
+        st = st * chunk_decay[:, :, ci, None, None] + states[:, ci]
+    prev_states = torch.stack(prev, dim=1)                      # (b,c,h,p,n)
+    # 4) state -> output within the chunk
+    state_decay = torch.exp(dA_cum)                             # (b,h,c,l)
+    y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", Cc, prev_states,
+                         state_decay)
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y[:, :s_out], st
 
 
 def _causal_conv(x, w, b):

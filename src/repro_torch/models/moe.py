@@ -1,7 +1,8 @@
-"""Mixture-of-experts FFN of the port: the reference's serve-time dropless
-routing (``src/repro/models/moe.py``: ``init_moe``,
-``moe_apply_dropless``).
+"""Mixture-of-experts FFN of the port (``src/repro/models/moe.py``): the
+serve-time dropless routing (``moe_apply_dropless``) and training's
+grouped, capacity-bounded routing (``moe_apply``).
 
+Serving.
 Every token picks its top-k experts from a float32 router over float32
 activations and combines their outputs under renormalised gates. No
 grouping, no capacity, no drops: a token's output is a function of its
@@ -12,8 +13,16 @@ experts a token did not pick zero weight. The expert products are
 batched matrix products over the stored ``(E, d, f)`` / ``(E, f, d)``
 weights, read in place (no per-call permute or copy of a weight).
 
-The reference's grouped, capacity-bounded ``moe_apply`` (with its
-load-balance and z losses) is the training path and is not ported.
+Training (:func:`moe_apply`). Tokens are routed in groups of
+``moe_group_size`` (a ragged tail zero-row padded; padded rows route and
+take capacity, their outputs are dropped). Within a group every expert
+takes at most ``expert_capacity`` (token, slot) entries, queued by the k
+slot first (every first choice before any second choice), then token
+order; an entry past capacity is dropped (the token falls through on the
+residual). Dispatch and combine are the reference's one-hot (G, E, C)
+tensors and einsums, so the kept entries, the products and the Switch
+load-balance and router z losses are the reference's term for term;
+``moe_dropped`` is the dropped share.
 """
 
 from __future__ import annotations
@@ -43,17 +52,91 @@ def init_moe(cfg, generator, device, dtype):
             "w_down": stacked((f, d), f)}
 
 
-def route(p, flat, cfg):
-    """Router of ``flat`` (T, d) tokens: (expert ids (T, K), renormalised
-    gates (T, K) float32). Experts are ranked by a stable descending sort,
-    so equal probabilities keep the lower expert first, as
-    ``jax.lax.top_k`` does."""
+def _router(p, flat, cfg):
+    """(logits (T, E) float32, probs, expert ids (T, K), renormalised
+    gates (T, K) float32) of ``flat`` (T, d) tokens. Experts are ranked
+    by a stable descending sort, so equal probabilities keep the lower
+    expert first, as ``jax.lax.top_k`` does."""
     logits = flat.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)                        # (T, E)
     gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = gates[:, :cfg.top_k], idx[:, :cfg.top_k]
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    return logits, probs, idx, gates
+
+
+def route(p, flat, cfg):
+    """Router of ``flat`` (T, d) tokens: (expert ids (T, K), renormalised
+    gates (T, K) float32)."""
+    _, _, idx, gates = _router(p, flat, cfg)
     return idx, gates
+
+
+def expert_capacity(cfg, group: int) -> int:
+    cap = int(group * cfg.top_k / cfg.num_experts * cfg.capacity_factor)
+    return max(cap, cfg.top_k)
+
+
+def _route_group(p, xg, cfg):
+    """One token group: xg (G, d) -> (out (G, d), (lb_loss, z_loss,
+    dropped))."""
+    G = xg.shape[0]
+    E, K = cfg.num_experts, cfg.top_k
+    C = expert_capacity(cfg, G)
+    logits, probs, idx, gate_vals = _router(p, xg, cfg)
+    onehot = F.one_hot(idx, E).float()                           # (G, K, E)
+    # position of each (token, k) entry in its expert's queue: the k slot
+    # first (all first choices before second choices), then token order
+    flat = onehot.transpose(0, 1).reshape(K * G, E)
+    pos = torch.cumsum(flat, dim=0) - flat
+    pos = pos.reshape(K, G, E).transpose(0, 1)                   # (G, K, E)
+    pos_in_expert = (pos * onehot).sum(dim=-1)                   # (G, K)
+    fits = pos_in_expert < C
+    kept = onehot * fits[..., None]
+    # an entry past capacity one-hots to nothing (jax.nn.one_hot of an
+    # out-of-range index), and is not kept anyway
+    pos_onehot = F.one_hot(pos_in_expert.long().clamp(max=C), C + 1)[
+        ..., :C].float()                                         # (G, K, C)
+    dispatch = torch.einsum("gke,gkc->gec", kept, pos_onehot)
+    combine = torch.einsum("gke,gkc,gk->gec", kept, pos_onehot, gate_vals)
+    cd = xg.dtype
+    expert_in = torch.einsum("gec,gd->ecd", dispatch.to(cd), xg)
+    g = torch.bmm(expert_in, p["w_gate"].to(cd))                 # (E, C, f)
+    u = torch.bmm(expert_in, p["w_up"].to(cd))
+    out_e = torch.bmm(F.silu(g) * u, p["w_down"].to(cd))         # (E, C, d)
+    out = torch.einsum("gec,ecd->gd", combine.to(cd), out_e)
+    # Switch aux losses: load balance + router z-loss
+    density = onehot[:, 0, :].mean(dim=0)                        # top-1
+    density_proxy = probs.mean(dim=0)
+    lb_loss = (density * density_proxy).sum() * (E ** 2) / E
+    z_loss = torch.logsumexp(logits, dim=-1).square().mean()
+    dropped = 1.0 - kept.sum() / (G * K)
+    return out, (lb_loss, z_loss, dropped)
+
+
+def moe_apply(p, x, cfg):
+    """Training's routing: x (B, S, d) -> (out (B, S, d), aux dict with
+    ``moe_lb_loss``, ``moe_z_loss``, ``moe_dropped``, each the mean over
+    the groups)."""
+    B, S, d = x.shape
+    n_tokens = B * S
+    G = min(cfg.moe_group_size, n_tokens)
+    flat = x.reshape(n_tokens, d)
+    pad = (-n_tokens) % G
+    if pad:
+        flat = F.pad(flat, (0, 0, 0, pad))
+    outs, lbs, zls, drs = [], [], [], []
+    for xg in flat.reshape(-1, G, d):
+        o, (lb, zl, dr) = _route_group(p, xg, cfg)
+        outs.append(o)
+        lbs.append(lb)
+        zls.append(zl)
+        drs.append(dr)
+    out = torch.cat(outs)[:n_tokens]
+    aux = {"moe_lb_loss": torch.stack(lbs).mean(),
+           "moe_z_loss": torch.stack(zls).mean(),
+           "moe_dropped": torch.stack(drs).mean()}
+    return out.reshape(B, S, d), aux
 
 
 def moe_apply_dropless(p, x, cfg):

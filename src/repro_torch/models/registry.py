@@ -10,17 +10,23 @@ only) and the encoder-decoder (its own module, :mod:`encdec`: no slot
 chunk; the encoder runs as a pre-chunk at paged admission). A path a
 family's structure forbids is None in the bundle. :func:`cache_len_for`
 sizes a ring-buffer cache.
+
+Training: ``Model.train_loss(params, batch) -> (loss, metrics)`` under
+autograd, with the reference's knobs from the ``TrainConfig`` handed to
+:func:`build_model`; :func:`batch_spec` gives
+the shapes and dtypes of a train batch, :func:`make_synthetic_batch` a
+random one.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.config import (BLOCK_HYBRID, BLOCK_SSM, ModelConfig,
-                                ServeConfig, ShapeConfig)
+                                ServeConfig, ShapeConfig, TrainConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import dtype_of
@@ -103,16 +109,42 @@ class Model(NamedTuple):
     capabilities: Capabilities
     device: torch.device
     dtype: torch.dtype              # compute (and KV cache) dtype
+    # training: ``train_loss(params, batch) -> (loss, metrics)``, closed
+    # over the reference's knobs (``_knobs``)
+    train_loss: Callable[..., Any]
+
+
+def _knobs(train: TrainConfig, serve: ServeConfig) -> Dict[str, Any]:
+    return {
+        "compute_dtype": train.compute_dtype,
+        "param_dtype": train.param_dtype,
+        "loss_chunk": train.loss_chunk,
+        "attn_chunk_threshold": train.attn_chunk_threshold,
+        "attn_chunk": train.attn_chunk,
+        "attn_chunk_kv": train.attn_chunk_kv,
+        "remat": train.remat,
+        "ring_buffer": serve.ring_buffer,
+    }
 
 
 def build_model(cfg: ModelConfig, serve: Optional[ServeConfig] = None, *,
-                device="cuda") -> Model:
+                device="cuda", train: Optional[TrainConfig] = None
+                ) -> Model:
     """Build the bundle on ``device`` (default: the card; raises when no
-    card is present unless ``device="cpu"``)."""
+    card is present unless ``device="cpu"``). ``train`` sets the
+    parameter dtype of ``init`` and the knobs of ``train_loss``; without
+    it both follow ``serve`` (its dtypes and attention chunking)."""
     dev = resolve_device(device)
     serve = serve or ServeConfig()
+    if train is None:
+        train = TrainConfig(param_dtype=serve.param_dtype,
+                            compute_dtype=serve.compute_dtype,
+                            attn_chunk_threshold=serve.attn_chunk_threshold,
+                            attn_chunk=serve.attn_chunk,
+                            attn_chunk_kv=serve.attn_chunk_kv)
+    knobs = _knobs(train, serve)
     caps = derive_capabilities(cfg)
-    pdt = dtype_of(serve.param_dtype)
+    pdt = dtype_of(train.param_dtype)
     cdt = dtype_of(serve.compute_dtype)
     mod = encdec if cfg.is_encoder_decoder else transformer
 
@@ -157,7 +189,8 @@ def build_model(cfg: ModelConfig, serve: Optional[ServeConfig] = None, *,
                          if caps.encoder_prechunk else None),
         capabilities=caps,
         device=dev,
-        dtype=cdt)
+        dtype=cdt,
+        train_loss=mod.make_train_loss(cfg, knobs))
 
 
 def cache_len_for(cfg: ModelConfig, shape: ShapeConfig,
@@ -167,3 +200,62 @@ def cache_len_for(cfg: ModelConfig, shape: ShapeConfig,
     if serve.ring_buffer and cfg.swa_window > 0:
         return min(shape.seq_len, cfg.swa_window)
     return shape.seq_len
+
+
+# ---------------------------------------------------------------------------
+# Workload inputs
+# ---------------------------------------------------------------------------
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of one input (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def batch_spec(cfg: ModelConfig, shape: ShapeConfig,
+               compute_dtype: str = "bfloat16") -> Dict[str, TensorSpec]:
+    """Specs of the *data* inputs of a train or prefill step: ``tokens``
+    and ``labels`` (B, S) int32, plus ``frames`` (B, encoder_seq, d) for
+    the encoder-decoder or ``patch_embeds`` (B, F, d) for the patch_stub
+    frontend (whose text is then S - F tokens)."""
+    B, S = shape.global_batch, shape.seq_len
+    cdt = dtype_of(compute_dtype)
+    i32 = torch.int32
+    if cfg.is_encoder_decoder:
+        return {"frames": TensorSpec((B, cfg.encoder_seq, cfg.d_model), cdt),
+                "tokens": TensorSpec((B, S), i32),
+                "labels": TensorSpec((B, S), i32)}
+    if cfg.frontend == "patch_stub":
+        F = cfg.num_frontend_tokens
+        return {"tokens": TensorSpec((B, S - F), i32),
+                "labels": TensorSpec((B, S - F), i32),
+                "patch_embeds": TensorSpec((B, F, cfg.d_model), cdt)}
+    return {"tokens": TensorSpec((B, S), i32),
+            "labels": TensorSpec((B, S), i32)}
+
+
+def make_synthetic_batch(cfg: ModelConfig, shape_or_batch, seq_len=None,
+                         seed: int = 0, compute_dtype: str = "bfloat16",
+                         device="cuda") -> Dict[str, torch.Tensor]:
+    """A random batch matching :func:`batch_spec`, drawn on ``device``
+    from a seeded ``torch.Generator``: tokens and labels uniform over the
+    vocabulary, frames and patch embeddings standard normal (the
+    reference's distributions, not its bits)."""
+    if isinstance(shape_or_batch, ShapeConfig):
+        shape = shape_or_batch
+    else:
+        shape = ShapeConfig("synthetic", seq_len, shape_or_batch, "train")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    out = {}
+    for name, spec in batch_spec(cfg, shape, compute_dtype).items():
+        if spec.dtype == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab_size, spec.shape,
+                                      generator=gen, device=dev,
+                                      dtype=torch.int32)
+        else:
+            out[name] = torch.randn(spec.shape, generator=gen, device=dev,
+                                    dtype=torch.float32).to(spec.dtype)
+    return out

@@ -1,5 +1,8 @@
 """Decoder-only LM of the dense, MoE, SSM and hybrid families: the port of
-the serving entry points of ``src/repro/models/transformer.py``.
+the entry points of ``src/repro/models/transformer.py``.
+
+Training: :func:`make_train_loss` — a full causal forward and the chunked
+cross-entropy, under autograd (see its docstring).
 
 Paged layout (the paged continuous engine):
 
@@ -80,6 +83,7 @@ import math
 from typing import Any, Dict, List
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.config import (BLOCK_DENSE, BLOCK_HYBRID, BLOCK_MOE,
                                 BLOCK_SSM, ModelConfig, ServeConfig)
@@ -87,6 +91,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_scan
 from repro_torch.models import layers as L
 from repro_torch.models import mamba, moe
 
@@ -121,18 +126,22 @@ def has_state(cfg: ModelConfig) -> bool:
     return cfg.block in (BLOCK_SSM, BLOCK_HYBRID)
 
 
-def _combine(cfg, p, h, a_out, s_out):
+def _residual(cfg, p, h, a_out, s_out):
     """The block's residual update from its attention and SSM outputs
-    (either may be None), then the MLP of the dense and hybrid blocks or
-    the MoE block's dropless experts."""
+    (either may be None): the hybrid block averages the RMS-normed two."""
     if cfg.block == BLOCK_SSM:
-        h = h + s_out
-    elif cfg.block == BLOCK_HYBRID:
+        return h + s_out
+    if cfg.block == BLOCK_HYBRID:
         a_out = L.rmsnorm(a_out, p["attn_out_norm"], eps=cfg.norm_eps)
         s_out = L.rmsnorm(s_out, p["ssm_out_norm"], eps=cfg.norm_eps)
-        h = h + 0.5 * (a_out + s_out)
-    else:
-        h = h + a_out
+        return h + 0.5 * (a_out + s_out)
+    return h + a_out
+
+
+def _combine(cfg, p, h, a_out, s_out):
+    """:func:`_residual`, then the MLP of the dense and hybrid blocks or
+    the MoE block's dropless experts."""
+    h = _residual(cfg, p, h, a_out, s_out)
     if cfg.block in (BLOCK_DENSE, BLOCK_HYBRID):
         h = h + L.mlp_apply(p["mlp"], L.apply_norm(h, p["ln2"], cfg), cfg)
     elif cfg.block == BLOCK_MOE:
@@ -706,3 +715,125 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device,
         params["lm_head"] = L.dense_init((d, cfg.padded_vocab), d, generator,
                                          device, dtype)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Training: full causal forward + chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def _train_attn(cfg, p, xn, positions, is_global, knobs):
+    """Causal self-attention of training: kv repeated, then the plain
+    ``full_attention`` or, above ``attn_chunk_threshold``, the plain
+    ``chunked_attention`` — on both devices, as the reference's training
+    computes it. Never the flash kernel: it has no backward."""
+    q, k, v = L.project_qkv(p, xn, cfg, positions)
+    window = ((0 if is_global else cfg.swa_window) if cfg.swa_window > 0
+              else None)
+    kf = L.repeat_kv(k, cfg.num_heads)
+    vf = L.repeat_kv(v, cfg.num_heads)
+    if xn.shape[1] > knobs["attn_chunk_threshold"]:
+        ctx = L.chunked_attention(
+            q, kf, vf, q_pos=positions, k_pos=positions, causal=True,
+            window=window, softcap=cfg.logit_softcap,
+            chunk_q=knobs["attn_chunk"],
+            chunk_k=knobs["attn_chunk_kv"] or knobs["attn_chunk"])
+    else:
+        ctx = L.full_attention(q, kf, vf, q_pos=positions, k_pos=positions,
+                               causal=True, window=window,
+                               softcap=cfg.logit_softcap)
+    return L.attn_output(p, ctx, xn.dtype)
+
+
+def train_block(cfg, p, h, positions, is_global, knobs):
+    """One block of the training forward: (h, aux). The SSM runs the
+    model's plain chunked scan (``mamba.ssd_chunked``) and the MoE FFN
+    training's capacity-bounded routing (``moe.moe_apply``), whose losses
+    are the aux."""
+    xn = L.apply_norm(h, p["ln1"], cfg)
+    a_out = s_out = None
+    if cfg.uses_attention:
+        a_out = _train_attn(cfg, p["attn"], xn, positions, is_global, knobs)
+    if has_state(cfg):
+        s_out = mamba.ssm_apply(p["ssm"], xn, cfg, scan=ssd_chunked_scan)
+    h = _residual(cfg, p, h, a_out, s_out)
+    aux: Dict[str, torch.Tensor] = {}
+    if cfg.block in (BLOCK_DENSE, BLOCK_HYBRID):
+        h = h + L.mlp_apply(p["mlp"], L.apply_norm(h, p["ln2"], cfg), cfg)
+    elif cfg.block == BLOCK_MOE:
+        m_out, aux = moe.moe_apply(p["moe"], L.apply_norm(h, p["ln2"], cfg),
+                                   cfg)
+        h = h + m_out
+    return h, aux
+
+
+def remat_call(fn, *args, remat: bool):
+    """``fn(*args)``, recomputed in the backward when ``remat`` (the
+    reference's ``jax.checkpoint`` of a scanned block): non-reentrant
+    ``torch.utils.checkpoint``, so closed-over parameters get their
+    gradients."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def train_backbone(cfg, params, x, positions, knobs):
+    """The blocks over x (B,S,d), one checkpointed call a layer when
+    ``knobs["remat"]``: (final-normed hidden, aux means over the
+    layers)."""
+    auxs: Dict[str, List[torch.Tensor]] = {}
+    h = x
+    for p_l, flag in zip(params["blocks"], layer_flags(cfg)):
+        def body(h_in, p_l=p_l, flag=flag):
+            return train_block(cfg, p_l, h_in, positions, flag, knobs)
+        h, aux = remat_call(body, h, remat=knobs["remat"])
+        for k, v in aux.items():
+            auxs.setdefault(k, []).append(v)
+    aux = {k: torch.stack(v).mean() for k, v in auxs.items()}
+    return L.apply_norm(h, params["final_norm"], cfg), aux
+
+
+def make_train_loss(cfg: ModelConfig, knobs):
+    """``train_loss(params, batch) -> (loss, metrics)``: the reference's
+    full causal forward and chunked cross-entropy, under autograd.
+
+    ``batch``: ``tokens`` and ``labels`` (B, S) int tensors (a negative
+    label is masked), plus ``patch_embeds`` (B, F, d) with the patch_stub
+    frontend: they are prepended, positions run over the whole sequence,
+    and the patch positions are masked in the loss. The MoE family adds
+    0.01 x the load-balance loss and 1e-3 x the router z-loss; metrics
+    carry ``loss`` and the MoE aux means.
+
+    The attention is the port's plain ``full_attention`` (or
+    ``chunked_attention`` above ``attn_chunk_threshold``) on both
+    devices, and the SSM scan is ``mamba.ssd_chunked``, as in the
+    reference's training: the hand-written flash and scan kernels have
+    no backward, so training never reaches them (this is not a fallback:
+    no kernel exists for this path). ``knobs["remat"]`` recomputes each
+    block in the backward."""
+    compute_dtype = L.dtype_of(knobs["compute_dtype"])
+
+    def train_loss(params, batch):
+        tokens = batch["tokens"]
+        x = embed_tokens(cfg, params, tokens, compute_dtype)
+        labels = batch["labels"].long()
+        if cfg.frontend == "patch_stub":
+            pe = batch["patch_embeds"].to(x.device, compute_dtype)
+            x = torch.cat([pe, x], dim=1)
+            pad = torch.full((labels.shape[0], pe.shape[1]), -1,
+                             dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)
+        hidden, aux = train_backbone(cfg, params, x, positions, knobs)
+        valid = labels >= 0
+        loss_sum, n_valid = L.chunked_cross_entropy(
+            hidden, lm_head_weight(cfg, params).to(compute_dtype),
+            labels.clamp(min=0), valid=valid, vocab_size=cfg.vocab_size,
+            chunk=knobs["loss_chunk"])
+        loss = loss_sum / n_valid.clamp(min=1.0)
+        if "moe_lb_loss" in aux:
+            loss = loss + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+        return loss, {"loss": loss, **aux}
+
+    return train_loss

@@ -290,9 +290,23 @@ def test_launch_serve_cpu_smoke(tmp_path):
         assert key in res
 
 
+#: the training slice's packages, which both import-rule checks must see
+TRAINING_PACKAGES = ("optim", "data", "dist", "train")
+
+
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("package", TRAINING_PACKAGES)
+def test_import_rule_covers_the_training_packages(package):
+    """The walk of the sources reaches every training package, its
+    ``__init__`` and at least one module."""
+    files = [p for p in _port_files() if p.parent.name == package
+             and p.parent.parent.name == "repro_torch"]
+    names = {p.name for p in files}
+    assert "__init__.py" in names and len(names) >= 2, names
 
 
 def test_port_sources_import_no_jax_triton_or_reference():
@@ -327,7 +341,9 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'triton', 'repro'))\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        f"for p in {TRAINING_PACKAGES!r}:\n"
+        "    assert 'repro_torch.' + p in sys.modules, p\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -33,8 +33,8 @@ from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ssd_scan_ref
 from repro.models.mamba import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels.ssd_scan import ops
-from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_ref,
-                                              ssd_chunked_scan, ssd_scan_ref)
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_scan, ssd_scan_ref
+from repro_torch.models.mamba import ssd_chunked as ssd_chunked_ref
 
 GRID = [(1, 2, 64, 16, 8, 16), (2, 4, 128, 32, 16, 32), (1, 1, 96, 8, 4, 8),
         (2, 2, 64, 16, 8, 64)]
