@@ -249,6 +249,25 @@ Phases (any failure exits non-zero and prints no result):
    1e-4 relative; every other architecture's smoke config, 2 spmd steps
    in float32 on both: finite, within 1e-4. No training path reaches
    the attention or scan kernels (they have no backward).
+14. Analysis (``repro_torch.analysis``): the runtime sanitizer armed on
+   the card, and the lint. (a) Phase 12's disaggregated fabric (gemma-2b
+   at full width and depth, 2 ranks of 4 rows, chunk 64, 16-token
+   blocks) on its 16 requests, driven on a step clock unarmed and then
+   under ``install(strict=True)`` from construction to close, in float32
+   and in bfloat16: the armed run has no finding and passes
+   ``assert_clean()``; its tokens and its ``paged_decode`` / ``paged_mq``
+   launches equal the unarmed run's (no plain version); every migration
+   reaches its end; each dtype runs unarmed, armed, armed, unarmed.
+   Printed, not gated: the hooks' counts (requests issued and completed,
+   blocks leased and released, migrations, pool resets) and the four
+   drives' host wall clocks. (b) 13(b)'s explicit
+   trainer (2 layers, pod 2 x data 2) under the strict sanitizer, 2 steps
+   with each wire: clean, the losses of 13(b)'s unarmed runs within
+   1e-4, ``msgq_one_copy`` once a step on the bf16 wire. (c) Seeded
+   faults, each giving exactly its finding: a Request on a CUDA
+   CommStream never waited, the same op from two unordered streams of
+   one comm, a double free, a migration interrupted mid-chain. (d)
+   ``python -m repro_torch.analysis.lint`` returns 0 on the port.
 
 The last lines are the kernel table (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -258,6 +277,7 @@ import functools
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -4482,7 +4502,333 @@ def phase_train(dev):
     wire_row["launches_train_bf16_wire"] = launches
     wire_row["launches_train_bf16_wire_per_step"] = \
         runs["bf16_wire"]["one_copy"]
-    return wire_row, wire_err
+    return wire_row, wire_err, out["b"]
+
+
+# ---------------------------------------------------------------------------
+# phase 14: analysis — the sanitizer armed on the card, the lint
+# ---------------------------------------------------------------------------
+
+#: the sanitizer's hooks, counted by :func:`arm` (``on_lease_alloc``
+#: counts blocks, every other hook its calls)
+SAN_HOOKS = ("on_request", "on_request_complete", "on_stream_enter",
+             "on_finish", "on_lease_alloc", "on_lease_ref",
+             "on_lease_release", "on_double_free", "on_pool_reset",
+             "on_migrate_begin", "on_migrate_end")
+#: 14(a)'s step clock: a request enters before the first fabric step
+#: whose index reaches ``arrival * ANALYSIS_STEPS_PER_S``, so the armed
+#: and the unarmed drive see the same arrivals whatever their speed
+ANALYSIS_STEPS_PER_S = 100.0
+
+
+def arm(strict=True):
+    """Install a fresh sanitizer whose hooks also count their calls (the
+    fabric's rank threads call them at once: the counts take a lock)."""
+    import threading
+
+    from repro_torch.analysis import sanitizer as S
+    san = S.install(strict=strict)
+    counts = dict.fromkeys(SAN_HOOKS, 0)
+    lock = threading.Lock()
+    for name in SAN_HOOKS:
+        def hook(*a, _real=getattr(san, name), _name=name):
+            with lock:
+                counts[_name] += len(a[1]) if _name == "on_lease_alloc" \
+                    else 1
+            return _real(*a)
+        setattr(san, name, hook)
+    return san, counts
+
+
+def analysis_fabric_drive(model, params, dev, armed):
+    """Phase 12's disaggregated fabric (2 ranks of 4 rows, chunk 64 x 2,
+    16-token blocks) built, warmed and driven on 16 requests of the mixed
+    16/256 trace on the step clock, then closed (``strict``); under the
+    strict sanitizer from construction to close when ``armed``. Returns
+    the tokens, the drive's launch counts, its host wall clock, the
+    migrations and the hook counts."""
+    from repro_torch.analysis import sanitizer as S
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import ServingFabric, make_trace
+
+    cfg, F = model.cfg, FABRIC
+    san, counts = arm() if armed else (None, None)
+    try:
+        fab = ServingFabric(
+            model, params, ranks=F["ranks"], placement="disagg",
+            cache_len=max(F["prompt_len"]) + F["max_new"][1],
+            slots_per_rank=F["slots"], prefill_chunk=F["prefill_chunk"],
+            max_prefill_per_step=F["max_prefill_per_step"],
+            block_size=F["block_size"], device=dev)
+        try:
+            launch._warm_fabric(fab, cfg, seed=0,
+                                prompt_len=F["prompt_len"][0])
+            trace = make_trace(F["requests"], prompt_len=F["prompt_len"],
+                               max_new=F["max_new"], rate=F["rate"],
+                               seed=F["seed"])
+            reqs = sorted(launch.requests_from_trace(cfg, trace, seed=0),
+                          key=lambda r: r.arrival)
+            torch.cuda.synchronize()
+            launch.reset_kernel_counters()
+            t0 = time.perf_counter()
+            i, step = 0, 0
+            while i < len(reqs) or not fab.idle:
+                while (i < len(reqs) and reqs[i].arrival
+                       * ANALYSIS_STEPS_PER_S <= step):
+                    fab.submit(reqs[i], float(step))
+                    i += 1
+                fab.step(float(step))
+                step += 1
+                require(step < 20_000, "14(a): the fabric did not drain")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = launch.kernel_counters()
+            migrations = fab.transport.n_migrations
+        finally:
+            fab.close(strict=True)
+        if armed:
+            san.assert_clean()
+            require(san.findings == [], f"14(a): findings {san.findings}")
+    finally:
+        S.uninstall()
+    return {"tokens": [r.output[:r.generated].tolist() for r in reqs],
+            "launches": launched, "wall_s": wall, "steps": step,
+            "migrations": migrations, "hooks": counts}
+
+
+def analysis_fabric(dev):
+    """14(a): the disaggregated fabric unarmed, armed (strict), armed,
+    unarmed, in float32 and bfloat16: every armed drive clean, every
+    drive with the first one's tokens and launch counts; the hooks'
+    counts and the four host wall clocks printed (in turns, so neither
+    side always runs first)."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        free_cuda()
+        model, params = build_family("gemma-2b", dev, dtype=dtype)
+        runs = [analysis_fabric_drive(model, params, dev, armed=a)
+                for a in (False, True, True, False)]
+        del model, params
+        plain, armed = runs[0], runs[1]
+        for r in runs[1:]:
+            require(r["tokens"] == plain["tokens"],
+                    f"14(a) {dtype}: a drive's tokens differ from the first "
+                    "unarmed drive's")
+            require(r["launches"] == plain["launches"],
+                    f"14(a) {dtype}: launches {r['launches']} against "
+                    f"{plain['launches']} unarmed")
+        h, k = armed["hooks"], armed["launches"]
+        require(runs[2]["hooks"] == h, f"14(a) {dtype}: the armed drives' "
+                f"hooks differ: {h} and {runs[2]['hooks']}")
+        require(k["decode_launches"] > 0 and k["mq_launches"] > 0
+                and k["ref_calls"] == 0,
+                f"14(a) {dtype}: launches {k}")
+        require(armed["migrations"] == FABRIC["requests"]
+                and h["on_migrate_end"] == h["on_migrate_begin"]
+                and h["on_request"] == h["on_request_complete"] > 0,
+                f"14(a) {dtype}: {armed['migrations']} migrations, hooks {h}")
+        walls = {"unarmed": [runs[0]["wall_s"], runs[3]["wall_s"]],
+                 "armed": [runs[1]["wall_s"], runs[2]["wall_s"]]}
+        ratio = statistics.mean(walls["armed"]) / statistics.mean(
+            walls["unarmed"])
+        print(f"14(a) {dtype}: armed (strict) disaggregated fabric clean, "
+              f"assert_clean passed; tokens and launches equal the unarmed "
+              f"run's (paged_decode x{k['decode_launches']}, paged_mq "
+              f"x{k['mq_launches']}, no plain version); {armed['steps']} "
+              f"steps; hooks from construction to close (the warm-up's "
+              f"{2 * FABRIC['ranks']} requests too) {json.dumps(h)}; drive "
+              f"wall clock (host, synchronised; unarmed, armed, armed, "
+              f"unarmed) {runs[0]['wall_s']:.4f}, {runs[1]['wall_s']:.4f}, "
+              f"{runs[2]['wall_s']:.4f}, {runs[3]['wall_s']:.4f} s: armed / "
+              f"unarmed {ratio:.4f}", flush=True)
+        out[dtype] = {"launches": k, "hooks": h, "steps": armed["steps"],
+                      "wall_s": walls, "armed_over_unarmed": ratio}
+    free_cuda()
+    return out
+
+
+def analysis_train(dev, phase13):
+    """14(b): 13(b)'s explicit threadcomm trainer (gemma-2b widths at 2
+    layers, float32, pod 2 x data 2 x model 1) under the strict
+    sanitizer, 2 steps with each wire: clean; the losses of 13(b)'s
+    unarmed runs (the same state and batches) within SYNC_TOL; the bf16
+    wire launches ``msgq_one_copy`` once a step."""
+    from repro_torch.analysis import sanitizer as S
+    from repro_torch.config import MeshConfig
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.kernels.msgq import ops as mq
+    from repro_torch.train.explicit import init_explicit_state
+    from repro_torch.train.trainer import make_train_step
+
+    out = {}
+    for wire, ref in (("float32", "threadcomm"), ("bfloat16", "bf16_wire")):
+        free_cuda()
+        model, tcfg = sync_model(dev, "threadcomm", wire)
+        mesh_cfg = MeshConfig(shape=TRAIN_MESH[0], axis_names=TRAIN_MESH[1],
+                              process_axes=("pod",))
+        state = init_explicit_state(model, 0, dp=mesh_cfg.dp)
+        batches = train_batches(model.cfg, dev, steps=2)
+        san, counts = arm()
+        try:
+            step = make_train_step(model, mesh_cfg, tcfg, mesh=make_mesh(
+                *TRAIN_MESH, device=dev))
+            losses, launches = [], []
+            for batch in batches:
+                before = mq.one_copy_launches
+                state, met = step(state, batch)
+                losses.append(float(met["loss"]))
+                launches.append(mq.one_copy_launches - before)
+            step.comm.finish()
+            san.assert_clean()
+        finally:
+            S.uninstall()
+        want = phase13[ref]["losses"][:2]
+        require(all(abs(a - b) <= SYNC_TOL + SYNC_TOL * abs(b)
+                    for a, b in zip(losses, want)),
+                f"14(b) {wire}: armed losses {losses} against 13(b)'s "
+                f"{want}")
+        require(launches == phase13[ref]["one_copy"][:2]
+                and launches == ([1, 1] if wire == "bfloat16" else [0, 0]),
+                f"14(b) {wire}: msgq_one_copy launches {launches}")
+        require(counts["on_request"] == counts["on_request_complete"] == 2,
+                f"14(b) {wire}: hooks {counts}")
+        print(f"14(b) explicit trainer wire {wire}, armed (strict): clean; "
+              f"losses {losses} (13(b) unarmed: {want}, bitwise "
+              f"{losses == want}); msgq_one_copy a step {launches}; hooks "
+              f"{json.dumps(counts)}", flush=True)
+        out[wire] = {"losses": losses, "one_copy": launches,
+                     "hooks": counts}
+        del state, step, model, batches
+    free_cuda()
+    return out
+
+
+def analysis_faults(dev):
+    """14(c): seeded faults on the card, each giving exactly its finding:
+    a Request on a CUDA CommStream never waited; the same op issued on one
+    comm from two unordered streams; a double free; a migration
+    interrupted mid-chain (gemma-2b's bf16 pool geometry)."""
+    from repro_torch.analysis import sanitizer as S
+    from repro_torch.core import threadcomm_init
+    from repro_torch.core.comm import Request
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.serve import (BlockPool, KVBlockTransport,
+                                   PagedKVCache, SlotError)
+
+    def root():
+        comm = threadcomm_init(make_mesh((1,), ("serve",), device=dev),
+                               process_axes=(), thread_axes=("serve",))
+        comm.start()
+        return comm
+
+    def leaked_request():
+        comm = root()
+        with comm.stream("seeded") as s:
+            req = Request(comm, "isend", torch.ones(4, device=dev),
+                          stream=s)
+        require(req._event is not None and s._cuda is not None,
+                "14(c): the seeded request rode no CUDA stream and event")
+        comm.finish()
+        comm.free()
+
+    def unordered_streams():
+        comm = root()
+        sub = comm.dup()
+
+        def body(x):
+            with comm.stream("a"):
+                r1 = sub.iallreduce(x)
+            with comm.stream("b"):
+                r2 = sub.iallreduce(x)
+            r1.wait()
+            r2.wait()
+            return x
+        comm.run(body, torch.ones(1, device=dev))
+        comm.finish()
+        comm.free()
+
+    def double_free():
+        pool = BlockPool(8, 16)
+        blocks = pool.alloc(2, "seeded")
+        pool.free(blocks)
+        try:
+            pool.free(blocks)
+        except SlotError as e:
+            require("first freed at" in str(e), f"14(c): {e}")
+        else:
+            fail("14(c): the double free did not raise")
+
+    def interrupted_migration():
+        model, _ = build_family("gemma-2b", dev, layers=1)
+        geo = dict(num_blocks=8, block_size=16, num_slots=2,
+                   max_blocks_per_req=4)
+        src, dst = PagedKVCache(model, **geo), PagedKVCache(model, **geo)
+        comm = root()
+        tp = KVBlockTransport(comm)
+        real, calls = tp._copy_impl, [0]
+
+        def bomb(*a):
+            calls[0] += 1
+            if calls[0] == 2:
+                raise RuntimeError("seeded device loss")
+            return real(*a)
+        tp._copy_impl = bomb
+        try:
+            tp.migrate(src, dst, [0, 1, 2], [3, 4, 5])
+        except RuntimeError as e:
+            require("seeded" in str(e), f"14(c): {e}")
+        else:
+            fail("14(c): the seeded migration did not raise")
+        comm.finish()
+        comm.free()
+
+    out = {}
+    for name, fn, kind in (
+            ("leaked_request", leaked_request, "unmatched-request"),
+            ("unordered_streams", unordered_streams, "serialization-hazard"),
+            ("double_free", double_free, "double-free"),
+            ("interrupted_migration", interrupted_migration,
+             "migration-incomplete")):
+        san = S.install()
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            S.uninstall()
+        kinds = [f.kind for f in san.findings]
+        require(kinds == [kind], f"14(c) {name}: findings {kinds}, not "
+                f"[{kind!r}]")
+        print(f"14(c) {name}: exactly one {kind}: {san.findings[0]}",
+              flush=True)
+        out[name] = kind
+    free_cuda()
+    return out
+
+
+def analysis_lint():
+    """14(d): ``python -m repro_torch.analysis.lint`` over the port's
+    package directory (its default) returns 0."""
+    res = subprocess.run([sys.executable, "-m", "repro_torch.analysis.lint"],
+                         capture_output=True, text=True, timeout=300,
+                         check=False, cwd=str(ROOT),
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    require(res.returncode == 0 and res.stdout.startswith("clean:"),
+            f"14(d): the lint returned {res.returncode}: {res.stdout}"
+            f"{res.stderr}")
+    print(f"14(d) python -m repro_torch.analysis.lint: "
+          f"{res.stdout.strip()}", flush=True)
+    return res.stdout.strip()
+
+
+def phase_analysis(dev, phase13):
+    """Phase 14: analysis (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {"a": analysis_fabric(dev), "b": analysis_train(dev, phase13),
+           "c": analysis_faults(dev), "d": analysis_lint(),
+           "seconds": time.perf_counter() - t0}
+    print("analysis: " + json.dumps(out), flush=True)
+    print(f"phase 14: {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def main() -> None:
@@ -4540,7 +4886,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     fabric = phase_fabric(dev)
     torch.cuda.empty_cache()
-    train_row, train_err = phase_train(dev)
+    train_row, train_err, train_runs = phase_train(dev)
+    torch.cuda.empty_cache()
+    analysis = phase_analysis(dev, train_runs)
 
     # launches: the --engine both run, which drives all three kernels;
     # the paged serve phase's own counts stand beside them
@@ -4605,6 +4953,15 @@ def main() -> None:
     table["msgq_one_copy"]["max_abs_err"] = max(
         table["msgq_one_copy"]["max_abs_err"], train_err)
     table["msgq_one_copy"].update(train_row)
+    # phase 14: the armed fabric's launches (each dtype's armed drive,
+    # equal to its unarmed one) and the armed trainer's bf16 wire
+    for name, key in (("paged_decode", "decode_launches"),
+                      ("paged_mq", "mq_launches")):
+        for dt, sfx in (("float32", "f32"), ("bfloat16", "bf16")):
+            table[name][f"launches_analysis_fabric_{sfx}"] = \
+                analysis["a"][dt]["launches"][key]
+    table["msgq_one_copy"]["launches_analysis_train_bf16_wire"] = \
+        sum(analysis["b"]["bfloat16"]["one_copy"])
     print("model: " + json.dumps(model), flush=True)
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)

@@ -41,8 +41,13 @@ reports its wait to the tracer (a ``wait:<op>`` span, and blocked time
 charged to the serialization-stall detector while the thread has
 runnable work), and a ``with comm.stream(name)`` region is a
 ``stream:<name>`` span. Off, each site is one global read and a ``None``
-check. Not ported in this module: the reference's runtime sanitizer
-hooks (``REPRO_SANITIZE``); they come with the port of ``analysis/``.
+check.
+
+Runtime sanitizer (``REPRO_SANITIZE=1``,
+:mod:`repro_torch.analysis.sanitizer`): a request's issue and completion
+(``wait``, or the ``test`` that turns it done), a stream region's entry
+and ``finish`` report to it. Off, each site is one global read and a
+``None`` check.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.sanitizer import active as _san_active
 from repro_torch.core import collectives as coll
 from repro_torch.core import p2p as p2p_mod
 from repro_torch.core import protocol
@@ -115,6 +121,9 @@ class Request:
         if comm._root._cuda:
             self._event = torch.cuda.Event()
             self._event.record()
+        san = _san_active()
+        if san is not None:
+            san.on_request(self)
 
     def _check_window(self):
         self.comm._root._check_not_freed()
@@ -129,6 +138,9 @@ class Request:
         where a device fault of the operation surfaces)."""
         self._check_window()
         self._done = True
+        san = _san_active()
+        if san is not None:
+            san.on_request_complete(self)
         tr = _tr_active()
         # the completion point is where accidental serialization bites:
         # under a trace the block is timed for the stall detector
@@ -145,6 +157,9 @@ class Request:
         self._check_window()
         if not self._done and (self._event is None or self._event.query()):
             self._done = True
+            san = _san_active()
+            if san is not None:   # only the call that turns it done
+                san.on_request_complete(self)
         return (True, self._value) if self._done else (False, None)
 
 
@@ -188,6 +203,9 @@ class CommStream:
 
     def __enter__(self) -> "CommStream":
         self.comm._root._check_active()
+        san = _san_active()
+        if san is not None:       # program order flows into the stream
+            san.on_stream_enter(self)
         tr = _tr_active()
         if tr is not None:        # stream-region span, closed in __exit__
             self._obs_span = tr.span(f"stream:{self.name}", cat="comm")
@@ -828,6 +846,9 @@ class ThreadComm(Comm):
         self._check_not_freed()
         if not self._active:
             raise ThreadCommError("finish without a matching start")
+        san = _san_active()
+        if san is not None:       # pending requests die with the window
+            san.on_finish(self)
         self._active = False
         self._attrs.clear()        # attribute lifetime = activation window
         self._stream_stack.clear()

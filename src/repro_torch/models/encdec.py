@@ -249,8 +249,10 @@ def prefill(cfg, params, tokens, cache_len: int, *, compute_dtype, serve,
     gs = cache["k"].shape[3]
     for i, p_l in enumerate(params["dec_blocks"]):
         ck, cv = _cross_kv(cfg, p_l["xattn"], enc_out)
-        cache["cross_k"][i] = ck.to(compute_dtype)
-        cache["cross_v"][i] = cv.to(compute_dtype)
+        # i is the layer, not a request row: the monolithic prefill writes
+        # every row of the layer's leaf
+        cache["cross_k"][i] = ck.to(compute_dtype)  # lint: ok[state-thread]
+        cache["cross_v"][i] = cv.to(compute_dtype)  # lint: ok[state-thread]
         a_out, k, v = _self_attn(cfg, p_l["attn"],
                                  L.apply_norm(h, p_l["ln1"], cfg), positions,
                                  causal=True, serve=serve,

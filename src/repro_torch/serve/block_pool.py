@@ -35,6 +35,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizer import active as _san_active
 from repro_torch.obs.metrics import active as _reg_active
 from repro_torch.obs.trace import active as _tr_active
 from repro_torch.serve.kv_cache import (LeaseLeakError, LeaseLeakWarning,
@@ -108,22 +109,35 @@ class BlockPool:
             self._ref[b] = 1
             self._owner[b] = owner
             self._last_owner[b] = owner
+        san = _san_active()
+        if san is not None:       # lease ledger records the alloc site
+            san.on_lease_alloc(self, blocks, owner)
         self._observe_occupancy()
         return blocks
 
     def ref(self, block: int, owner: object = None) -> None:
-        """Add a reference to a live block (a shared-prefix lease)."""
+        """Add a reference to a live block (a shared-prefix lease);
+        ``owner`` feeds the sanitizer ledger's shared-ref provenance."""
         if self._ref[block] < 1:
             raise SlotError(f"ref of free block {block}")
         self._ref[block] += 1
+        san = _san_active()
+        if san is not None:
+            san.on_lease_ref(self, block, owner)
 
     def free(self, blocks) -> None:
         """Drop one reference per block; blocks reaching zero return to
-        the free list. Double-free names the last owner."""
+        the free list. Double-free names the last owner (and, under the
+        sanitizer, where the block was allocated and first freed)."""
+        san = _san_active()
         for b in blocks:
             if self._ref[b] < 1:
-                raise SlotError(f"double free of block {b} "
-                                f"(last owner {self._last_owner[b]!r})")
+                msg = (f"double free of block {b} "
+                       f"(last owner {self._last_owner[b]!r})")
+                if san is not None:
+                    msg += "; " + san.on_double_free(
+                        self, b, self._last_owner[b])
+                raise SlotError(msg)
             self._ref[b] -= 1
             if self._ref[b] == 0:
                 self._owner[b] = None
@@ -132,6 +146,8 @@ class BlockPool:
                 # the survivor may be the reclaimer's own reference: it
                 # parks the block if so
                 self._reclaimer.on_sole_ref(b)
+            if san is not None:
+                san.on_lease_release(self, b)
         self._observe_occupancy()
 
     def _observe_occupancy(self) -> None:
@@ -155,6 +171,9 @@ class BlockPool:
         (:class:`LeaseLeakError`) under ``strict=True``."""
         leaked = [(b, self._owner[b]) for b in range(self.num_blocks)
                   if self._ref[b] > 0]
+        san = _san_active()
+        if san is not None:       # ledger adds allocation provenance
+            san.on_pool_reset(self)
         if leaked:
             msg = (f"reset with {len(leaked)} live block lease(s): "
                    + ", ".join(f"block {b} (owner {o!r})"

@@ -28,9 +28,9 @@ chunk has written them. The pool is written in place, so the install is
 ``swap_buffers`` of the pool itself (its identity check).
 
 Telemetry: the pure block transfer is a ``kv_transfer`` span (it nests
-inside the router's ``hop:migration``). The reference's sanitizer hooks
-(``on_migrate_begin`` / ``on_migrate_end``) come with the port of
-``analysis/``.
+inside the router's ``hop:migration``). Under the runtime sanitizer a
+migration reports its begin and, once every block was issued and
+waited, its end (``on_migrate_begin`` / ``on_migrate_end``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from __future__ import annotations
 import time
 from typing import List
 
+from repro_torch.analysis.sanitizer import active as _san_active
 from repro_torch.core import protocol
 from repro_torch.core.comm import Request, waitall
 from repro_torch.obs.trace import active as _tr_active
@@ -92,6 +93,9 @@ class KVBlockTransport:
         nb = self.block_nbytes(src_kv)
         proto = protocol.select_protocol(nb, interthread=True)
         requests: List[Request] = []
+        san = _san_active()
+        if san is not None:
+            san.on_migrate_begin(self, len(src_blocks))
         tr = _tr_active()
         t_xfer = time.perf_counter() if tr is not None else 0.0
         try:
@@ -110,6 +114,8 @@ class KVBlockTransport:
             # already issued is waited before the install either way
             try:
                 waitall(requests)
+                if san is not None and len(requests) == len(src_blocks):
+                    san.on_migrate_end(self)
             finally:
                 dst_kv.swap_buffers(dst_kv.buffers)
         moved = len(src_blocks)

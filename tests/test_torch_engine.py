@@ -290,8 +290,9 @@ def test_launch_serve_cpu_smoke(tmp_path):
         assert key in res
 
 
-#: the training slice's packages, which both import-rule checks must see
-TRAINING_PACKAGES = ("optim", "data", "dist", "train")
+#: the training slice's packages and the analysis package, which both
+#: import-rule checks must see
+TRAINING_PACKAGES = ("optim", "data", "dist", "train", "analysis")
 
 
 def _port_files():
@@ -301,8 +302,8 @@ def _port_files():
 
 @pytest.mark.parametrize("package", TRAINING_PACKAGES)
 def test_import_rule_covers_the_training_packages(package):
-    """The walk of the sources reaches every training package, its
-    ``__init__`` and at least one module."""
+    """The walk of the sources reaches every training package (and the
+    analysis package), its ``__init__`` and at least one module."""
     files = [p for p in _port_files() if p.parent.name == package
              and p.parent.parent.name == "repro_torch"]
     names = {p.name for p in files}
