@@ -268,6 +268,32 @@ Phases (any failure exits non-zero and prints no result):
    CommStream never waited, the same op from two unordered streams of
    one comm, a double free, a migration interrupted mid-chain. (d)
    ``python -m repro_torch.analysis.lint`` returns 0 on the port.
+15. The roofline (``repro_torch.roofline``, ``launch/dryrun.py``) and
+   the examples. (a) ``roofline.hw.H100`` beside what the card reports
+   (total memory, SM count, shared memory per block opt-in and per SM)
+   and ``nvidia-smi``'s name and power limit; fails if ``hbm_bytes``
+   exceeds the card's memory. (b) The dry run at full width on meta
+   tensors through ``run_cell``: gemma-2b x train_4k, prefill_32k,
+   decode_32k x single_pod, multi_pod; mamba2-370m x decode_32k and
+   long_500k x multi_pod; olmoe-1b-7b x train_4k x multi_pod; each cell's
+   terms, dominant term, ``fits_hbm``, counted / analytic and trace
+   seconds, and the part's seconds. (c) Phase 4's paged decode step
+   (B=4) and static prefill (B=8, S=256) and 13(a)'s bf16 train step,
+   from those phases' records: ``cell_compute_flops`` and
+   ``cell_memory_bytes`` at each step's shape, the measured step (host
+   wall clock, synchronised, median) and its device-busy time (the
+   phases' profiles), and two bounds on ``H100``, each max(compute,
+   memory) with bound / step and bound / busy (a share over 1.05 fails:
+   the count would be wrong): the formula's, and the step's own count
+   (its FlopCounterMode total plus the ported kernels' attention flops,
+   which ctypes launches hide from it); phase 4 launched
+   ``paged_decode``, ``paged_mq`` and the flash kernel, no plain
+   version. (d) Each example's ``main`` in process on the card at its
+   reference's size (the serving examples at gemma-2b's published
+   widths, which they take on the card: the kernels take head dims
+   64/128/256, the smoke config's is 32; ``train_lm --steps 20``): its
+   checks pass, the comm examples launch ``msgq_*``, the serving examples
+   ``paged_decode`` and ``paged_mq``, and none calls a plain version.
 
 The last lines are the kernel table (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -288,6 +314,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -307,8 +334,17 @@ TPU_KERNELS = {
     "msgq_one_copy": "src/repro/kernels/msgq/msgq.py:34",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:26",
 }
-HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the card's peaks, from one source: the port's roofline constants (the
+# H100 SXM5 80GB data sheet); a directory without the port fails here
+if not (SRC / "repro_torch").is_dir():
+    sys.exit("chip_smoke: FAILED: src/repro_torch not found: run from the "
+             "root of a checkout")
+sys.path.insert(0, str(SRC))
+from repro_torch.roofline.hw import H100  # noqa: E402
+
+HBM_BYTES_PER_S = H100.hbm_bw
+PEAK_FLOPS = {torch.bfloat16: H100.peak_flops_bf16,
+              torch.float32: H100.peak_flops_f32}
 #: kernel vs plain version, per dtype: float32 sums in another order
 #: (the reference's own kernel tolerance); bfloat16 outputs are rounded
 #: once on each side from identical float32 math: two bf16 ulps
@@ -865,6 +901,7 @@ def phase_model(dev):
           f"{cfg.num_kv_heads}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.param_count() / 1e9:.3f} B params, {model.dtype}, "
           f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    before = path_launches()
 
     B, C, bs, NB = 4, 64, 16, 16
     rng = np.random.default_rng(0)
@@ -923,9 +960,17 @@ def phase_model(dev):
         results["decode_step_ms"])
     results["chunk_profile"] = profile_step(
         "chunk", lambda: chunk(pool, 2 * C, n_last), results["chunk_step_ms"])
+    results["decode_step"] = step_record(
+        lambda: model.decode_step_paged(params, pool, tokens, positions,
+                                        tables),
+        batch=B, cache_len=int(positions.max()) + 1)
     del pool, ref_pool
     torch.cuda.empty_cache()
     results.update(monolithic(model, params, cfg))
+    # every launch of this phase's kernel path (its comparisons pass the
+    # plain versions in directly: they count no plain call)
+    after = path_launches()
+    results["launches"] = {k: after[k] - before[k] for k in after}
     del model, params
     torch.cuda.empty_cache()
     return results
@@ -977,6 +1022,8 @@ def monolithic(model, params, cfg):
     results["slot_decode_profile"] = profile_step(
         "slot decode", lambda: model.decode_step(params, cache, nxt, pos),
         results["slot_decode_step_ms"])
+    results["static_prefill_step"] = step_record(
+        lambda: model.prefill(params, tok8, W), batch=8, seq_len=S)
     return results
 
 
@@ -994,6 +1041,31 @@ def launch_counts():
             "paged_mq": paged_ops.mq_launches,
             "flash_kernel": flash_ops.flash_launches,
             "ssd_kernel": ssd_ops.ssd_launches}
+
+
+def path_launches():
+    """The attention kernels' launch counters, by their wrappers' names,
+    and the calls of their plain versions."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    return {"paged_decode": paged_ops.decode_launches,
+            "paged_mq": paged_ops.mq_launches,
+            "flash_attention": flash_ops.flash_launches,
+            "plain_calls": paged_ops.ref_calls + flash_ops.ref_calls}
+
+
+def flop_count(fn):
+    """FlopCounterMode's total for one call of ``fn`` (torch ops only)."""
+    with FlopCounterMode(display=False) as fc:
+        fn()
+        torch.cuda.synchronize()
+    return fc.get_total_flops()
+
+
+def step_record(fn, **shape):
+    """One main-path step for 15(c): its median host wall clock
+    (synchronised) and its FlopCounterMode count, beside its shape."""
+    return {"host_ms": host_ms(fn), "flop_count": flop_count(fn), **shape}
 
 
 def profile_step(label, step, step_ms, names=ATTENTION_KERNELS):
@@ -4132,9 +4204,13 @@ def train_gemma_full(dev):
 
         def step():
             box["out"] = thunk()
-        prof.update(profile_step("13(a) train step, gemma-2b bf16", step,
-                                 statistics.median(wall_ms), names=())
-                    or {})
+        # the profiled step also runs under FlopCounterMode (host-side
+        # only: its device time is the same), for phase 15(c)
+        with FlopCounterMode(display=False) as fc:
+            prof.update(profile_step("13(a) train step, gemma-2b bf16",
+                                     step, statistics.median(wall_ms),
+                                     names=()) or {})
+        prof["flop_count"] = fc.get_total_flops()
         return box["out"]
 
     t0 = time.perf_counter()
@@ -4151,6 +4227,7 @@ def train_gemma_full(dev):
            "params": res["params"], "idle_share": prof.get("idle_share"),
            "device_busy_ms": prof.get("device_busy_ms"),
            "device_launches": prof.get("device_launches"),
+           "flop_count": prof.get("flop_count"),
            "seconds": time.perf_counter() - t0}
     print(f"13(a) gemma-2b 18 layers bf16 B={TRAIN_BATCH} S={TRAIN_SEQ}: "
           f"losses {losses}; steps 1-3 {wall_ms} ms (host wall clock, "
@@ -4502,7 +4579,7 @@ def phase_train(dev):
     wire_row["launches_train_bf16_wire"] = launches
     wire_row["launches_train_bf16_wire_per_step"] = \
         runs["bf16_wire"]["one_copy"]
-    return wire_row, wire_err, out["b"]
+    return wire_row, wire_err, out["b"], out["a"]
 
 
 # ---------------------------------------------------------------------------
@@ -4831,11 +4908,226 @@ def phase_analysis(dev, phase13):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the roofline on the card's constants, the dry run at full
+# width, the main path's steps against their bound, the examples
+# ---------------------------------------------------------------------------
+
+#: 15(b)'s cells, at full width on meta tensors (the reference test's
+#: three among them: gemma-2b train_4k single_pod, mamba2-370m
+#: decode_32k multi_pod, olmoe-1b-7b train_4k multi_pod)
+DRYRUN_CELLS = ([("gemma-2b", s, m)
+                 for s in ("train_4k", "prefill_32k", "decode_32k")
+                 for m in ("single_pod", "multi_pod")]
+                + [("mamba2-370m", "decode_32k", "multi_pod"),
+                   ("mamba2-370m", "long_500k", "multi_pod"),
+                   ("olmoe-1b-7b", "train_4k", "multi_pod")])
+#: a step's bound over its measured (or device-busy) time above this
+#: fails: the count, not the step, would be wrong
+SHARE_LIMIT = 1.05
+#: 15(d): each example at its reference's size, in process; the serving
+#: ones take gemma-2b's published widths on the card
+#: (``examples.serving_config``: the paged and flash kernels are built
+#: for head dims 64/128/256, the smoke config's is 32)
+EXAMPLES = [("quickstart", [], "comm"), ("collectives_demo", [], "comm"),
+            ("spmv_petsc", [], "comm"),
+            ("serve_continuous", [], "serve"),
+            ("serve_fabric", [], "serve"),
+            ("train_lm", ["--steps", "20"], "train")]
+
+
+def roofline_constants(smi):
+    """15(a): ``roofline.hw.H100`` beside what the card reports."""
+    import dataclasses
+    props = torch.cuda.get_device_properties(0)
+    card = {"name": props.name, "total_memory": props.total_memory,
+            "sms": props.multi_processor_count,
+            "smem_per_block_optin": getattr(
+                props, "shared_memory_per_block_optin", None),
+            "smem_per_sm": getattr(props, "shared_memory_per_multiprocessor",
+                                   None)}
+    print(f"15(a) roofline.hw.H100: {dataclasses.asdict(H100)}", flush=True)
+    print(f"15(a) the card: {smi}; {card}", flush=True)
+    require(H100.hbm_bytes <= props.total_memory,
+            f"15(a): H100.hbm_bytes {H100.hbm_bytes:.0f} exceeds the card's "
+            f"{props.total_memory} bytes")
+    return {"H100": dataclasses.asdict(H100), "card": card, "smi": smi}
+
+
+def dryrun_cells():
+    """15(b): the dry run's full-width cells through ``run_cell`` (meta
+    tensors: nothing touches the card)."""
+    from repro_torch.launch.dryrun import run_cell
+    t0 = time.perf_counter()
+    rows = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        res = run_cell(arch, shape, mesh, verbose=False)
+        a = res["analysis"]
+        require(a["terms"]["compute_s"] > 0 and a["counted"]["flops"] > 0,
+                f"15(b) {arch} {shape} {mesh}: nothing counted")
+        row = {"arch": arch, "shape": shape, "mesh": mesh,
+               "terms": a["terms"], "dominant": a["dominant"],
+               "fits_hbm": a["fits_hbm"],
+               "live_bytes_per_device": a["live_bytes_per_device"],
+               "counted_over_analytic": a["counted_over_analytic"],
+               "mfu_at_bound": a.get("mfu_at_bound"),
+               "collective_bytes": a["collectives"]["total"][
+                   "operand_bytes"],
+               "trace_s": res["timings"]["trace_s"]}
+        rows.append(row)
+        print(f"15(b) {arch} {shape} {mesh}: terms {a['terms']}, dominant "
+              f"{a['dominant']}, fits_hbm {a['fits_hbm']} (live "
+              f"{a['live_bytes_per_device']} B/device), counted/analytic "
+              f"{a['counted_over_analytic']}, mfu@bound "
+              f"{a.get('mfu_at_bound')}, trace {row['trace_s']:.2f} s",
+              flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"15(b) dry run: {len(rows)} cells in {seconds:.1f} s", flush=True)
+    return {"cells": rows, "seconds": seconds}
+
+
+def step_against_bound(label, cfg, shape, step_ms, busy_ms, counted,
+                       attn_flops):
+    """A measured step beside two bounds on ``H100``: the analytic
+    formulas' at its shape, and the step's own count (FlopCounterMode
+    plus the ported kernels' attention, which it cannot see) with the
+    formulas' bytes. The formula can price work the step does not do (a
+    prefill's LM head at every prompt token), so the own count's share is
+    the one to read. A share over SHARE_LIMIT fails."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.roofline.flops import (cell_compute_flops,
+                                            cell_memory_bytes)
+    one_card = MeshConfig(shape=(1,), axis_names=("data",), model_axes=())
+    comp = cell_compute_flops(cfg, shape)
+    memb = cell_memory_bytes(
+        cfg, shape, one_card,
+        cache_len=shape.seq_len if shape.kind == "decode" else None)
+    memory_ms = 1e3 * memb["bytes"] / H100.hbm_bw
+
+    def bound(flops):
+        compute_ms = 1e3 * flops / H100.peak_flops_bf16
+        ms = max(compute_ms, memory_ms)
+        return {"flops": flops, "compute_ms": compute_ms, "bound_ms": ms,
+                "bound_by": "operations" if compute_ms >= memory_ms
+                else "bytes", "share": ms / step_ms,
+                "share_busy": ms / busy_ms if busy_ms else None}
+
+    formula, own = bound(comp["computed"]), bound(counted + attn_flops)
+    out = {"shape": {"seq_len": shape.seq_len, "batch": shape.global_batch,
+                     "kind": shape.kind},
+           "model_flops": comp["model_flops"], "bytes": memb["bytes"],
+           "memory_ms": memory_ms, "step_ms": step_ms, "busy_ms": busy_ms,
+           "formula": formula, "own_count": own, "flop_counter": counted,
+           "kernel_attention_flops": attn_flops,
+           "own_over_formula": (counted + attn_flops) / comp["computed"]}
+    busy = busy_ms if busy_ms is not None else "not measured"
+    print(f"15(c) {label}: {memb['bytes']:.6e} B, step {step_ms:.4f} ms "
+          f"(host wall clock, synchronised, median), device busy {busy} "
+          f"ms; FlopCounterMode {counted:.6e} flop (torch ops only: the "
+          f"ctypes kernels' launches are invisible to it) + the ported "
+          f"kernels' attention {attn_flops:.6e} flop (flops."
+          f"_attention_score_flops, the full score rectangle) = "
+          f"{counted + attn_flops:.6e}, {out['own_over_formula']:.4f} of "
+          f"the formula's", flush=True)
+    for name, b in (("formula", formula), ("own count", own)):
+        print(f"15(c) {label}: {name} {b['flops']:.6e} flop -> bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) on {H100.name}; "
+              f"bound/step {b['share']:.4f}, bound/busy "
+              f"{b['share_busy'] if busy_ms else 'not measured'}",
+              flush=True)
+        require(b["share"] <= SHARE_LIMIT
+                and (b["share_busy"] is None
+                     or b["share_busy"] <= SHARE_LIMIT),
+                f"15(c) {label}: {name} bound / measured {b['share']} (busy "
+                f"{b['share_busy']}) > {SHARE_LIMIT}: the count is wrong")
+    return out
+
+
+def main_path_steps(phase4, train_a):
+    """15(c): phase 4's paged decode step (B=4) and static prefill (B=8,
+    S=256), and phase 13(a)'s bf16 train step, each against its bound,
+    from those phases' own records."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.roofline.flops import _attention_score_flops
+
+    cfg = get_config("gemma-2b")
+    dec, pre = phase4["decode_step"], phase4["static_prefill_step"]
+    rows = {}
+    rows["paged_decode"] = step_against_bound(
+        f"gemma-2b paged decode (B={dec['batch']}; phase 4)", cfg,
+        ShapeConfig("paged_decode", dec["cache_len"], dec["batch"],
+                    "decode"),
+        dec["host_ms"], (phase4.get("decode_profile") or {}).get(
+            "device_busy_ms"), dec["flop_count"],
+        _attention_score_flops(cfg, 1, dec["cache_len"], dec["batch"]))
+    rows["static_prefill"] = step_against_bound(
+        f"gemma-2b static prefill (B={pre['batch']}, S={pre['seq_len']}; "
+        "phase 4)", cfg,
+        ShapeConfig("static_prefill", pre["seq_len"], pre["batch"],
+                    "prefill"),
+        pre["host_ms"], (phase4.get("static_prefill_profile") or {}).get(
+            "device_busy_ms"), pre["flop_count"],
+        _attention_score_flops(cfg, pre["seq_len"], pre["seq_len"],
+                               pre["batch"]))
+    rows["train_step"] = step_against_bound(
+        "gemma-2b bf16 train step (B=8, S=128, 18 layers; 13(a))", cfg,
+        ShapeConfig("train_step", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        train_a["median_step_ms"], train_a.get("device_busy_ms"),
+        train_a.get("flop_count") or 0,
+        # training never reaches the ported kernels (no backward)
+        0.0)
+    launches = phase4["launches"]
+    print(f"15(c) phase 4's launches: {launches}", flush=True)
+    for name in ("paged_decode", "paged_mq", "flash_attention"):
+        require(launches[name] > 0, f"15(c): {name} was not launched")
+    require(launches["plain_calls"] == 0,
+            f"15(c): a plain version ran: {launches}")
+    rows["launches"] = launches
+    return rows
+
+
+def examples_on_card():
+    """15(d): each example's ``main`` in process on the card."""
+    import importlib
+    rows = {}
+    for name, argv, kind in EXAMPLES:
+        free_cuda()
+        t0 = time.perf_counter()
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        out = mod.main(argv)
+        k = out["kernels"]
+        seconds = time.perf_counter() - t0
+        print(f"15(d) {' '.join([name] + argv)}: checks {out['checks']}, "
+              f"launches {k}, {seconds:.1f} s", flush=True)
+        require(out["ok"], f"15(d) {name}: a check failed: {out['checks']}")
+        require(k["plain_calls"] == 0,
+                f"15(d) {name}: a plain version ran: {k}")
+        if kind == "comm":
+            require(k["msgq_eager"] + k["msgq_one_copy"] > 0,
+                    f"15(d) {name}: no msgq kernel was launched")
+        if kind == "serve":
+            require(k["paged_decode"] > 0 and k["paged_mq"] > 0,
+                    f"15(d) {name}: the paged kernels were not launched")
+        rows[name] = {"kernels": k, "checks": out["checks"],
+                      "seconds": seconds}
+    return rows
+
+
+def phase_roofline(smi, phase4, train_a):
+    """Phase 15 (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {"a": roofline_constants(smi), "b": dryrun_cells(),
+           "c": main_path_steps(phase4, train_a),
+           "d": examples_on_card()}
+    out["seconds"] = time.perf_counter() - t0
+    print("roofline: " + json.dumps(out, default=str), flush=True)
+    print(f"phase 15: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
-    require((SRC / "repro_torch").is_dir(),
-            "src/repro_torch not found: run from the root of a checkout")
     require(torch.cuda.is_available(), "no CUDA device is available")
-    sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -4886,9 +5178,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     fabric = phase_fabric(dev)
     torch.cuda.empty_cache()
-    train_row, train_err, train_runs = phase_train(dev)
+    train_row, train_err, train_runs, train_full = phase_train(dev)
     torch.cuda.empty_cache()
     analysis = phase_analysis(dev, train_runs)
+    torch.cuda.empty_cache()
+    roofline = phase_roofline(smi, model, train_full)
 
     # launches: the --engine both run, which drives all three kernels;
     # the paged serve phase's own counts stand beside them
@@ -4962,6 +5256,15 @@ def main() -> None:
                 analysis["a"][dt]["launches"][key]
     table["msgq_one_copy"]["launches_analysis_train_bf16_wire"] = \
         sum(analysis["b"]["bfloat16"]["one_copy"])
+    # phase 4's kernel path, whose steps 15(c) holds to their bound, and
+    # each example's launches in 15(d)
+    for name in ("paged_decode", "paged_mq", "flash_attention"):
+        table[name]["launches_phase4"] = roofline["c"]["launches"][name]
+    for name in ("paged_decode", "paged_mq", "flash_attention",
+                 "msgq_eager", "msgq_one_copy", "ssd_scan"):
+        table[name]["launches_examples"] = {
+            ex: row["kernels"][name]
+            for ex, row in roofline["d"].items() if row["kernels"][name]}
     print("model: " + json.dumps(model), flush=True)
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)

@@ -1,8 +1,9 @@
 """Configuration for the PyTorch port: its own copy of the reference's
 ``ModelConfig``, ``ServeConfig``, ``ShapeConfig``, ``MeshConfig``,
-``TrainConfig``, ``RunConfig``, ``pad_to_multiple`` and block-family
-constants (``src/repro/config.py``), field for field, so the port never
-imports the JAX package."""
+``TrainConfig``, ``RunConfig``, ``pad_to_multiple``, block-family
+constants, the workload shapes (``SHAPES``, ``shape_applicable``) and the
+meshes (``MESHES``) of ``src/repro/config.py``, field for field, so the
+port never imports the JAX package."""
 
 from __future__ import annotations
 
@@ -177,6 +178,21 @@ class ShapeConfig:
         return self.kind == "train"
 
 
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (model, shape) cell is runnable; returns (ok, reason)."""
+    if shape.name == "long_500k" and not model.sub_quadratic:
+        return False, "full-attention arch: long_500k skipped (assignment rule)"
+    return True, ""
+
+
 # ---------------------------------------------------------------------------
 # Mesh and training knobs
 # ---------------------------------------------------------------------------
@@ -212,6 +228,13 @@ SINGLE_POD = MeshConfig(shape=(16, 16), axis_names=("data", "model"))
 MULTI_POD = MeshConfig(
     shape=(2, 16, 16), axis_names=("pod", "data", "model"),
     process_axes=("pod",))
+# small meshes for CPU tests
+TEST_MESH_8 = MeshConfig(shape=(2, 4), axis_names=("data", "model"))
+TEST_FLAT_8 = MeshConfig(shape=(8,), axis_names=("ranks",), batch_axes=("ranks",),
+                         model_axes=())
+
+MESHES = {"single_pod": SINGLE_POD, "multi_pod": MULTI_POD,
+          "test8": TEST_MESH_8, "flat8": TEST_FLAT_8}
 
 
 @dataclass(frozen=True)

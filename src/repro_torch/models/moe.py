@@ -53,14 +53,14 @@ def init_moe(cfg, generator, device, dtype):
 
 
 def _router(p, flat, cfg):
-    """(logits (T, E) float32, probs, expert ids (T, K), renormalised
-    gates (T, K) float32) of ``flat`` (T, d) tokens. Experts are ranked
-    by a stable descending sort, so equal probabilities keep the lower
-    expert first, as ``jax.lax.top_k`` does."""
+    """(logits (..., E) float32, probs, expert ids (..., K), renormalised
+    gates (..., K) float32) of ``flat`` (..., d) tokens. Experts are
+    ranked by a stable descending sort, so equal probabilities keep the
+    lower expert first, as ``jax.lax.top_k`` does."""
     logits = flat.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)                        # (T, E)
+    probs = torch.softmax(logits, dim=-1)                        # (..., E)
     gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, idx = gates[:, :cfg.top_k], idx[:, :cfg.top_k]
+    gates, idx = gates[..., :cfg.top_k], idx[..., :cfg.top_k]
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
     return logits, probs, idx, gates
 
@@ -77,40 +77,44 @@ def expert_capacity(cfg, group: int) -> int:
     return max(cap, cfg.top_k)
 
 
-def _route_group(p, xg, cfg):
-    """One token group: xg (G, d) -> (out (G, d), (lb_loss, z_loss,
-    dropped))."""
-    G = xg.shape[0]
+def _route_groups(p, xg, cfg):
+    """Token groups, each routed on its own: xg (N, G, d) -> (out (N, G,
+    d), (lb_loss, z_loss, dropped), each (N,)) — the reference's ``vmap``
+    of one group's routing, with the group as a leading dim."""
+    N, G, d = xg.shape
     E, K = cfg.num_experts, cfg.top_k
     C = expert_capacity(cfg, G)
     logits, probs, idx, gate_vals = _router(p, xg, cfg)
-    onehot = F.one_hot(idx, E).float()                           # (G, K, E)
+    onehot = F.one_hot(idx, E).float()                           # (N,G,K,E)
     # position of each (token, k) entry in its expert's queue: the k slot
     # first (all first choices before second choices), then token order
-    flat = onehot.transpose(0, 1).reshape(K * G, E)
-    pos = torch.cumsum(flat, dim=0) - flat
-    pos = pos.reshape(K, G, E).transpose(0, 1)                   # (G, K, E)
-    pos_in_expert = (pos * onehot).sum(dim=-1)                   # (G, K)
+    flat = onehot.transpose(1, 2).reshape(N, K * G, E)
+    pos = torch.cumsum(flat, dim=1) - flat
+    pos = pos.reshape(N, K, G, E).transpose(1, 2)                # (N,G,K,E)
+    pos_in_expert = (pos * onehot).sum(dim=-1)                   # (N, G, K)
     fits = pos_in_expert < C
     kept = onehot * fits[..., None]
     # an entry past capacity one-hots to nothing (jax.nn.one_hot of an
     # out-of-range index), and is not kept anyway
     pos_onehot = F.one_hot(pos_in_expert.long().clamp(max=C), C + 1)[
-        ..., :C].float()                                         # (G, K, C)
-    dispatch = torch.einsum("gke,gkc->gec", kept, pos_onehot)
-    combine = torch.einsum("gke,gkc,gk->gec", kept, pos_onehot, gate_vals)
+        ..., :C].float()                                         # (N,G,K,C)
+    dispatch = torch.einsum("ngke,ngkc->ngec", kept, pos_onehot)
+    combine = torch.einsum("ngke,ngkc,ngk->ngec", kept, pos_onehot,
+                           gate_vals)
     cd = xg.dtype
-    expert_in = torch.einsum("gec,gd->ecd", dispatch.to(cd), xg)
-    g = torch.bmm(expert_in, p["w_gate"].to(cd))                 # (E, C, f)
+    expert_in = torch.einsum("ngec,ngd->encd", dispatch.to(cd), xg)
+    expert_in = expert_in.reshape(E, N * C, d)                   # (E,N*C,d)
+    g = torch.bmm(expert_in, p["w_gate"].to(cd))                 # (E,N*C,f)
     u = torch.bmm(expert_in, p["w_up"].to(cd))
-    out_e = torch.bmm(F.silu(g) * u, p["w_down"].to(cd))         # (E, C, d)
-    out = torch.einsum("gec,ecd->gd", combine.to(cd), out_e)
+    out_e = torch.bmm(F.silu(g) * u, p["w_down"].to(cd))         # (E,N*C,d)
+    out = torch.einsum("ngec,encd->ngd", combine.to(cd),
+                       out_e.reshape(E, N, C, d))
     # Switch aux losses: load balance + router z-loss
-    density = onehot[:, 0, :].mean(dim=0)                        # top-1
-    density_proxy = probs.mean(dim=0)
-    lb_loss = (density * density_proxy).sum() * (E ** 2) / E
-    z_loss = torch.logsumexp(logits, dim=-1).square().mean()
-    dropped = 1.0 - kept.sum() / (G * K)
+    density = onehot[:, :, 0, :].mean(dim=1)                     # top-1
+    density_proxy = probs.mean(dim=1)
+    lb_loss = (density * density_proxy).sum(dim=-1) * (E ** 2) / E
+    z_loss = torch.logsumexp(logits, dim=-1).square().mean(dim=-1)
+    dropped = 1.0 - kept.sum(dim=(1, 2, 3)) / (G * K)
     return out, (lb_loss, z_loss, dropped)
 
 
@@ -125,17 +129,10 @@ def moe_apply(p, x, cfg):
     pad = (-n_tokens) % G
     if pad:
         flat = F.pad(flat, (0, 0, 0, pad))
-    outs, lbs, zls, drs = [], [], [], []
-    for xg in flat.reshape(-1, G, d):
-        o, (lb, zl, dr) = _route_group(p, xg, cfg)
-        outs.append(o)
-        lbs.append(lb)
-        zls.append(zl)
-        drs.append(dr)
-    out = torch.cat(outs)[:n_tokens]
-    aux = {"moe_lb_loss": torch.stack(lbs).mean(),
-           "moe_z_loss": torch.stack(zls).mean(),
-           "moe_dropped": torch.stack(drs).mean()}
+    out, (lb, zl, dr) = _route_groups(p, flat.reshape(-1, G, d), cfg)
+    out = out.reshape(-1, d)[:n_tokens]
+    aux = {"moe_lb_loss": lb.mean(), "moe_z_loss": zl.mean(),
+           "moe_dropped": dr.mean()}
     return out.reshape(B, S, d), aux
 
 

@@ -290,9 +290,10 @@ def test_launch_serve_cpu_smoke(tmp_path):
         assert key in res
 
 
-#: the training slice's packages and the analysis package, which both
-#: import-rule checks must see
-TRAINING_PACKAGES = ("optim", "data", "dist", "train", "analysis")
+#: the training slice's packages, the analysis package, the roofline and
+#: the examples, which both import-rule checks must see
+TRAINING_PACKAGES = ("optim", "data", "dist", "train", "analysis",
+                     "roofline", "examples")
 
 
 def _port_files():
@@ -303,7 +304,8 @@ def _port_files():
 @pytest.mark.parametrize("package", TRAINING_PACKAGES)
 def test_import_rule_covers_the_training_packages(package):
     """The walk of the sources reaches every training package (and the
-    analysis package), its ``__init__`` and at least one module."""
+    analysis, roofline and examples packages), its ``__init__`` and at
+    least one module."""
     files = [p for p in _port_files() if p.parent.name == package
              and p.parent.parent.name == "repro_torch"]
     names = {p.name for p in files}
