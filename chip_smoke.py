@@ -277,7 +277,14 @@ Phases (any failure exits non-zero and prints no result):
    decode_32k x single_pod, multi_pod; mamba2-370m x decode_32k and
    long_500k x multi_pod; olmoe-1b-7b x train_4k x multi_pod; each cell's
    terms, dominant term, ``fits_hbm``, counted / analytic and trace
-   seconds, and the part's seconds. (c) Phase 4's paged decode step
+   seconds, and the part's seconds. Then gemma-2b x train_4k x single_pod
+   in both of the reference's residual layouts (``build_cell(act_mode=
+   "sp" | "none")`` then ``analyze_cell``): collective operand bytes by
+   op and temp bytes a device of each; fails unless only ``"sp"`` is
+   sequence-parallel and it holds fewer temporaries. And
+   ``make_production_mesh()`` on the card: (16, 16) over ``("data",
+   "model")``, (2, 16, 16) over ``("pod", "data", "model")``, or it
+   fails. (c) Phase 4's paged decode step
    (B=4) and static prefill (B=8, S=256) and 13(a)'s bf16 train step,
    from those phases' records: ``cell_compute_flops`` and
    ``cell_memory_bytes`` at each step's shape, the measured step (host
@@ -4922,6 +4929,12 @@ DRYRUN_CELLS = ([("gemma-2b", s, m)
                 + [("mamba2-370m", "decode_32k", "multi_pod"),
                    ("mamba2-370m", "long_500k", "multi_pod"),
                    ("olmoe-1b-7b", "train_4k", "multi_pod")])
+#: 15(b): the cell run in both of the reference's residual layouts
+#: (``act_mode``), at full width
+LAYOUT_CELL = ("gemma-2b", "train_4k", "single_pod")
+#: 15(b): ``make_production_mesh``'s shape and axes, single and multi pod
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
 #: a step's bound over its measured (or device-busy) time above this
 #: fails: the count, not the step, would be wrong
 SHARE_LIMIT = 1.05
@@ -4981,9 +4994,67 @@ def dryrun_cells():
               f"{a['counted_over_analytic']}, mfu@bound "
               f"{a.get('mfu_at_bound')}, trace {row['trace_s']:.2f} s",
               flush=True)
+    layouts = dryrun_layouts()
+    meshes = production_meshes()
     seconds = time.perf_counter() - t0
-    print(f"15(b) dry run: {len(rows)} cells in {seconds:.1f} s", flush=True)
-    return {"cells": rows, "seconds": seconds}
+    print(f"15(b) dry run: {len(rows)} cells and {len(layouts)} layouts in "
+          f"{seconds:.1f} s", flush=True)
+    return {"cells": rows, "layouts": layouts, "meshes": meshes,
+            "seconds": seconds}
+
+
+def dryrun_layouts():
+    """15(b): LAYOUT_CELL at full width in each residual layout through
+    ``build_cell(act_mode=)`` and ``analyze_cell``: its collective operand
+    bytes by op and its temporaries a device. Sequence parallelism must
+    take the layout and shrink the temporaries."""
+    from repro_torch.launch.dryrun import analyze_cell, build_cell
+    rows = {}
+    for mode in ("sp", "none"):
+        trees, knobs, meta = build_cell(*LAYOUT_CELL, act_mode=mode)
+        a = analyze_cell(trees, knobs, meta)["analysis"]
+        by_op = {op: r["operand_bytes"]
+                 for op, r in a["collectives"]["by_op"].items()}
+        rows[mode] = {
+            "seq_parallel": a["seq_parallel"],
+            "microbatches": meta["microbatches"],
+            "collective_bytes": a["collectives"]["total"]["operand_bytes"],
+            "collective_bytes_by_op": by_op,
+            "temp_bytes": a["memory_analysis"]["temp_size_in_bytes"],
+            "dominant": a["dominant"], "terms": a["terms"],
+            "mfu_at_bound": a.get("mfu_at_bound")}
+        r = rows[mode]
+        print(f"15(b) {' '.join(LAYOUT_CELL)} act_mode={mode}: "
+              f"seq_parallel {r['seq_parallel']}, microbatches "
+              f"{r['microbatches']}, collective operand bytes "
+              f"{r['collective_bytes']} by op {by_op}, temp "
+              f"{r['temp_bytes']} B/device, dominant {r['dominant']}, "
+              f"mfu@bound {r['mfu_at_bound']}", flush=True)
+    require(rows["sp"]["seq_parallel"] and not rows["none"]["seq_parallel"],
+            f"15(b) {LAYOUT_CELL}: the layouts were not told apart")
+    require(rows["sp"]["temp_bytes"] < rows["none"]["temp_bytes"],
+            f"15(b) {LAYOUT_CELL}: sequence parallelism did not shrink the "
+            f"temporaries: {rows['sp']['temp_bytes']} against "
+            f"{rows['none']['temp_bytes']}")
+    return rows
+
+
+def production_meshes():
+    """15(b): ``make_production_mesh`` on the card, its shape and axes."""
+    from repro_torch.launch.mesh import make_production_mesh
+    out = {}
+    for multi_pod, want in PRODUCTION_MESHES.items():
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        got = (tuple(mesh.devices.shape), mesh.axis_names)
+        print(f"15(b) make_production_mesh(multi_pod={multi_pod}): {mesh}",
+              flush=True)
+        require(got == want and mesh.device.type == "cuda",
+                f"15(b) make_production_mesh(multi_pod={multi_pod}): {got} "
+                f"on {mesh.device}, not {want} on the card")
+        out["multi_pod" if multi_pod else "single_pod"] = {
+            "shape": list(got[0]), "axes": list(got[1]),
+            "device": str(mesh.device)}
+    return out
 
 
 def step_against_bound(label, cfg, shape, step_ms, busy_ms, counted,

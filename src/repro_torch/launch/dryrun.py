@@ -18,13 +18,23 @@ device is needed, and counts it (``roofline/analysis.py``):
   scale exactly with the batch (every sequence, and every MoE routing
   group of training, is counted alike). The live temporaries of a train
   step are fitted in the depth (each layer adds its saved input and its
-  gradient); a serving step's layers reuse one layer's working set, so
-  its traced peak is scaled to the device's sequences;
+  gradient) and divided over the model axes as the cell's layout shards
+  them (``temp_bytes``); a serving step's layers reuse one layer's
+  working set, so its traced peak is scaled to the device's sequences;
 * argument bytes per device from the spec trees of ``dist/sharding.py``
   and ``train/trainer.py``;
-* collectives modelled from the same specs (FSDP gathers, gradient
-  reduce-scatters, tensor-parallel all-reduces, the explicit trainer's
-  schedule).
+* collectives modelled from the same specs and the cell's layout (FSDP
+  gathers, gradient reduce-scatters, the tensor-parallel all-reduces,
+  or under sequence parallelism their reduce-scatters and all-gathers,
+  a serving step's gathers of its replicated logits, the explicit
+  trainer's schedule).
+
+The layout is the reference's ``act_mode``: under ``"sp"`` (its
+default) a train cell's residual stream is sharded by sequence over the
+model axis where the sequence divides it (``sequence_parallel``), under
+``"none"`` it is replicated there. ``run_cell`` keeps the reference's
+signature, so its artifacts are always ``"sp"``; ``build_cell(...,
+act_mode=)`` then ``analyze_cell`` reaches the other layout.
 
 Nothing runs on the card. The cells are the reference's: every
 architecture x the four shapes (``long_500k`` only where
@@ -130,6 +140,18 @@ def _strip_batch_axes(spec_tree, batch_dims):
     return spec_tree
 
 
+def sequence_parallel(shape: ShapeConfig, mesh_cfg, act_mode: str) -> bool:
+    """Whether a cell's residual stream is sharded by sequence over the
+    model axis, as the reference's ``build_cell`` lays it out
+    (``src/repro/launch/dryrun.py:120-127``): a train cell under
+    ``act_mode="sp"`` with a model axis, a batch that divides the
+    data-parallel degree and a sequence that divides the model axis."""
+    tp = mesh_cfg.tp
+    return (shape.kind == "train" and act_mode == "sp" and tp > 1
+            and shape.seq_len % tp == 0
+            and shape.global_batch % mesh_cfg.dp == 0)
+
+
 def train_knobs(cfg: ModelConfig, shape: ShapeConfig, mesh_cfg, *,
                 grad_sync: str = "spmd", act_mode: str = "sp",
                 shard_mode: str = "2d", extra_train_kwargs=None) -> Dict:
@@ -142,7 +164,7 @@ def train_knobs(cfg: ModelConfig, shape: ShapeConfig, mesh_cfg, *,
     if shape.kind == "train":
         # microbatch count: keep the remat-saved residual stack (~tokens_sp
         # x d x L x 2B per device) under ~0.5GB
-        seq_sp = tp if (act_mode == "sp" and shape.seq_len % tp == 0) else 1
+        seq_sp = tp if sequence_parallel(shape, mesh_cfg, act_mode) else 1
         tokens_dev = shape.global_batch * shape.seq_len / dp / seq_sp
         saved = tokens_dev * cfg.d_model * cfg.num_layers * 2
         mb = 1
@@ -263,19 +285,34 @@ def counted_flops(cfg: ModelConfig, shape: ShapeConfig, points) -> int:
                  / points["batch"])
 
 
-def temp_bytes(cfg: ModelConfig, shape: ShapeConfig, points,
-               seqs: float) -> float:
-    """Live temporaries of the step at the config's depth for ``seqs``
-    sequences: a train step's peak grows with the depth (each layer's
-    saved input and gradient), so it is fitted in the depth at the traced
-    batch; a serving step's layers reuse one layer's working set, so its
-    peak is the larger traced one, scaled to ``seqs``."""
+def temp_bytes(cfg: ModelConfig, shape: ShapeConfig, points, seqs: float,
+               *, tp: int, seq_parallel: bool) -> float:
+    """Live temporaries a device holds in the step at the config's depth
+    for ``seqs`` sequences, over ``tp`` devices of the model axes.
+
+    A train step's peak grows with the depth, so it is fitted in the depth
+    at the traced batch, in two parts. The layers' part (each layer's
+    slope times its depth) is each layer's saved input and its gradient:
+    the residual stream, which the layout shards by sequence over the
+    model axes under sequence parallelism and leaves whole on every
+    device of a model group otherwise; it is divided by ``tp`` only with
+    ``seq_parallel``. The base (the fit at depth 0: a layer's working set
+    in the backward, the loss) is the working set of the products that
+    Megatron's tensor parallelism shards over the model axes (heads,
+    hidden, vocab) in either layout, so it is divided by ``tp`` in both
+    (where the spec leaves a product whole, as attention whose heads do
+    not divide ``tp``, that understates the ``none`` layout). A serving
+    step's layers reuse one layer's working set, so its peak is the
+    larger traced one, scaled to ``seqs``, over ``tp``."""
     if shape.kind == "train":
         depth = (cfg.num_layers, cfg.num_encoder_layers)
-        return max(0.0, depth_fit(points, "peak_bytes", depth))
+        total = depth_fit(points, "peak_bytes", depth)
+        base = depth_fit(points, "peak_bytes", (0,) * len(points["base"]))
+        layers = total - base
+        return max(0.0, base / tp + layers / (tp if seq_parallel else 1))
     peak = max(v["peak_bytes"] for k, v in points.items()
                if isinstance(k, tuple))
-    return peak * seqs / points["batch"]
+    return peak * seqs / points["batch"] / tp
 
 
 # ---------------------------------------------------------------------------
@@ -289,8 +326,8 @@ def build_cell(arch: str, shape_name: str, mesh_name: str, *,
     """Return ``(trees, knobs, meta)`` for one dry-run cell: the cell's
     full-depth trees on ``meta`` with their spec trees (``trees``), its
     ``TrainConfig`` / ``ServeConfig`` and cache length (``knobs``), and
-    the reference's ``meta`` record. ``trees`` is None for a skipped
-    cell."""
+    the reference's ``meta`` record. ``knobs`` keeps ``act_mode``, the
+    residual stream's layout. ``trees`` is None for a skipped cell."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
@@ -321,7 +358,8 @@ def build_cell(arch: str, shape_name: str, mesh_name: str, *,
     trees = {"cfg": cfg, "shape": shape, "mesh_cfg": mesh_cfg,
              "params": params, "p_specs": p_specs, "batch": data,
              "b_specs": {k: b_spec for k in data}}
-    knobs = {"tcfg": tcfg, "scfg": scfg, "cache_len": None}
+    knobs = {"tcfg": tcfg, "scfg": scfg, "cache_len": None,
+             "act_mode": act_mode}
 
     if shape.kind == "train":
         tokens = shape.global_batch * shape.seq_len
@@ -419,13 +457,24 @@ def memory_per_device(trees: Dict, peak_bytes: float) -> Dict:
                 "temp_size_in_bytes": "peak live bytes of the traced step "
                                       "(LiveBytes), fitted to the depth and "
                                       "the per-device sequences, over the "
-                                      "model axes"}}
+                                      "model axes as the layout shards "
+                                      "them (temp_bytes)"}}
 
 
-def cell_collectives(trees: Dict, tcfg: TrainConfig) -> list:
-    """The cell's collectives, modelled from its spec trees."""
+def head_leaf(cfg: ModelConfig) -> Tuple[str, int]:
+    """The LM head's leaf and the dim of its vocab: ``lm_head`` (d, V), or
+    the tied ``embed`` (V, d)."""
+    return ("embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
+
+
+def cell_collectives(trees: Dict, knobs: Dict) -> list:
+    """The cell's collectives, modelled from its spec trees in its layout
+    (``knobs["act_mode"]``): a serving step also gathers its logits,
+    which it returns whole on every device (``P()``)."""
     cfg, shape, mesh_cfg = trees["cfg"], trees["shape"], trees["mesh_cfg"]
-    dp_eff = mesh_cfg.dp if shape.global_batch % mesh_cfg.dp == 0 else 1
+    tcfg = knobs["tcfg"]
+    batch_div = shape.global_batch % mesh_cfg.dp == 0
+    dp_eff = mesh_cfg.dp if batch_div else 1
     train = shape.kind == "train"
     explicit = train and tcfg.grad_sync != "spmd"
     passes = (3 if tcfg.remat else 2) if train else 1
@@ -440,13 +489,21 @@ def cell_collectives(trees: Dict, tcfg: TrainConfig) -> list:
     out = A.fsdp_collectives(trees["params"], p_specs, mesh_cfg,
                              passes=passes, steps=steps,
                              grads=train and not explicit)
-    out += A.tp_collectives(trees["params"], p_specs, mesh_cfg,
-                            act_bytes=act_bytes, passes=passes, steps=steps)
+    head, vocab_dim = head_leaf(cfg)
+    out += A.tp_collectives(
+        trees["params"], p_specs, mesh_cfg, act_bytes=act_bytes,
+        passes=passes, steps=steps, head=head,
+        seq_parallel=sequence_parallel(shape, mesh_cfg, knobs["act_mode"]))
     if explicit:
         out += A.explicit_collectives(
             mesh_cfg, plen=trees["plen"], grad_sync=tcfg.grad_sync,
             param_bytes=dtype_of(tcfg.param_dtype).itemsize,
             wire_bytes=dtype_of(tcfg.grad_comm_dtype).itemsize)
+    if not train:
+        out += A.logits_collectives(
+            p_specs[head], mesh_cfg, head=head,
+            vocab_dim=vocab_dim, rows=shape.global_batch // dp_eff,
+            vocab=cfg.padded_vocab, batch_sharded=batch_div)
     return out
 
 
@@ -461,18 +518,30 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
     if trees is None:
         return {"meta": meta}
     t_build = time.perf_counter() - t0
+    res = analyze_cell(trees, knobs, meta, verbose=verbose)
+    res["timings"] = {"build_s": t_build, **res["timings"]}
+    return res
+
+
+def analyze_cell(trees: Dict, knobs: Dict, meta: Dict, *,
+                 verbose: bool = False) -> Dict:
+    """``run_cell``'s record of a built cell (``build_cell``'s outputs, in
+    whatever layout it was built): the step traced on meta, its counts,
+    memory per device and modelled collectives, the analytic terms."""
     cfg, shape, mesh_cfg = trees["cfg"], trees["shape"], trees["mesh_cfg"]
     tcfg = knobs["tcfg"]
     dp_eff = mesh_cfg.dp if shape.global_batch % mesh_cfg.dp == 0 else 1
     seqs_dev = shape.global_batch // dp_eff // (
         tcfg.microbatches if shape.kind == "train" else 1)
+    seq_par = sequence_parallel(shape, mesh_cfg, knobs["act_mode"])
     t0 = time.perf_counter()
     points = trace_counts(cfg, shape, tcfg, knobs["scfg"],
                           knobs["cache_len"],
                           trace_batch(cfg, shape, seqs_dev))
     t_trace = time.perf_counter() - t0
     flops = counted_flops(cfg, shape, points)
-    peak = temp_bytes(cfg, shape, points, seqs_dev) / mesh_cfg.tp
+    peak = temp_bytes(cfg, shape, points, seqs_dev, tp=mesh_cfg.tp,
+                      seq_parallel=seq_par)
     traces = [{"depth": list(k), "batch": points["batch"], **v}
               for k, v in points.items() if isinstance(k, tuple)]
     counted = {
@@ -500,12 +569,13 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
         "flops_breakdown": comp, "bytes_breakdown": memb,
     }
     analysis = A.analyze_step(
-        counted, memory, cell_collectives(trees, tcfg),
+        counted, memory, cell_collectives(trees, knobs),
         model_flops=meta.get("model_flops_per_device"), analytic=analytic)
     analysis["counted_over_analytic"] = (flops / comp["computed"]
                                          if comp["computed"] else 0.0)
+    analysis["seq_parallel"] = seq_par
     return {"meta": meta, "analysis": analysis,
-            "timings": {"build_s": t_build, "trace_s": t_trace}}
+            "timings": {"trace_s": t_trace}}
 
 
 def artifact_path(arch, shape_name, mesh_name, grad_sync="spmd",

@@ -25,10 +25,12 @@ reference, the port takes from elsewhere:
   port's counts, not XLA's.
 * ``collectives``: the port has no partitioner, so no HLO exists to
   parse. :func:`collective_record` builds the reference's records from
-  the spec trees (FSDP gathers, gradient reduce-scatters, tensor-parallel
-  all-reduces, the explicit trainer's schedule), with its ring model of
-  effective bytes; ``source`` says "spec". The term is modelled, not
-  observed.
+  the spec trees and the residual stream's layout (FSDP gathers,
+  gradient reduce-scatters, tensor-parallel all-reduces, or under
+  sequence parallelism their reduce-scatters and all-gathers, a serving
+  step's gathers of its replicated logits, the explicit trainer's
+  schedule), with its ring model of effective bytes; ``source`` says
+  "spec". The term is modelled, not observed.
 """
 
 from __future__ import annotations
@@ -112,54 +114,45 @@ class LiveBytes(TorchDispatchMode):
     reference (a tensor, a view, autograd's saved copy) is gone, as a
     weak reference to the storage itself sees it; views and in-place
     results add nothing. Storages made before the mode (parameters,
-    inputs) never count. Young storages are checked at every allocation,
-    those that survived :attr:`PROMOTE` allocations every :attr:`PROMOTE`
-    allocations, so the peak may hold a storage freed since then: an upper
-    estimate by at most that much (a weak reference keeps a storage's
-    address from being reused while it is held)."""
-
-    PROMOTE = 256
+    inputs) never count. The peak is exact at every allocation: ``live``
+    counts freed storages until a sweep drops them, so it only ever
+    overstates, and it is swept whenever it would raise the peak (a weak
+    reference keeps a storage's address from being reused while it is
+    held)."""
 
     def __init__(self):
         super().__init__()
         self.live = 0
         self.peak = 0
-        self._young: List = []      # [(StorageWeakRef, nbytes, key)]
-        self._old: List = []
+        self._refs: List = []       # [(StorageWeakRef, nbytes, key)]
         self._keys = set()
-        self._allocs = 0
 
-    def _sweep(self, refs: List) -> List:
+    def _sweep(self):
         kept = []
-        for ref, n, key in refs:
+        for ref, n, key in self._refs:
             if ref.expired():
                 self.live -= n
                 self._keys.discard(key)
             else:
                 kept.append((ref, n, key))
-        return kept
+        self._refs = kept
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         if func.is_view or func._schema.is_mutable:
             return out
-        fresh = [t.untyped_storage() for t in _pytree_leaves(out)
-                 if isinstance(t, torch.Tensor)]
-        fresh = [st for st in fresh if st._cdata not in self._keys]
-        if not fresh:
-            return out
-        self._young = self._sweep(self._young)
-        self._allocs += 1
-        if self._allocs % self.PROMOTE == 0:
-            self._old = self._sweep(self._old) + self._young
-            self._young = []
-        for st in fresh:
+        for t in _pytree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
             if st._cdata in self._keys:
                 continue
             self._keys.add(st._cdata)
-            self._young.append((StorageWeakRef(st), st.nbytes(), st._cdata))
+            self._refs.append((StorageWeakRef(st), st.nbytes(), st._cdata))
             self.live += st.nbytes()
-        self.peak = max(self.peak, self.live)
+        if self.live > self.peak:
+            self._sweep()
+            self.peak = max(self.peak, self.live)
         return out
 
 
@@ -263,25 +256,77 @@ def fsdp_collectives(params, specs, mesh_cfg: MeshConfig, *, passes: int,
 
 
 def tp_collectives(params, specs, mesh_cfg: MeshConfig, *, act_bytes: float,
-                   passes: int, steps: int = 1) -> List[Dict]:
-    """Megatron's tensor-parallel all-reduces of the residual stream
-    (``act_bytes`` a device): one after each row-parallel product whose
-    weight the spec shards over the model axes (``wo``, ``w_down``,
-    ``out_proj``) and one after the vocab-parallel embedding lookup, per
-    pass (the backward's input gradients and the recompute repeat them)."""
+                   passes: int, steps: int = 1, seq_parallel: bool = False,
+                   head: Optional[str] = None) -> List[Dict]:
+    """Megatron's tensor-parallel collectives of the residual stream
+    (``act_bytes`` a device, whole sequence), per pass (the backward's
+    input gradients and the recompute repeat them) and microbatch
+    (``steps``), at each row-parallel product whose weight the spec
+    shards over the model axes (``wo``, ``w_down``, ``out_proj``) and at
+    the vocab-parallel embedding lookup (``embed``).
+
+    With the residual replicated over the model axes, each of those ends
+    in an all-reduce of the residual. With it sharded by sequence over
+    them (``seq_parallel``: Megatron sequence parallelism), each ends in
+    a reduce-scatter of the residual instead (same operand), and every
+    row-parallel product's block opens with an all-gather of the
+    sequence shard (operand ``act_bytes / tp``; computation
+    ``tp:<site>:gather``), as does the LM head ``head`` (its leaf,
+    ``lm_head`` or the tied ``embed``) when the spec shards it. In a pass
+    either pattern moves the all-reduce's ring bytes."""
     tp_axes = tuple(mesh_cfg.model_axes)
     tp = axes_size(mesh_cfg, tp_axes)
     if tp <= 1:
         return []
     counts: Dict[str, int] = defaultdict(int)
+    gathers: Dict[str, int] = defaultdict(int)
     for names, _, s in spec_leaves(params, specs):
-        if names[-1] in ("wo", "w_down", "out_proj", "embed") and any(
-                a in tp_axes for a in spec_axes(s)):
-            counts["/".join(names)] += 1
-    return [collective_record("all-reduce", f"tp:{site}", act_bytes, tp,
-                              n * passes * steps,
-                              num_groups=mesh_cfg.num_devices // tp)
-            for site, n in counts.items()]
+        if not any(a in tp_axes for a in spec_axes(s)):
+            continue
+        site = "/".join(names)
+        if names[-1] in ("wo", "w_down", "out_proj", "embed"):
+            counts[site] += 1
+        if names[-1] in ("wo", "w_down", "out_proj") or site == head:
+            gathers[site] += 1
+    groups = mesh_cfg.num_devices // tp
+    if not seq_parallel:
+        return [collective_record("all-reduce", f"tp:{site}", act_bytes, tp,
+                                  n * passes * steps, num_groups=groups)
+                for site, n in counts.items()]
+    out = [collective_record("reduce-scatter", f"tp:{site}", act_bytes, tp,
+                             n * passes * steps, num_groups=groups)
+           for site, n in counts.items()]
+    out += [collective_record("all-gather", f"tp:{site}:gather",
+                              act_bytes / tp, tp, n * passes * steps,
+                              num_groups=groups)
+            for site, n in gathers.items()]
+    return out
+
+
+def logits_collectives(head_spec, mesh_cfg: MeshConfig, *, head: str,
+                       vocab_dim: int, rows: int, vocab: int,
+                       batch_sharded: bool) -> List[Dict]:
+    """The gathers that make a serving step's float32 logits (``rows``
+    sequences a device, ``vocab`` wide) whole on every device, once a
+    step: the vocab-parallel shards over the model axes that the head
+    leaf's spec (``head_spec``; its vocab at ``vocab_dim``) shards them
+    on, then, with ``batch_sharded``, the batch shards over the
+    data-parallel axes."""
+    out = []
+    spec = tuple(head_spec)
+    entry = spec[vocab_dim] if vocab_dim < len(spec) else None
+    g = axes_size(mesh_cfg, [a for a in spec_axes((entry,))
+                             if a in tuple(mesh_cfg.model_axes)])
+    if g > 1:
+        out.append(collective_record(
+            "all-gather", f"logits:{head}", rows * vocab // g * 4, g,
+            num_groups=mesh_cfg.num_devices // g))
+    dp = mesh_cfg.dp
+    if batch_sharded and dp > 1:
+        out.append(collective_record(
+            "all-gather", "logits:batch", rows * vocab * 4, dp,
+            num_groups=mesh_cfg.num_devices // dp))
+    return out
 
 
 def explicit_collectives(mesh_cfg: MeshConfig, *, plen: int, grad_sync: str,

@@ -2,8 +2,9 @@
 tensors: the reference test's three cells at smoke size, the depth and
 batch extrapolation of the FLOP count against whole traces, the counted
 FLOPs against the analytic formula per cell, the argument bytes against
-the reference's spec sums, and the modelled collectives against bytes
-worked out by hand."""
+the reference's spec sums, and the modelled collectives and the
+temporaries in both residual layouts against bytes worked out by
+hand."""
 
 import dataclasses
 import math
@@ -164,11 +165,13 @@ def test_argument_bytes_equal_the_reference_spec_sums(arch):
 def test_spec_collectives_by_hand_on_the_test_mesh():
     """gemma-2b's smoke config (2 layers, d 64, 4 x 32 heads, 1 kv head,
     d_ff 128, vocab 256, bf16) training at train_4k on data 2 x model 4,
-    remat on (3 passes): the modelled records against hand arithmetic."""
+    remat on (3 passes), its residual stream replicated over the model
+    axis (``act_mode="none"``): the modelled records against hand
+    arithmetic."""
     trees, knobs, _ = D.build_cell("gemma-2b", "train_4k", "test8",
-                                   smoke=True)
+                                   smoke=True, act_mode="none")
     recs = {c["computation"]: c
-            for c in D.cell_collectives(trees, knobs["tcfg"])}
+            for c in D.cell_collectives(trees, knobs)}
     bf16 = 2
     # FSDP gathers over data (group 2) of each shard, 3 passes; a layer
     # leaf once a layer (2 layers)
@@ -224,7 +227,7 @@ def test_explicit_schedule_by_hand():
     plen = trees["plen"]
     assert plen % 32 == 0
     recs = {c["computation"]: c
-            for c in D.cell_collectives(trees, knobs["tcfg"])}
+            for c in D.cell_collectives(trees, knobs)}
     assert recs["explicit:thread_reduce_scatter"]["operand_bytes"] == \
         4 * plen
     assert recs["explicit:thread_reduce_scatter"]["group_size"] == 16
@@ -237,3 +240,123 @@ def test_explicit_schedule_by_hand():
     # no FSDP: the explicit state's params carry the TP-only specs
     assert not any(k.startswith(("fsdp:", "grad:")) for k in recs)
     assert knobs["tcfg"].remat is False
+
+
+def test_sequence_parallel_collectives_by_hand_on_the_test_mesh():
+    """The same cell in the reference's default layout (``act_mode="sp"``:
+    4096 tokens divide the model axis of 4): each tensor-parallel
+    all-reduce of the residual becomes a reduce-scatter of it (``wo``,
+    ``w_down``, the embedding lookup) and an all-gather of its sequence
+    shard opens each of those blocks and the tied LM head; the pair
+    moves the all-reduce's ring bytes. The FSDP and gradient records do
+    not change."""
+    sp_trees, sp_knobs, _ = D.build_cell("gemma-2b", "train_4k", "test8",
+                                         smoke=True)
+    assert sp_knobs["act_mode"] == "sp"
+    none_trees, none_knobs, _ = D.build_cell(
+        "gemma-2b", "train_4k", "test8", smoke=True, act_mode="none")
+    sp = {c["computation"]: c
+          for c in D.cell_collectives(sp_trees, sp_knobs)}
+    none = {c["computation"]: c
+            for c in D.cell_collectives(none_trees, none_knobs)}
+    act = 256 // 2 * 4096 * 64 * 2          # a data rank's residual, bf16
+    for site, trips in (("blocks/attn/wo", 6), ("blocks/mlp/w_down", 6),
+                        ("embed", 3)):
+        rs, ag = sp[f"tp:{site}"], sp[f"tp:{site}:gather"]
+        assert (rs["op"], rs["operand_bytes"], rs["group_size"],
+                rs["trip_multiplier"]) == ("reduce-scatter", act, 4, trips)
+        assert rs["output_bytes"] == act // 4
+        assert (ag["op"], ag["operand_bytes"], ag["group_size"],
+                ag["trip_multiplier"]) == ("all-gather", act // 4, 4, trips)
+        assert ag["output_bytes"] == act
+        # (g-1)/g x act + (g-1) x act/g == the all-reduce's 2(g-1)/g x act
+        assert (rs["total_effective_bytes"] + ag["total_effective_bytes"]
+                == none[f"tp:{site}"]["total_effective_bytes"]
+                == 2 * 3 / 4 * act * trips)
+    assert {k: v for k, v in sp.items() if not k.startswith("tp:")} == {
+        k: v for k, v in none.items() if not k.startswith("tp:")}
+    assert len(sp) == len(none) + 3
+    total = A.summarize_collectives(list(sp.values()))["total"]
+    base = A.summarize_collectives(list(none.values()))["total"]
+    assert total["operand_bytes"] - base["operand_bytes"] == act // 4 * 15
+    # the layout, as the reference's build_cell decides it
+    shape, mesh = D.SHAPES["train_4k"], D.MESHES["test8"]
+    assert D.sequence_parallel(shape, mesh, "sp")
+    assert not D.sequence_parallel(shape, mesh, "none")
+    assert not D.sequence_parallel(D.SHAPES["decode_32k"], mesh, "sp")
+    assert not D.sequence_parallel(shape, D.MESHES["flat8"], "sp")
+    assert not D.sequence_parallel(
+        ShapeConfig("odd", 4098, 256, "train"), mesh, "sp")
+    assert not D.sequence_parallel(
+        ShapeConfig("odd_batch", 4096, 3, "train"), mesh, "sp")
+
+
+def test_logits_gathers_by_hand_on_the_test_mesh():
+    """gemma-2b's smoke decode_32k step on data 2 x model 4 returns its
+    (128, 256) float32 logits whole on every device: a data rank's 64
+    rows x the tied embedding's 64-wide vocab shard gather over the 4
+    model ranks (16,384 B), then its 64 rows x 256 over the 2 data ranks
+    (65,536 B), once. mamba2-370m's long_500k (one sequence: the batch
+    does not divide dp, so it is not sharded) gathers only the vocab:
+    1 x 64 x 4 B."""
+    trees, knobs, _ = D.build_cell("gemma-2b", "decode_32k", "test8",
+                                   smoke=True)
+    recs = {c["computation"]: c for c in D.cell_collectives(trees, knobs)}
+    assert ({k for k in recs if k.startswith("logits:")}
+            == {"logits:embed", "logits:batch"})
+    v, b = recs["logits:embed"], recs["logits:batch"]
+    assert (v["op"], v["operand_bytes"], v["group_size"], v["num_groups"],
+            v["trip_multiplier"]) == ("all-gather", 16384, 4, 2, 1)
+    assert (b["op"], b["operand_bytes"], b["group_size"], b["num_groups"],
+            b["trip_multiplier"]) == ("all-gather", 65536, 2, 4, 1)
+    assert b["output_bytes"] == 128 * 256 * 4     # memory_per_device's
+    # a serving step keeps the all-reduces: one token a row, 64 rows
+    act = 128 // 2 * 1 * 64 * 2
+    assert recs["tp:blocks/mlp/w_down"]["op"] == "all-reduce"
+    assert recs["tp:blocks/mlp/w_down"]["operand_bytes"] == act
+    trees, knobs, _ = D.build_cell("mamba2-370m", "long_500k", "test8",
+                                   smoke=True)
+    recs = {c["computation"]: c for c in D.cell_collectives(trees, knobs)}
+    assert "logits:batch" not in recs
+    assert recs["logits:embed"]["operand_bytes"] == 1 * 64 * 4
+
+
+def test_temp_bytes_by_hand_under_both_layouts():
+    """A train step traced at 1 and 2 layers (peaks 1,100 and 1,200 B)
+    fitted to 5 layers: a base of 1,000 B (the depth-0 fit) and 500 B of
+    layers (saved residuals). Over 4 model devices: the base is divided
+    in both layouts, the layers only under sequence parallelism. A
+    serving step's larger peak is scaled to the sequences, then divided."""
+    cfg = dataclasses.replace(get_smoke_config("gemma-2b"), num_layers=5)
+    train = ShapeConfig("t", 64, 4, "train")
+    points = {"base": (1,), "batch": 2, (1,): {"peak_bytes": 1100},
+              (2,): {"peak_bytes": 1200}}
+    assert D.temp_bytes(cfg, train, points, 2, tp=4,
+                        seq_parallel=True) == 1500 / 4
+    assert D.temp_bytes(cfg, train, points, 2, tp=4,
+                        seq_parallel=False) == 1000 / 4 + 500
+    assert D.temp_bytes(cfg, train, points, 2, tp=1,
+                        seq_parallel=False) == 1500
+    decode = ShapeConfig("d", 64, 4, "decode")
+    points = {"base": (0,), "batch": 1, (0,): {"peak_bytes": 300},
+              (1,): {"peak_bytes": 700}}
+    for sp in (True, False):
+        assert D.temp_bytes(cfg, decode, points, 6, tp=4,
+                            seq_parallel=sp) == 700 * 6 / 4
+    # through analyze_cell: the cell's own traces, both layouts
+    got = {}
+    for mode in ("sp", "none"):
+        trees, knobs, meta = D.build_cell("gemma-2b", "train_4k", "test8",
+                                          smoke=True, act_mode=mode)
+        a = D.analyze_cell(trees, knobs, meta)["analysis"]
+        tr = {tuple(t["depth"]): t["peak_bytes"]
+              for t in a["counted"]["traces"]}
+        layers = 2 * (tr[(2,)] - tr[(1,)])
+        base = tr[(1,)] - (tr[(2,)] - tr[(1,)])
+        got[mode] = a["memory_analysis"]["temp_size_in_bytes"]
+        want = base / 4 + layers / (4 if mode == "sp" else 1)
+        assert got[mode] == int(want)
+        assert a["seq_parallel"] == (mode == "sp")
+    # the saved residual a layer: 128 sequences x 4096 x d 64, bf16
+    assert tr[(2,)] - tr[(1,)] == 128 * 4096 * 64 * 2
+    assert got["none"] - got["sp"] == int(3 / 4 * 2 * 128 * 4096 * 64 * 2)

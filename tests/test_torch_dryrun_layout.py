@@ -1,0 +1,234 @@
+"""The port's dry run in the reference's two residual layouts
+(``act_mode``), its serving cells' gathers of their replicated logits,
+and ``make_production_mesh``, against the reference.
+
+The reference's ``launch/dryrun.py`` asks for 512 host devices at import,
+so its cells compile once, in ONE subprocess (this module run as a
+script with that flag), which prints JSON: the collectives XLA inserted
+(``parse_collectives``: operand bytes by op, and each site of the
+serving cell), the temporaries (``memory_analysis``), and the production
+meshes' device shapes and axis names. The port's records come from
+``build_cell(act_mode=)`` and ``analyze_cell`` on meta tensors.
+
+Full parity of bytes with XLA is not the contract: at the smoke widths
+(d 64, 4 heads, against a model axis of 16) XLA picks partial-axis
+gathers and permutes that no spec model reproduces. The port's records
+must move with the layout the way the reference's do, and its
+temporaries stay within BAND of the reference's.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from collections import defaultdict
+
+import pytest
+import torch
+
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.roofline import analysis as A
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the reference test's two train smoke cells, each in both layouts
+TRAIN_CELLS = [("gemma-2b", "train_4k", "single_pod"),
+               ("olmoe-1b-7b", "train_4k", "multi_pod")]
+MODES = ("sp", "none")
+#: the reference test's serving smoke cell
+DECODE_CELL = ("mamba2-370m", "decode_32k", "multi_pod")
+#: port temp bytes / the reference's, per cell and mode: the model divides
+#: a train step's eager working set over the model axes in both layouts,
+#: and its saved residuals only under "sp". At the smoke widths that
+#: working set is the chunked attention's tiles of one layer, all of its
+#: chunk pairs held for the backward where the reference recomputes each
+#: kv block (higher), divided by 16 although 4 heads leave attention
+#: whole over the model axis under "none" (lower).
+BAND = (0.4, 2.0)
+
+
+def _key(arch, shape, mesh, mode):
+    return f"{arch}|{shape}|{mesh}|{mode}"
+
+
+# ---------------------------------------------------------------------------
+# the reference side: 512 fake host devices, in a subprocess
+# ---------------------------------------------------------------------------
+
+def reference_records():
+    from repro.launch.dryrun import build_cell
+    from repro.launch.mesh import make_production_mesh
+    from repro.roofline.analysis import parse_collectives
+
+    cells = [c + (m,) for c in TRAIN_CELLS for m in MODES]
+    cells.append(DECODE_CELL + ("sp",))
+    out = {"cells": {}, "meshes": {}}
+    for arch, shape, mesh, mode in cells:
+        fn, args, _ = build_cell(arch, shape, mesh, smoke=True,
+                                 act_mode=mode)
+        compiled = fn.lower(*args).compile()
+        recs = parse_collectives(compiled.as_text())
+        by_op = defaultdict(float)
+        for r in recs:
+            by_op[r["op"]] += r["total_operand_bytes"]
+        out["cells"][_key(arch, shape, mesh, mode)] = {
+            "by_op": dict(by_op),
+            "sites": [[r["op"], r["operand_bytes"], r["group_size"]]
+                      for r in recs],
+            "temp": compiled.memory_analysis().temp_size_in_bytes}
+    for multi_pod in (False, True):
+        m = make_production_mesh(multi_pod=multi_pod)
+        out["meshes"][str(multi_pod)] = {"shape": list(m.devices.shape),
+                                         "axes": list(m.axis_names)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference():
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=512",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(ROOT, "src"), ROOT,
+                    os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "tests.test_torch_dryrun_layout"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+# ---------------------------------------------------------------------------
+# the port side
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def port():
+    """The port's collective operand bytes and temp bytes of each train
+    cell in each layout, as the reference's records hold them."""
+    out = {}
+    for cell in TRAIN_CELLS:
+        for mode in MODES:
+            trees, knobs, meta = D.build_cell(*cell, smoke=True,
+                                              act_mode=mode)
+            a = D.analyze_cell(trees, knobs, meta)["analysis"]
+            out[_key(*cell, mode)] = {
+                "collectives": a["collectives"]["total"]["operand_bytes"],
+                "temp": a["memory_analysis"]["temp_size_in_bytes"]}
+    return out
+
+
+def _reference_metrics(reference, key):
+    rec = reference["cells"][key]
+    return {"collectives": sum(rec["by_op"].values()), "temp": rec["temp"]}
+
+
+@pytest.mark.parametrize("metric", ["collectives", "temp"])
+@pytest.mark.parametrize("cell", TRAIN_CELLS, ids=lambda c: c[0])
+def test_layout_moves_the_records_as_the_reference(reference, port, cell,
+                                                   metric):
+    """sp/none of collective operand bytes and of temp bytes lies on the
+    reference's side of 1 (collectives above, temporaries below)."""
+    ratio = {}
+    for side, get in (("port", lambda k: port[k]),
+                      ("reference", lambda k: _reference_metrics(reference,
+                                                                 k))):
+        sp, none = (get(_key(*cell, mode))[metric] for mode in MODES)
+        ratio[side] = sp / none
+    assert ratio["port"] != 1.0, ratio
+    assert (ratio["port"] > 1) == (ratio["reference"] > 1), (cell, ratio)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("cell", TRAIN_CELLS, ids=lambda c: c[0])
+def test_temp_bytes_within_band_of_the_reference(reference, port, cell,
+                                                 mode):
+    key = _key(*cell, mode)
+    got, ref = port[key]["temp"], reference["cells"][key]["temp"]
+    assert BAND[0] <= got / ref <= BAND[1], (cell, mode, got, ref)
+
+
+def test_decode_cell_gathers_its_logits_as_the_reference(reference):
+    """mamba2-370m decode_32k multi_pod: the port's logits gathers (4
+    rows x 256 vocab x f32 over the 32 data ranks; the 16-wide vocab
+    shard of the tied embedding over the 16 model ranks) are sites of the
+    reference's, and they add their bytes to the rest."""
+    trees, knobs, _ = D.build_cell(*DECODE_CELL, smoke=True)
+    recs = D.cell_collectives(trees, knobs)
+    logits = {r["computation"]: r for r in recs
+              if r["computation"].startswith("logits:")}
+    assert set(logits) == {"logits:batch", "logits:embed"}
+    assert (logits["logits:batch"]["operand_bytes"],
+            logits["logits:batch"]["group_size"]) == (4 * 256 * 4, 32)
+    assert (logits["logits:embed"]["operand_bytes"],
+            logits["logits:embed"]["group_size"]) == (4 * 16 * 4, 16)
+    sites = reference["cells"][_key(*DECODE_CELL, "sp")]["sites"]
+    for r in logits.values():
+        assert ["all-gather", r["operand_bytes"], r["group_size"]] in sites
+    rest = sum(r["total_operand_bytes"] for r in recs
+               if not r["computation"].startswith("logits:"))
+    total = A.summarize_collectives(recs)["total"]["operand_bytes"]
+    assert total - rest >= 4096
+
+
+@pytest.mark.parametrize("arch", [
+    "gemma-2b", "yi-9b", "qwen3-14b", "qwen2.5-14b", "internvl2-76b",
+    "olmoe-1b-7b", "dbrx-132b", "mamba2-370m", "hymba-1.5b",
+    "whisper-tiny"])
+def test_every_serving_cell_gathers_its_logits(arch):
+    """Every applicable serving cell of the full config on both production
+    meshes: a ``logits:batch`` all-gather of B/dp rows x padded vocab x
+    f32 over the dp ranks when the batch divides dp (none when it does
+    not), and a ``logits:<head>`` gather over the model ranks when the
+    head's spec shards its vocab there."""
+    seen = 0
+    for shape in ("prefill_32k", "decode_32k", "long_500k"):
+        for mesh in ("single_pod", "multi_pod"):
+            trees, knobs, _ = D.build_cell(arch, shape, mesh)
+            if trees is None:
+                continue
+            seen += 1
+            cfg, mc = trees["cfg"], trees["mesh_cfg"]
+            B, V = trees["shape"].global_batch, cfg.padded_vocab
+            head, vdim = D.head_leaf(cfg)
+            spec = tuple(trees["p_specs"][head])
+            sharded = len(spec) > vdim and spec[vdim] in ("model",
+                                                          ("model",))
+            recs = {r["computation"]: r
+                    for r in D.cell_collectives(trees, knobs)}
+            rows = B // mc.dp if B % mc.dp == 0 else B
+            if B % mc.dp == 0:
+                r = recs["logits:batch"]
+                assert (r["op"], r["operand_bytes"], r["group_size"],
+                        r["trip_multiplier"]) == ("all-gather", rows * V * 4,
+                                                  mc.dp, 1)
+            else:
+                assert "logits:batch" not in recs
+            if sharded:
+                r = recs[f"logits:{head}"]
+                assert (r["op"], r["operand_bytes"], r["group_size"]) == (
+                    "all-gather", rows * V // mc.tp * 4, mc.tp)
+            else:
+                assert f"logits:{head}" not in recs
+    assert seen >= 4
+
+
+@pytest.mark.parametrize("multi_pod", [False, True],
+                         ids=["single_pod", "multi_pod"])
+def test_production_mesh_matches_the_reference(reference, multi_pod):
+    mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+    want = reference["meshes"][str(multi_pod)]
+    assert list(mesh.devices.shape) == want["shape"]
+    assert list(mesh.axis_names) == want["axes"]
+    assert mesh.device.type == "cpu"
+
+
+def test_production_mesh_defaults_to_the_card():
+    if torch.cuda.is_available():
+        assert make_production_mesh().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            make_production_mesh()
+
+
+if __name__ == "__main__":
+    print(json.dumps(reference_records()))
