@@ -247,8 +247,16 @@ Phases (any failure exits non-zero and prints no result):
    (e) gemma-2b's widths at 1 layer in float32, B=2 S=64, the same
    parameters on the card and the CPU: loss and gradient norm within
    1e-4 relative; every other architecture's smoke config, 2 spmd steps
-   in float32 on both: finite, within 1e-4. No training path reaches
-   the attention or scan kernels (they have no backward).
+   in float32 on both: finite, within 1e-4. (f) gemma-2b at full width
+   and depth in bf16 at the train_4k shape through the chunked attention
+   (the dry run's one-device train_4k knobs: remat, threshold 2048,
+   chunks 512 x 2048, loss_chunk 512, one microbatch), B=4 S=4096, 3
+   steps from seed 0: every loss finite, the chunked attention called
+   twice a layer a step, the median step (host wall clock, synchronised),
+   tokens/s, the peak, and each step's temporaries against the dry run's
+   prediction for the cell (``trace_counts`` / ``temp_bytes`` at tp 1),
+   their ratio gated. No training path reaches the attention or scan
+   kernels (they have no backward).
 14. Analysis (``repro_torch.analysis``): the runtime sanitizer armed on
    the card, and the lint. (a) Phase 12's disaggregated fabric (gemma-2b
    at full width and depth, 2 ranks of 4 rows, chunk 64, 16-token
@@ -4563,6 +4571,124 @@ def train_card_vs_cpu(dev):
     return {"gemma_1_layer": rel, "families": families}
 
 
+#: 13(f): gemma-2b at full width and depth at the train_4k cell's
+#: sequence, B=4 (reckoned: the state's 35.1 GB and the dry run's 17.7 GB
+#: of temporaries, ~53 GB in all)
+TRAIN_4K_BATCH, TRAIN_4K_STEPS = 4, 3
+#: 13(f)'s measured temporaries over the dry run's prediction, each
+#: step. LiveBytes counts the storages the step creates, as the caching
+#: allocator allocates them: on an H100 steps 2-3 read 1.0000002 (the
+#: allocator's 512-B rounding) and step 1, from a cold card, 1.0038 (64
+#: MiB of a workspace its first products allocate, which a trace on
+#: meta cannot see). 2% (355 MB) holds both and fails a temporaries'
+#: model that lost or gained a working set of that size.
+TRAIN_4K_TEMP_BAND = (0.98, 1.02)
+
+
+def train_4k_chunked(dev):
+    """13(f): gemma-2b at full width and depth in bf16 trains at the
+    train_4k shape through the chunked attention: ``make_train_step`` /
+    ``init_train_state`` with the knobs ``dryrun.train_knobs`` gives a
+    one-device train_4k cell (remat, ``attn_chunk_threshold`` 2048,
+    ``attn_chunk`` 512, ``attn_chunk_kv`` 2048, ``loss_chunk`` 512, one
+    microbatch), parameters from seed 0, B=4 at S=4096, 3 steps. Every
+    loss finite; each layer's attention is the chunked one (two calls a
+    layer a step: the forward and remat's recompute). Each step's own
+    temporaries (its peak less the bytes allocated before it) against
+    the dry run's prediction for the same cell, traced on meta."""
+    import dataclasses
+
+    from repro_torch.config import MESHES, SHAPES, ServeConfig, TrainConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import arch_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import build_model, make_synthetic_batch
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    free_cuda()
+    t0 = time.perf_counter()
+    cfg = arch_config("gemma-2b")
+    shape = SHAPES["train_4k"]
+    one = dataclasses.replace(MESHES["single_pod"], shape=(1, 1))
+    tcfg = TrainConfig(**dryrun.train_knobs(
+        cfg, shape, one, extra_train_kwargs={"microbatches": 1}))
+    require((tcfg.remat, tcfg.attn_chunk_threshold, tcfg.attn_chunk,
+             tcfg.attn_chunk_kv, tcfg.loss_chunk, tcfg.microbatches)
+            == (True, 2048, 512, 2048, 512, 1),
+            f"13(f): the one-device train_4k knobs are {tcfg}")
+    B, S = TRAIN_4K_BATCH, shape.seq_len
+    points = dryrun.trace_counts(cfg, shape, tcfg, ServeConfig(), None, B)
+    predicted = dryrun.temp_bytes(cfg, shape, points, B, tp=1,
+                                  seq_parallel=False)
+    model = build_model(cfg, ServeConfig(), device=dev, train=tcfg)
+    state = init_train_state(model, 0)
+    step = make_train_step(model, None, tcfg)
+    batches = [make_synthetic_batch(cfg, B, seq_len=S, seed=i,
+                                    compute_dtype=tcfg.compute_dtype,
+                                    device=dev)
+               for i in range(TRAIN_4K_STEPS)]
+    chunked = L.chunked_attention
+    calls = [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return chunked(*args, **kw)
+
+    losses, ms, temps, peaks, garbage = [], [], [], [], []
+    L.chunked_attention = counted
+    try:
+        for batch in batches:
+            # the step's checkpoints leave reference cycles that hold
+            # device memory until the cyclic collector runs, at some
+            # point in the next step: collect them before the baseline
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated(dev)
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            garbage.append(held - before)
+            t1 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+            temps.append(peaks[-1] - before)
+            losses.append(float(met["loss"]))
+    finally:
+        L.chunked_attention = chunked
+    require(all(math.isfinite(x) for x in losses),
+            f"13(f): a loss is not finite: {losses}")
+    want = 2 * cfg.num_layers * TRAIN_4K_STEPS
+    require(calls[0] == want,
+            f"13(f): chunked_attention ran {calls[0]} times, not {want}")
+    med = statistics.median(ms)
+    ratios = [t / predicted for t in temps]
+    out = {"batch": B, "seq": S, "losses": losses, "step_ms": ms,
+           "median_step_ms": med, "tokens_per_s": B * S / med * 1e3,
+           "max_memory_allocated": max(peaks), "temp_bytes": temps,
+           "predicted_temp_bytes": predicted,
+           "attn_peak_bytes": points["attn_peak"],
+           "measured_over_predicted": ratios, "chunked_calls": calls[0],
+           "collected_before_step": garbage,
+           "seconds": time.perf_counter() - t0}
+    print(f"13(f) gemma-2b {cfg.num_layers} layers bf16 train_4k B={B} "
+          f"S={S}: losses "
+          f"{losses}; steps {ms} ms (host wall clock, synchronised), "
+          f"median {med:.3f} ms, {out['tokens_per_s']:.1f} tokens/s; "
+          f"peak {max(peaks)} bytes allocated; the steps' temporaries "
+          f"{temps} bytes against the dry run's {predicted:.0f} "
+          f"(attention alone {points['attn_peak']}): ratios {ratios}; "
+          f"collected before each step {garbage} bytes; "
+          f"chunked_attention calls {calls[0]}; {out['seconds']:.1f} s",
+          flush=True)
+    lo, hi = TRAIN_4K_TEMP_BAND
+    require(all(lo <= r <= hi for r in ratios),
+            f"13(f): measured temporaries over the dry run's {ratios} "
+            f"outside {TRAIN_4K_TEMP_BAND}")
+    del state, step, model, batches
+    free_cuda()
+    return out
+
+
 def phase_train(dev):
     """Phase 13: the training path (see the module docstring)."""
     t0 = time.perf_counter()
@@ -4574,12 +4700,13 @@ def phase_train(dev):
     del timer
     resume = train_resume(dev, runs["threadcomm"].pop("kept"))
     devices = train_card_vs_cpu(dev)
+    train_4k = train_4k_chunked(dev)
     launches = sum(runs["bf16_wire"]["one_copy"])
     out = {"a": full, "b": {
         m: {k: r[k] for k in ("losses", "one_copy", "step_ms", "peak",
                               "plen", "idle_share")}
         for m, r in runs.items()},
-        "b_param_diffs": diffs, "d": resume, "e": devices,
+        "b_param_diffs": diffs, "d": resume, "e": devices, "f": train_4k,
         "seconds": time.perf_counter() - t0}
     print("train: " + json.dumps(out), flush=True)
     print(f"phase 13: {out['seconds']:.1f} s", flush=True)

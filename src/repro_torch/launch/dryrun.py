@@ -73,7 +73,8 @@ from repro_torch.core.compat import P
 from repro_torch.dist.sharding import batch_pspec, cache_pspecs, param_pspecs
 from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import dtype_of
-from repro_torch.models.registry import batch_spec, build_model, cache_len_for
+from repro_torch.models.registry import (_knobs, batch_spec, build_model,
+                                         cache_len_for)
 from repro_torch.roofline import analysis as A
 from repro_torch.roofline.report import artifact_dir
 from repro_torch.train.explicit import ExplicitTrainState, FlatAdamState
@@ -256,15 +257,64 @@ def depth_fit(points: Dict, key: str, depth) -> float:
     return v
 
 
+def _attn_steps(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig,
+                scfg: ServeConfig, batch: int):
+    """Thunks running one layer's training attention alone on meta at
+    ``batch`` sequences, forward and backward, through the model's own
+    functions: the projections, the kv repeat, the full or chunked
+    attention the knobs pick and the output projection, the gradient
+    reaching their input (the weights take none: their gradients belong
+    to the layers' part). One thunk for a decoder-only model, three for
+    the encoder-decoder (encoder and decoder self-attention, the
+    cross-attention), none without attention."""
+    if not cfg.num_heads:
+        return []
+    knobs = _knobs(tcfg, scfg)
+    cdt = dtype_of(tcfg.compute_dtype)
+    params = meta_params(_at_depth(cfg, (1, 1)), dtype_of(tcfg.param_dtype))
+
+    def x(n):
+        return torch.empty((batch, n, cfg.d_model), dtype=cdt, device=META,
+                           requires_grad=True)
+
+    def run(fn, *inputs):
+        def thunk():
+            out = fn(*inputs)
+            out.backward(torch.empty_like(out))
+        return thunk
+
+    if not cfg.is_encoder_decoder:
+        pos = torch.arange(shape.seq_len, device=META)
+        return [run(transformer._train_attn, cfg,
+                    params["blocks"][0]["attn"], x(shape.seq_len), pos,
+                    transformer.layer_flags(cfg)[0], knobs)]
+    enc_pos = torch.arange(cfg.encoder_seq, device=META)
+    dec_pos = torch.arange(shape.seq_len, device=META)
+    dec = params["dec_blocks"][0]
+    return [
+        run(functools.partial(encdec._train_self_attn, causal=False,
+                              knobs=knobs),
+            cfg, params["enc_blocks"][0]["attn"], x(cfg.encoder_seq),
+            enc_pos),
+        run(functools.partial(encdec._train_self_attn, causal=True,
+                              knobs=knobs),
+            cfg, dec["attn"], x(shape.seq_len), dec_pos),
+        run(encdec._train_cross_attn, cfg, dec["xattn"], x(shape.seq_len),
+            x(cfg.encoder_seq))]
+
+
 @functools.lru_cache(maxsize=None)
 def trace_counts(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig,
                  scfg: ServeConfig, cache_len, batch: int) -> Dict:
     """The step's traces at ``batch`` sequences, at a base depth (0 for a
     serving step; 1 for a train step, whose gradient needs every
     parameter in the graph) and one layer more, each stack apart:
-    ``{"base": depth, "batch": batch, depth: count_step(...)}``. A pure
-    function of its (frozen) arguments, kept for the process: a cell's
-    trace does not depend on its mesh, so a second mesh costs nothing."""
+    ``{"base": depth, "batch": batch, depth: count_step(...)}``. A train
+    step adds ``"attn_peak"``: the largest peak of live bytes of one
+    layer's attention traced alone (``_attn_steps``), the part of the
+    step's working set that the heads shard. A pure function of its
+    (frozen) arguments, kept for the process: a cell's trace does not
+    depend on its mesh, so a second mesh costs nothing."""
     n = 2 if cfg.is_encoder_decoder else 1
     d0 = 1 if shape.kind == "train" else 0
     base = (d0,) * n
@@ -273,6 +323,11 @@ def trace_counts(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig,
                        for i in range(n)]:
         points[d] = A.count_step(
             _step(_at_depth(cfg, d), shape, tcfg, scfg, cache_len, batch))
+    if shape.kind == "train":
+        points["attn_peak"] = max(
+            [A.count_step(t)["peak_bytes"]
+             for t in _attn_steps(cfg, shape, tcfg, scfg, batch)],
+            default=0)
     return points
 
 
@@ -283,6 +338,14 @@ def counted_flops(cfg: ModelConfig, shape: ShapeConfig, points) -> int:
     depth = (cfg.num_layers, cfg.num_encoder_layers)
     return round(depth_fit(points, "flops", depth) * shape.global_batch
                  / points["batch"])
+
+
+def attention_sharded(cfg: ModelConfig, tp: int) -> bool:
+    """Whether attention is sharded by heads over ``tp`` devices of the
+    model axes: where the heads divide them, the reference's
+    ``attn_sharding`` rule (``src/repro/launch/dryrun.py:128-130``); else
+    attention stays whole on every device of a model group."""
+    return bool(cfg.num_heads) and cfg.num_heads % tp == 0
 
 
 def temp_bytes(cfg: ModelConfig, shape: ShapeConfig, points, seqs: float,
@@ -299,17 +362,25 @@ def temp_bytes(cfg: ModelConfig, shape: ShapeConfig, points, seqs: float,
     ``seq_parallel``. The base (the fit at depth 0: a layer's working set
     in the backward, the loss) is the working set of the products that
     Megatron's tensor parallelism shards over the model axes (heads,
-    hidden, vocab) in either layout, so it is divided by ``tp`` in both
-    (where the spec leaves a product whole, as attention whose heads do
-    not divide ``tp``, that understates the ``none`` layout). A serving
-    step's layers reuse one layer's working set, so its peak is the
-    larger traced one, scaled to ``seqs``, over ``tp``."""
+    hidden, vocab), divided by ``tp`` in both layouts, except its
+    attention share, ``points["attn_peak"]`` (one layer's attention
+    traced alone, at most the base). Attention is divided by ``tp`` where
+    ``attention_sharded`` (by heads), or else under sequence parallelism
+    (by queries: each device attends its own sequence shard of the
+    queries to all the keys, context parallelism; the keys and values it
+    gathers whole are not counted apart). Otherwise it is whole on every
+    device of a model group. A serving step's layers reuse one layer's
+    working set, so its peak is the larger traced one, scaled to
+    ``seqs``, over ``tp``."""
     if shape.kind == "train":
         depth = (cfg.num_layers, cfg.num_encoder_layers)
         total = depth_fit(points, "peak_bytes", depth)
         base = depth_fit(points, "peak_bytes", (0,) * len(points["base"]))
         layers = total - base
-        return max(0.0, base / tp + layers / (tp if seq_parallel else 1))
+        attn = min(points["attn_peak"], max(0.0, base))
+        attn_tp = tp if attention_sharded(cfg, tp) or seq_parallel else 1
+        return max(0.0, (base - attn) / tp + attn / attn_tp
+                   + layers / (tp if seq_parallel else 1))
     peak = max(v["peak_bytes"] for k, v in points.items()
                if isinstance(k, tuple))
     return peak * seqs / points["batch"] / tp
@@ -547,6 +618,7 @@ def analyze_cell(trees: Dict, knobs: Dict, meta: Dict, *,
     counted = {
         "flops": flops, "flops_per_device": flops / mesh_cfg.num_devices,
         "traces": traces,
+        "attn_peak_bytes": points.get("attn_peak"),
         "note": "FlopCounterMode on meta tensors: matmul-class ops only; "
                 "traced at a base depth and one layer more (each stack "
                 "apart), extrapolated linearly to the depth, at the "

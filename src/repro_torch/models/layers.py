@@ -245,6 +245,23 @@ def full_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None,
     return torch.einsum("bhst,bthk->bshk", probs, v)
 
 
+def _kv_block(m, l, acc, qc, kc, vc, qp, kp, *, scale, causal, window,
+              softcap):
+    """One kv block of ``chunked_attention``'s online softmax: the carries
+    ``(m, l, acc)`` of one q block updated by one (cq, ck) tile."""
+    s = torch.einsum("bshk,bthk->bhst", qc, kc).float() * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    s = s + _mask_bias(qp, kp, causal=causal, window=window)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bhst,bthk->bhsk", p.to(qc.dtype), vc).float()
+    return m_new, l, acc
+
+
 def chunked_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None,
                       softcap: float = 0.0, chunk_q: int = 512,
                       chunk_k: int = 512):
@@ -252,7 +269,16 @@ def chunked_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None,
     reference's ``lax.scan`` as Python loops). Never materialises the
     (S, T) score matrix. Ragged tails are padded: padded queries sit at
     position -1 and are dropped, padded keys at ``PAD_POS`` and are always
-    masked. q (B,S,H,hd); k, v (B,T,H,hd); q_pos (S,), k_pos (T,)."""
+    masked. q (B,S,H,hd); k, v (B,T,H,hd); q_pos (S,), k_pos (T,).
+
+    Under autograd (grad enabled and q, k or v requiring it) each kv block
+    runs under non-reentrant ``torch.utils.checkpoint``, as the
+    reference's ``jax.checkpoint(kv_block)``: the backward saves each
+    block's inputs, the carries (m, l of (B,H,cq) and acc of (B,H,cq,hd),
+    float32) and views of q, k, v, and recomputes that block's (cq, ck)
+    score and probability tiles, so one block pair's tiles are live at a
+    time instead of every pair's. The forward computes the same values
+    either way."""
     B, S, H, hd = q.shape
     T = k.shape[1]
     cq, ck = min(chunk_q, S), min(chunk_k, T)
@@ -265,7 +291,10 @@ def chunked_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None,
         k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
         k_pos = F.pad(k_pos, (0, pad_k), value=PAD_POS)
-    scale = 1.0 / math.sqrt(hd)
+    kw = dict(scale=1.0 / math.sqrt(hd), causal=causal, window=window,
+              softcap=softcap)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     outs = []
     for iq in range(nq):
         qc = q[:, iq * cq:(iq + 1) * cq]
@@ -276,20 +305,14 @@ def chunked_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None,
         acc = torch.zeros((B, H, cq, hd), dtype=torch.float32,
                           device=q.device)
         for ik in range(nk):
-            kc = k[:, ik * ck:(ik + 1) * ck]
-            vc = v[:, ik * ck:(ik + 1) * ck]
-            kp = k_pos[ik * ck:(ik + 1) * ck]
-            s = torch.einsum("bshk,bthk->bhst", qc, kc).float() * scale
-            if softcap > 0:
-                s = softcap * torch.tanh(s / softcap)
-            s = s + _mask_bias(qp, kp, causal=causal, window=window)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhst,bthk->bhsk", p.to(qc.dtype), vc).float()
-            m = m_new
+            blk = (m, l, acc, qc, k[:, ik * ck:(ik + 1) * ck],
+                   v[:, ik * ck:(ik + 1) * ck], qp,
+                   k_pos[ik * ck:(ik + 1) * ck])
+            if remat:
+                m, l, acc = torch.utils.checkpoint.checkpoint(
+                    _kv_block, *blk, use_reentrant=False, **kw)
+            else:
+                m, l, acc = _kv_block(*blk, **kw)
         out = acc / l.clamp(min=1e-30)[..., None]
         outs.append(out.transpose(1, 2).to(qc.dtype))     # (B,cq,H,hd)
     return torch.cat(outs, dim=1)[:, :S]

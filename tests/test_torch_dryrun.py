@@ -96,11 +96,14 @@ def test_extrapolation_equals_the_whole_trace(arch, kind):
 RATIO_BANDS = {
     ("gemma-2b", "decode_32k"): (0.999, 1.001,
                                  "one token's products, as the formula"),
-    ("gemma-2b", "train_4k"): (0.93, 0.96,
+    ("gemma-2b", "train_4k"): (0.945, 0.975,
                                "non-reentrant checkpoint stops its "
                                "recompute once the saved tensors are "
                                "back: each block's last product (w_down) "
-                               "runs 3x, not the formula's 4x"),
+                               "runs 3x, not the formula's 4x; the "
+                               "chunked attention's checkpointed kv "
+                               "blocks run their tile products (q.k, "
+                               "p.v) once more in the backward"),
     ("mamba2-370m", "decode_32k"): (0.84, 0.87,
                                     "a one-token step runs the recurrence, "
                                     "not the chunked scan's products"),
@@ -323,20 +326,32 @@ def test_logits_gathers_by_hand_on_the_test_mesh():
 
 def test_temp_bytes_by_hand_under_both_layouts():
     """A train step traced at 1 and 2 layers (peaks 1,100 and 1,200 B)
-    fitted to 5 layers: a base of 1,000 B (the depth-0 fit) and 500 B of
-    layers (saved residuals). Over 4 model devices: the base is divided
-    in both layouts, the layers only under sequence parallelism. A
-    serving step's larger peak is scaled to the sequences, then divided."""
+    fitted to 5 layers: a base of 1,000 B (the depth-0 fit), 600 B of it
+    one layer's attention, and 500 B of layers (saved residuals). Over 4
+    model devices (the 4 heads divide them): the base is divided in both
+    layouts, the layers only under sequence parallelism. Over 8 (they do
+    not): attention is whole without sequence parallelism, split by the
+    queries' sequence shard with it. A serving step's larger peak is
+    scaled to the sequences, then divided."""
     cfg = dataclasses.replace(get_smoke_config("gemma-2b"), num_layers=5)
+    assert D.attention_sharded(cfg, 4) and not D.attention_sharded(cfg, 8)
     train = ShapeConfig("t", 64, 4, "train")
     points = {"base": (1,), "batch": 2, (1,): {"peak_bytes": 1100},
-              (2,): {"peak_bytes": 1200}}
+              (2,): {"peak_bytes": 1200}, "attn_peak": 600}
     assert D.temp_bytes(cfg, train, points, 2, tp=4,
                         seq_parallel=True) == 1500 / 4
     assert D.temp_bytes(cfg, train, points, 2, tp=4,
                         seq_parallel=False) == 1000 / 4 + 500
     assert D.temp_bytes(cfg, train, points, 2, tp=1,
                         seq_parallel=False) == 1500
+    assert D.temp_bytes(cfg, train, points, 2, tp=8,
+                        seq_parallel=False) == 400 / 8 + 600 + 500
+    assert D.temp_bytes(cfg, train, points, 2, tp=8,
+                        seq_parallel=True) == 1500 / 8
+    # the attention share is at most the base
+    big = dict(points, attn_peak=4000)
+    assert D.temp_bytes(cfg, train, big, 2, tp=8,
+                        seq_parallel=False) == 1000 + 500
     decode = ShapeConfig("d", 64, 4, "decode")
     points = {"base": (0,), "batch": 1, (0,): {"peak_bytes": 300},
               (1,): {"peak_bytes": 700}}
