@@ -255,8 +255,14 @@ Phases (any failure exits non-zero and prints no result):
    twice a layer a step, the median step (host wall clock, synchronised),
    tokens/s, the peak, and each step's temporaries against the dry run's
    prediction for the cell (``trace_counts`` / ``temp_bytes`` at tp 1),
-   their ratio gated. No training path reaches the attention or scan
-   kernels (they have no backward).
+   their ratio gated. (a)'s first run and (f)'s steps run with the cyclic
+   collector disabled: after every step the bytes allocated beyond the
+   phase's start and the train state (parameters, AdamW's m, v, master)
+   stay under 64 MiB, so a step frees what it made by reference
+   counting alone; (f) reads its baselines without a collection, and
+   the collector, run once after its loop, frees under 64 MiB. No
+   training path reaches the attention or scan kernels (they have no
+   backward).
 14. Analysis (``repro_torch.analysis``): the runtime sanitizer armed on
    the card, and the lint. (a) Phase 12's disaggregated fabric (gemma-2b
    at full width and depth, 2 ranks of 4 rows, chunk 64, 16-token
@@ -314,6 +320,7 @@ The last lines are the kernel table (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import functools
 import gc
 import json
@@ -2655,9 +2662,25 @@ def family_flash_kernel(dev, timer, row):
 
 
 def free_cuda():
+    # between phases: a phase's tensors go by reference counting when it
+    # returns (the port's paths leave no cycle, as the lifetime tests
+    # hold); the collection drops what torch's own tools (the profiler,
+    # FlopCounterMode) may leave in cycles. No reading inside a phase
+    # needs it.
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+
+
+@contextlib.contextmanager
+def collector_off():
+    """The cyclic garbage collector disabled: what a step leaves
+    allocated is then what it holds by reference."""
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
 
 
 def build_family(arch, dev, dtype="bfloat16", layers=None):
@@ -4203,10 +4226,14 @@ def train_gemma_full(dev):
     """13(a): gemma-2b at full width and depth in bf16 through the
     launcher (``launch.train.run_train``: TrainConfig defaults with remat
     on, loss_chunk 64, lr 3e-3 with 10 warmup steps), B=8 S=128, 4
-    steps, the 4th profiled; every loss finite."""
+    steps, the 4th profiled; every loss finite. The collector is off for
+    the 4 steps: after each, the bytes allocated beyond the phase's start
+    and the state stay under ``HELD_GATE``."""
     from repro_torch.launch.train import run_train
     free_cuda()
-    wall_ms, prof = [], {}
+    warm_backward(dev)
+    outside = torch.cuda.memory_allocated(dev)
+    wall_ms, prof, held = [], {}, []
 
     def wrapper(i, thunk):
         if i < 3:
@@ -4214,27 +4241,38 @@ def train_gemma_full(dev):
             out = thunk()
             torch.cuda.synchronize()
             wall_ms.append(1e3 * (time.perf_counter() - t0))
-            return out
-        box = {}
+        else:
+            box = {}
 
-        def step():
-            box["out"] = thunk()
-        # the profiled step also runs under FlopCounterMode (host-side
-        # only: its device time is the same), for phase 15(c)
-        with FlopCounterMode(display=False) as fc:
-            prof.update(profile_step("13(a) train step, gemma-2b bf16",
-                                     step, statistics.median(wall_ms),
-                                     names=()) or {})
-        prof["flop_count"] = fc.get_total_flops()
-        return box["out"]
+            def step():
+                box["out"] = thunk()
+            # the profiled step also runs under FlopCounterMode (host-side
+            # only: its device time is the same), for phase 15(c)
+            with FlopCounterMode(display=False) as fc:
+                prof.update(profile_step("13(a) train step, gemma-2b bf16",
+                                         step, statistics.median(wall_ms),
+                                         names=()) or {})
+            prof["flop_count"] = fc.get_total_flops()
+            out = box["out"]
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated(dev) - outside
+                    - state_bytes(out[0]))
+        return out
 
     t0 = time.perf_counter()
-    res = run_train("gemma-2b", steps=4, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                    lr=3e-3, device=dev, step_wrapper=wrapper,
-                    log=lambda line: print("13(a) " + line, flush=True))
+    with collector_off():
+        res = run_train("gemma-2b", steps=4, batch=TRAIN_BATCH,
+                        seq=TRAIN_SEQ, lr=3e-3, device=dev,
+                        step_wrapper=wrapper,
+                        log=lambda line: print("13(a) " + line, flush=True))
     losses = res["losses"]
     require(len(losses) == 4 and all(math.isfinite(x) for x in losses),
             f"13(a): the losses are not 4 finite values: {losses}")
+    print(f"13(a) held after each step beyond the phase's start and the "
+          f"state: {held} bytes (gate {HELD_GATE})", flush=True)
+    require(all(h < HELD_GATE for h in held),
+            f"13(a): a step left {held} bytes beyond the state, over "
+            f"{HELD_GATE}")
     med = statistics.median(wall_ms)
     out = {"losses": losses, "step_ms": wall_ms, "median_step_ms": med,
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
@@ -4242,7 +4280,7 @@ def train_gemma_full(dev):
            "params": res["params"], "idle_share": prof.get("idle_share"),
            "device_busy_ms": prof.get("device_busy_ms"),
            "device_launches": prof.get("device_launches"),
-           "flop_count": prof.get("flop_count"),
+           "flop_count": prof.get("flop_count"), "held_beyond_state": held,
            "seconds": time.perf_counter() - t0}
     print(f"13(a) gemma-2b 18 layers bf16 B={TRAIN_BATCH} S={TRAIN_SEQ}: "
           f"losses {losses}; steps 1-3 {wall_ms} ms (host wall clock, "
@@ -4263,6 +4301,33 @@ def train_gemma_full(dev):
     del slow
     free_cuda()
     return out
+
+
+#: bytes a train step may leave allocated beyond its state when it
+#: returns: its batch, its metrics, the allocator's 512-B rounding of a
+#: few hundred leaves. A step's gradients held by a reference cycle are a
+#: copy of the parameters (gemma-2b bf16: 5,012,344,832 B)
+HELD_GATE = 64 << 20
+
+
+def warm_backward(dev):
+    """A small product in bf16 and f32, forward and backward: the cuBLAS
+    handles of the autograd thread and their workspaces (allocated by the
+    caching allocator, kept for the process) exist before a phase reads
+    the bytes allocated at its start. Without it the process's first
+    backward, in 13(a), allocates 64 MiB of workspace that its held
+    bytes then count (67,119,612 B after step 1 on an H100)."""
+    for dt in (torch.bfloat16, torch.float32):
+        a = torch.ones((64, 64), device=dev, dtype=dt, requires_grad=True)
+        (a @ a).sum().backward()
+    torch.cuda.synchronize()
+
+
+def state_bytes(state):
+    """The bytes of a train state's tensors: the parameters and AdamW's
+    step, m, v and float32 master."""
+    from repro_torch.interop import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(state))
 
 
 def sync_model(dev, grad_sync, wire="float32"):
@@ -4576,12 +4641,15 @@ def train_card_vs_cpu(dev):
 #: of temporaries, ~53 GB in all)
 TRAIN_4K_BATCH, TRAIN_4K_STEPS = 4, 3
 #: 13(f)'s measured temporaries over the dry run's prediction, each
-#: step. LiveBytes counts the storages the step creates, as the caching
-#: allocator allocates them: on an H100 steps 2-3 read 1.0000002 (the
-#: allocator's 512-B rounding) and step 1, from a cold card, 1.0038 (64
-#: MiB of a workspace its first products allocate, which a trace on
-#: meta cannot see). 2% (355 MB) holds both and fails a temporaries'
-#: model that lost or gained a working set of that size.
+#: step, its baseline read with no collection. LiveBytes counts the
+#: storages the step creates, as the caching allocator allocates them:
+#: on an H100 a warm card's steps read 1.0000002 (the allocator's 512-B
+#: rounding) and step 1, from a cold card, 1.0038 (64 MiB of a workspace
+#: its first products allocate, which a trace on meta cannot see). 2%
+#: (355 MB) holds both and fails a temporaries' model that lost or
+#: gained a working set of that size, or a baseline that still holds
+#: the previous step's gradients (0.7173 before they were freed by
+#: reference counting).
 TRAIN_4K_TEMP_BAND = (0.98, 1.02)
 
 
@@ -4593,9 +4661,13 @@ def train_4k_chunked(dev):
     ``attn_chunk`` 512, ``attn_chunk_kv`` 2048, ``loss_chunk`` 512, one
     microbatch), parameters from seed 0, B=4 at S=4096, 3 steps. Every
     loss finite; each layer's attention is the chunked one (two calls a
-    layer a step: the forward and remat's recompute). Each step's own
-    temporaries (its peak less the bytes allocated before it) against
-    the dry run's prediction for the same cell, traced on meta."""
+    layer a step: the forward and remat's recompute). The steps run with
+    the collector off. Each step's own temporaries (its peak less the
+    bytes allocated before it, read with no collection) against the dry
+    run's prediction for the same cell, traced on meta; after each step
+    the bytes allocated beyond the phase's start and the state under
+    ``HELD_GATE``, and the collector, run once after the loop, frees
+    under ``HELD_GATE``."""
     import dataclasses
 
     from repro_torch.config import MESHES, SHAPES, ServeConfig, TrainConfig
@@ -4605,6 +4677,7 @@ def train_4k_chunked(dev):
     from repro_torch.models.registry import build_model, make_synthetic_batch
     from repro_torch.train.trainer import init_train_state, make_train_step
     free_cuda()
+    outside = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     cfg = arch_config("gemma-2b")
     shape = SHAPES["train_4k"]
@@ -4633,28 +4706,29 @@ def train_4k_chunked(dev):
         calls[0] += 1
         return chunked(*args, **kw)
 
-    losses, ms, temps, peaks, garbage = [], [], [], [], []
+    losses, ms, temps, peaks, held = [], [], [], [], []
     L.chunked_attention = counted
     try:
-        for batch in batches:
-            # the step's checkpoints leave reference cycles that hold
-            # device memory until the cyclic collector runs, at some
-            # point in the next step: collect them before the baseline
-            torch.cuda.synchronize()
-            held = torch.cuda.memory_allocated(dev)
-            gc.collect()
-            torch.cuda.reset_peak_memory_stats(dev)
-            before = torch.cuda.memory_allocated(dev)
-            garbage.append(held - before)
-            t1 = time.perf_counter()
-            state, met = step(state, batch)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t1))
-            peaks.append(torch.cuda.max_memory_allocated(dev))
-            temps.append(peaks[-1] - before)
-            losses.append(float(met["loss"]))
+        with collector_off():
+            for batch in batches:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                before = torch.cuda.memory_allocated(dev)
+                t1 = time.perf_counter()
+                state, met = step(state, batch)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t1))
+                peaks.append(torch.cuda.max_memory_allocated(dev))
+                temps.append(peaks[-1] - before)
+                held.append(torch.cuda.memory_allocated(dev) - outside
+                            - state_bytes(state))
+                losses.append(float(met["loss"]))
+            last = torch.cuda.memory_allocated(dev)
     finally:
         L.chunked_attention = chunked
+    gc.collect()
+    torch.cuda.synchronize()
+    collected = last - torch.cuda.memory_allocated(dev)
     require(all(math.isfinite(x) for x in losses),
             f"13(f): a loss is not finite: {losses}")
     want = 2 * cfg.num_layers * TRAIN_4K_STEPS
@@ -4668,7 +4742,8 @@ def train_4k_chunked(dev):
            "predicted_temp_bytes": predicted,
            "attn_peak_bytes": points["attn_peak"],
            "measured_over_predicted": ratios, "chunked_calls": calls[0],
-           "collected_before_step": garbage,
+           "state_bytes": state_bytes(state), "held_beyond_state": held,
+           "collected_after_loop": collected,
            "seconds": time.perf_counter() - t0}
     print(f"13(f) gemma-2b {cfg.num_layers} layers bf16 train_4k B={B} "
           f"S={S}: losses "
@@ -4677,9 +4752,18 @@ def train_4k_chunked(dev):
           f"peak {max(peaks)} bytes allocated; the steps' temporaries "
           f"{temps} bytes against the dry run's {predicted:.0f} "
           f"(attention alone {points['attn_peak']}): ratios {ratios}; "
-          f"collected before each step {garbage} bytes; "
           f"chunked_attention calls {calls[0]}; {out['seconds']:.1f} s",
           flush=True)
+    print(f"13(f) held after each step beyond the phase's start and the "
+          f"state ({out['state_bytes']} bytes): {held} bytes; the "
+          f"collector freed {collected} bytes after the loop (gate "
+          f"{HELD_GATE})", flush=True)
+    require(all(h < HELD_GATE for h in held),
+            f"13(f): a step left {held} bytes beyond the state, over "
+            f"{HELD_GATE}")
+    require(collected < HELD_GATE,
+            f"13(f): the collector freed {collected} bytes after the "
+            f"loop, over {HELD_GATE}")
     lo, hi = TRAIN_4K_TEMP_BAND
     require(all(lo <= r <= hi for r in ratios),
             f"13(f): measured temporaries over the dry run's {ratios} "

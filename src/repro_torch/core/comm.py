@@ -138,6 +138,7 @@ class Request:
         where a device fault of the operation surfaces)."""
         self._check_window()
         self._done = True
+        self._leave_stream()
         san = _san_active()
         if san is not None:
             san.on_request_complete(self)
@@ -152,11 +153,19 @@ class Request:
             tr.on_wait(self.op, t0, time.perf_counter())
         return self._value
 
+    def _leave_stream(self):
+        # a completed request lets go of its stream: the stream keeps its
+        # requests (``synchronize``), and the link back would be a
+        # reference cycle that holds the result until the cyclic
+        # collector runs
+        self.stream = None
+
     def test(self) -> Tuple[bool, Optional[object]]:
         """(done, result_or_None) without blocking."""
         self._check_window()
         if not self._done and (self._event is None or self._event.query()):
             self._done = True
+            self._leave_stream()
             san = _san_active()
             if san is not None:   # only the call that turns it done
                 san.on_request_complete(self)

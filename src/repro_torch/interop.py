@@ -156,47 +156,46 @@ def _children(node):
     return [(str(i), v) for i, v in enumerate(node)]
 
 
-def _stack_leaves(layers, path) -> List[Leaf]:
-    """The leaves of a layer stack: each path of layer 0's subtree,
-    gathered across the layers."""
-    out = []
+# The walks are module-level functions that take ``out``: a nested
+# function that calls itself is a function <-> cell reference cycle,
+# which would keep ``out`` (every tensor of the tree) alive until the
+# cyclic collector runs.
+def _walk_stack(layers, node, path, sub, out: List[Leaf]) -> None:
+    """Append to ``out`` the leaves of a layer stack: each path ``sub``
+    of layer 0's subtree ``node``, gathered across the layers."""
+    if isinstance(node, (dict, list, tuple)):
+        for k, v in _children(node):
+            _walk_stack(layers, v, path, sub + (k,), out)
+    elif node is not None:
+        ts = []
+        for layer in layers:
+            for k in sub:
+                layer = layer[int(k) if isinstance(layer, (list, tuple))
+                              else k]
+            ts.append(layer)
+        out.append(Leaf("/".join(path + sub), ts, True))
 
-    def walk(node, sub):
-        if isinstance(node, (dict, list, tuple)):
-            for k, v in _children(node):
-                walk(v, sub + (k,))
-        elif node is not None:
-            ts = []
-            for layer in layers:
-                for k in sub:
-                    layer = layer[int(k) if isinstance(layer, (list, tuple))
-                                  else k]
-                ts.append(layer)
-            out.append(Leaf("/".join(path + sub), ts, True))
 
-    walk(layers[0], ())
-    return out
+def _walk(node, path, out: List[Leaf]) -> None:
+    """Append to ``out`` the leaves of ``node`` at ``path``."""
+    if node is None:
+        return
+    if isinstance(node, (dict, list, tuple)):
+        for k, v in _children(node):
+            if (k in STACKED_KEYS and isinstance(node, dict)
+                    and isinstance(v, list) and v):
+                _walk_stack(v, v[0], path + (k,), (), out)
+            else:
+                _walk(v, path + (k,), out)
+    else:
+        out.append(Leaf("/".join(path), [node], False))
 
 
 def named_leaves(tree) -> List[Leaf]:
     """Every leaf of a port tree (dicts, NamedTuples, lists, tensors;
     None is an empty subtree) in the reference's flat order."""
     out: List[Leaf] = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        if isinstance(node, (dict, list, tuple)):
-            for k, v in _children(node):
-                if (k in STACKED_KEYS and isinstance(node, dict)
-                        and isinstance(v, list) and v):
-                    out.extend(_stack_leaves(v, path + (k,)))
-                else:
-                    walk(v, path + (k,))
-        else:
-            out.append(Leaf("/".join(path), [node], False))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
 
 

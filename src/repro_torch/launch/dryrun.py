@@ -20,7 +20,9 @@ device is needed, and counts it (``roofline/analysis.py``):
   step are fitted in the depth (each layer adds its saved input and its
   gradient) and divided over the model axes as the cell's layout shards
   them (``temp_bytes``); a serving step's layers reuse one layer's
-  working set, so its traced peak is scaled to the device's sequences;
+  working set, so its traced peak is scaled to the device's sequences
+  and divided over the model axes, its attention share (traced alone)
+  only where the heads divide them;
 * argument bytes per device from the spec trees of ``dist/sharding.py``
   and ``train/trainer.py``;
 * collectives modelled from the same specs and the cell's layout (FSDP
@@ -303,16 +305,80 @@ def _attn_steps(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig,
             x(cfg.encoder_seq))]
 
 
+def _prefill_cross_attn(cfg, p_x, xn, enc_out):
+    """A decoder layer's cross-attention in the encoder-decoder's prefill:
+    its K/V from the encoder's output, then the attention."""
+    return encdec._cross_attn(cfg, p_x, xn, *encdec._cross_kv(cfg, p_x,
+                                                               enc_out),
+                              None)
+
+
+def _serve_attn_steps(cfg: ModelConfig, shape: ShapeConfig,
+                      tcfg: TrainConfig, scfg: ServeConfig, cache_len,
+                      batch: int):
+    """Thunks running one layer's serving attention alone on meta at
+    ``batch`` sequences, through the functions the cell's step runs
+    (the plain path, as everything traced on meta): a prefill's
+    projections, full or chunked attention and output projection over the
+    prompt; a decode step's projections, cache writes and attention over
+    one layer's slot cache of ``cache_len`` (made outside the thunk, as
+    the step's cache is its argument). The encoder-decoder adds the
+    encoder's self-attention (prefill) and the cross-attention (both). One
+    thunk a kind of attention, none without attention."""
+    if not cfg.num_heads:
+        return []
+    cdt = dtype_of(tcfg.compute_dtype)
+    params = meta_params(_at_depth(cfg, (1, 1)), dtype_of(tcfg.param_dtype))
+    p = params["dec_blocks" if cfg.is_encoder_decoder else "blocks"][0]
+    flag = True if cfg.is_encoder_decoder else transformer.layer_flags(cfg)[0]
+
+    def x(n):
+        return torch.empty((batch, n, cfg.d_model), dtype=cdt, device=META)
+
+    if shape.kind == "prefill":
+        pos = torch.arange(shape.seq_len, device=META)
+        if not cfg.is_encoder_decoder:
+            return [functools.partial(transformer._attn_branch, cfg,
+                                      p["attn"], x(shape.seq_len), pos, flag,
+                                      scfg, None)]
+        enc_pos = torch.arange(cfg.encoder_seq, device=META)
+        enc = x(cfg.encoder_seq)
+        return [
+            functools.partial(encdec._self_attn, cfg,
+                              params["enc_blocks"][0]["attn"], enc, enc_pos,
+                              causal=False, serve=scfg, attention=None),
+            functools.partial(encdec._self_attn, cfg, p["attn"],
+                              x(shape.seq_len), pos, causal=True,
+                              serve=scfg, attention=None),
+            functools.partial(_prefill_cross_attn, cfg, p["xattn"],
+                              x(shape.seq_len), enc)]
+    mod = encdec if cfg.is_encoder_decoder else transformer
+    cache = mod.init_cache(cfg, batch, cache_len, device=META, dtype=cdt)
+    W = cache["pos"].shape[1] - 1
+    qpos = torch.zeros((batch, 1), dtype=torch.long, device=META)
+    rows = torch.arange(batch, device=META)[:, None]
+    wcol = torch.remainder(qpos, W)
+    steps = [functools.partial(transformer._cached_attn, cfg, p["attn"],
+                               x(1), cache["k"][0], cache["v"][0],
+                               cache["pos"].long(), qpos, rows, wcol, flag)]
+    if cfg.is_encoder_decoder:
+        steps.append(functools.partial(
+            encdec._cross_attn, cfg, p["xattn"], x(1), cache["cross_k"][0],
+            cache["cross_v"][0], None))
+    return steps
+
+
 @functools.lru_cache(maxsize=None)
 def trace_counts(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig,
                  scfg: ServeConfig, cache_len, batch: int) -> Dict:
     """The step's traces at ``batch`` sequences, at a base depth (0 for a
     serving step; 1 for a train step, whose gradient needs every
     parameter in the graph) and one layer more, each stack apart:
-    ``{"base": depth, "batch": batch, depth: count_step(...)}``. A train
-    step adds ``"attn_peak"``: the largest peak of live bytes of one
-    layer's attention traced alone (``_attn_steps``), the part of the
-    step's working set that the heads shard. A pure function of its
+    ``{"base": depth, "batch": batch, depth: count_step(...)}``, and
+    ``"attn_peak"``: the largest peak of live bytes of one layer's
+    attention traced alone (``_attn_steps`` for a train step,
+    ``_serve_attn_steps`` for a serving step), the part of the step's
+    working set that the heads shard. A pure function of its
     (frozen) arguments, kept for the process: a cell's trace does not
     depend on its mesh, so a second mesh costs nothing."""
     n = 2 if cfg.is_encoder_decoder else 1
@@ -323,11 +389,10 @@ def trace_counts(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig,
                        for i in range(n)]:
         points[d] = A.count_step(
             _step(_at_depth(cfg, d), shape, tcfg, scfg, cache_len, batch))
-    if shape.kind == "train":
-        points["attn_peak"] = max(
-            [A.count_step(t)["peak_bytes"]
-             for t in _attn_steps(cfg, shape, tcfg, scfg, batch)],
-            default=0)
+    attn = (_attn_steps(cfg, shape, tcfg, scfg, batch)
+            if shape.kind == "train" else
+            _serve_attn_steps(cfg, shape, tcfg, scfg, cache_len, batch))
+    points["attn_peak"] = max([A.peak_bytes(t) for t in attn], default=0)
     return points
 
 
@@ -371,7 +436,10 @@ def temp_bytes(cfg: ModelConfig, shape: ShapeConfig, points, seqs: float,
     gathers whole are not counted apart). Otherwise it is whole on every
     device of a model group. A serving step's layers reuse one layer's
     working set, so its peak is the larger traced one, scaled to
-    ``seqs``, over ``tp``."""
+    ``seqs``: over ``tp``, except its attention share (one layer's serving
+    attention traced alone, at most that peak), divided by ``tp`` only
+    where ``attention_sharded``: a serving cell has no sequence
+    parallelism."""
     if shape.kind == "train":
         depth = (cfg.num_layers, cfg.num_encoder_layers)
         total = depth_fit(points, "peak_bytes", depth)
@@ -383,7 +451,9 @@ def temp_bytes(cfg: ModelConfig, shape: ShapeConfig, points, seqs: float,
                    + layers / (tp if seq_parallel else 1))
     peak = max(v["peak_bytes"] for k, v in points.items()
                if isinstance(k, tuple))
-    return peak * seqs / points["batch"] / tp
+    attn = min(points.get("attn_peak", 0), peak)
+    attn_tp = tp if attention_sharded(cfg, tp) else 1
+    return ((peak - attn) / tp + attn / attn_tp) * seqs / points["batch"]
 
 
 # ---------------------------------------------------------------------------

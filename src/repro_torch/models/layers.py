@@ -18,6 +18,13 @@ import math
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+# The first ``torch.utils.checkpoint`` call of a process otherwise
+# imports ``torch._dynamo``, inside the train step; during that import
+# ``torch.fx``'s ``wrap`` keeps its own frame in a reference cycle, and
+# the frame's caller chain holds the step's locals (its gradients and
+# hidden states) until the cyclic collector runs. Importing it here
+# moves that cycle to import time, where it holds nothing of a step.
+import torch._dynamo  # noqa: F401
 
 DTYPES = {
     "float32": torch.float32,

@@ -156,6 +156,14 @@ class LiveBytes(TorchDispatchMode):
         return out
 
 
+def peak_bytes(fn: Callable[[], object]) -> int:
+    """The peak of live bytes of ``fn`` (a step on ``meta`` tensors), as
+    :func:`count_step` counts it, without counting its FLOPs."""
+    with LiveBytes() as lb:
+        fn()
+    return int(lb.peak)
+
+
 def count_step(fn: Callable[[], object]) -> Dict:
     """Run ``fn`` (a step on ``meta`` tensors) under FlopCounterMode and
     :class:`LiveBytes`: its matmul-class FLOPs, the peak of the live bytes

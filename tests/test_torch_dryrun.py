@@ -375,3 +375,24 @@ def test_temp_bytes_by_hand_under_both_layouts():
     # the saved residual a layer: 128 sequences x 4096 x d 64, bf16
     assert tr[(2,)] - tr[(1,)] == 128 * 4096 * 64 * 2
     assert got["none"] - got["sp"] == int(3 / 4 * 2 * 128 * 4096 * 64 * 2)
+
+
+def test_serving_temp_bytes_by_hand_follow_the_head_rule():
+    """A serving step's peak (700 B, the larger of its traces at one
+    sequence), 600 B of it one layer's attention traced alone, scaled to
+    6 sequences: over 4 model devices (the 4 heads divide them) all of it
+    is divided; over 8 (they do not) only the other 100 B, the attention
+    whole on every device of the model group; the share is at most the
+    peak."""
+    cfg = get_smoke_config("gemma-2b")
+    decode = ShapeConfig("d", 64, 4, "decode")
+    points = {"base": (0,), "batch": 1, (0,): {"peak_bytes": 300},
+              (1,): {"peak_bytes": 700}, "attn_peak": 600}
+    for sp in (True, False):
+        assert D.temp_bytes(cfg, decode, points, 6, tp=4,
+                            seq_parallel=sp) == 700 * 6 / 4
+        assert D.temp_bytes(cfg, decode, points, 6, tp=8,
+                            seq_parallel=sp) == (100 / 8 + 600) * 6
+    big = dict(points, attn_peak=4000)
+    assert D.temp_bytes(cfg, decode, big, 6, tp=8,
+                        seq_parallel=False) == 700 * 6

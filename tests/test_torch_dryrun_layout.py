@@ -59,6 +59,19 @@ BANDS = {
     # 7.5x / 8.1x
     "none": (0.5, 1.5),
 }
+#: a serving cell whose 4 smoke heads do not divide the 16 model devices
+SERVE_CELL = ("gemma-2b", "prefill_32k", "single_pod")
+#: port temp bytes / the reference's on SERVE_CELL. Both hold the
+#: prefill's attention whole on each model device (the reference pins no
+#: head sharding where the heads do not divide tp) and split the rest
+#: over the 16. low: below half, part of the attention's working set was
+#: divided (the rule that divided the whole traced peak by tp reads
+#: 1/16 of the attention); high: the (S, S) scores of a full attention
+#: at 32k, or a trace that kept every chunk's tiles, read tens of times
+#: the reference's. At the smoke widths attention is most of a layer's
+#: peak, so the band cannot tell the rest divided from the rest whole:
+#: ``tests/test_torch_dryrun.py`` holds that split by hand.
+SERVE_BAND = (0.5, 1.5)
 #: the gemma-2b smoke train_4k "sp" temp before the kv blocks of the
 #: chunked attention were checkpointed: every tile of every block pair
 #: saved for the backward
@@ -79,6 +92,7 @@ def reference_records():
 
     cells = [c + (m,) for c in TRAIN_CELLS for m in MODES]
     cells.append(DECODE_CELL + ("sp",))
+    cells.append(SERVE_CELL + ("sp",))
     out = {"cells": {}, "meshes": {}}
     for arch, shape, mesh, mode in cells:
         fn, args, _ = build_cell(arch, shape, mesh, smoke=True,
@@ -208,6 +222,24 @@ def test_decode_cell_gathers_its_logits_as_the_reference(reference):
                if not r["computation"].startswith("logits:"))
     total = A.summarize_collectives(recs)["total"]["operand_bytes"]
     assert total - rest >= 4096
+
+
+def test_serving_temp_follows_the_head_rule(reference):
+    """gemma-2b smoke prefill_32k single_pod: one layer's serving
+    attention, traced alone, stays whole on each device (4 heads on 16),
+    and the temporaries lie in ``SERVE_BAND`` of the reference's."""
+    trees, knobs, meta = D.build_cell(*SERVE_CELL, smoke=True)
+    cfg, tp = trees["cfg"], trees["mesh_cfg"].tp
+    assert not D.attention_sharded(cfg, tp)
+    a = D.analyze_cell(trees, knobs, meta)["analysis"]
+    got = a["memory_analysis"]["temp_size_in_bytes"]
+    attn = a["counted"]["attn_peak_bytes"]
+    peak = max(t["peak_bytes"] for t in a["counted"]["traces"])
+    assert 0 < attn < peak
+    assert got > attn > peak / tp
+    ref = reference["cells"][_key(*SERVE_CELL, "sp")]["temp"]
+    lo, hi = SERVE_BAND
+    assert lo <= got / ref <= hi, (got, ref)
 
 
 @pytest.mark.parametrize("arch", [
