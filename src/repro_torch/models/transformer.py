@@ -94,6 +94,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_scan
 from repro_torch.models import layers as L
 from repro_torch.models import mamba, moe
+from repro_torch.obs.trace import active as _tr_active
 
 #: monolithic prefill calls since the last :func:`reset_counters`; on the
 #: card each launches the flash kernel (attention families) and the SSD
@@ -138,15 +139,23 @@ def _residual(cfg, p, h, a_out, s_out):
     return h + a_out
 
 
-def _combine(cfg, p, h, a_out, s_out):
+def _combine(cfg, p, h, a_out, s_out, tr=None, phase=None, layer=None):
     """:func:`_residual`, then the MLP of the dense and hybrid blocks or
-    the MoE block's dropless experts."""
+    the MoE block's dropless experts. Given the tracer ``tr`` (the paged
+    forwards, while tracing), the experts' call is a device-timed ``moe``
+    span (``cat="block"``) of the forward's ``phase`` and ``layer``."""
     h = _residual(cfg, p, h, a_out, s_out)
     if cfg.block in (BLOCK_DENSE, BLOCK_HYBRID):
         h = h + L.mlp_apply(p["mlp"], L.apply_norm(h, p["ln2"], cfg), cfg)
     elif cfg.block == BLOCK_MOE:
-        h = h + moe.moe_apply_dropless(p["moe"], L.apply_norm(h, p["ln2"],
-                                                              cfg), cfg)
+        xn = L.apply_norm(h, p["ln2"], cfg)
+        if tr is None:
+            out = moe.moe_apply_dropless(p["moe"], xn, cfg)
+        else:
+            with tr.span("moe", cat="block", device=h.device, phase=phase,
+                         layer=layer):
+                out = moe.moe_apply_dropless(p["moe"], xn, cfg)
+        h = h + out
     return h
 
 
@@ -314,8 +323,12 @@ def _paged_backbone(cfg, params, x, cache, tables, qpos, wvalid, lengths,
     row-aligned: in decode (``chunk`` None) it advances full width in
     place, parked rows keeping theirs; in a chunk, ``chunk = (rows, pos0,
     n_valid)``, the chunk rows' state is gathered at ``rows``, zeroed for
-    fresh prompts, advanced and scattered back. Returns the final-normed
+    fresh prompts, advanced and scattered back. While tracing, each MoE
+    layer is a ``moe`` span of phase ``"chunk"`` (a prompt chunk) or
+    ``"decode"`` (a decode or verify step). Returns the final-normed
     hidden states (B, C, d)."""
+    tr = _tr_active() if cfg.block == BLOCK_MOE else None
+    phase = "decode" if chunk is None else "chunk"
     if cfg.uses_attention:
         targets = _write_targets(tables, qpos, wvalid, cache["k"].shape[2])
     if has_state(cfg) and chunk is not None:
@@ -343,7 +356,7 @@ def _paged_backbone(cfg, params, x, cache, tables, qpos, wvalid, lengths,
                                        scan)
                 for k, v in st.items():
                     leaves[k].index_copy_(0, dst, v.index_select(0, src))
-        h = _combine(cfg, p_l, h, a_out, s_out)
+        h = _combine(cfg, p_l, h, a_out, s_out, tr, phase, i)
     return L.apply_norm(h, params["final_norm"], cfg)
 
 

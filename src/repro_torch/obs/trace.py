@@ -9,24 +9,39 @@ bounded ring buffer (overflow drops the oldest first) and export as
 Chrome ``trace_event`` JSON, which opens in Perfetto or
 ``chrome://tracing`` as one timeline, a lane per rank.
 
-What a span measures on the card: host wall clock (``perf_counter``)
-around a host call, as in the reference. Kernel launches are
-asynchronous, so a span covers the device work only up to the call's
-last host synchronisation: a ``decode`` span ends after its token
-read-back and so contains the step's device time; a paged
-``prefill_chunk`` forward syncs once, before its first layer (the
-write-target selection), so its span can close while the chunk's
-layers still run on the card, unless the chunk finishes a prompt and
-its first token's read-back ends it. The tracer adds no
-synchronisation of its own: a traced run is the untraced program.
+What a span measures on the card. ``ts`` / ``dur`` are host wall clock
+(``perf_counter``) around the host call, as in the reference; kernel
+launches are asynchronous, so they cover the device work only up to
+the call's last host synchronisation. A span opened with
+``span(..., device=dev)`` on a CUDA device also records a CUDA event on
+the current stream at its start and at its end, and carries the device
+time between them as ``args["device_ms"]``: the paged engine's
+``prefill_chunk`` and ``decode`` spans, their ``.pack`` / ``.forward``
+/ ``.sample`` phases (``cat="phase"``) and the MoE block's ``moe``
+spans (``cat="block"``). The event pairs are read off the hot path: a
+pair whose end event ``query()`` finds done is read when a timed span
+ends (its events go back to a free list), and :meth:`Tracer.events`
+/ :meth:`Tracer.chrome_trace` wait on each pair still pending. The
+tracer adds no synchronisation inside a step: a traced run is the
+untraced program plus its events. On a CPU device there is no
+``device_ms``.
+
+While a ``torch.profiler`` run is active, every ``span()`` also enters
+a ``record_function`` range of its name and leaves it at ``end()``, so
+the span is one of the profiler's host events, on the clock its device
+events share: an idle stretch of the card can be named after the engine
+phase that was running. No profiler, no range.
 
 Cost discipline: disabled, every instrumented site is one module-global
-read plus a ``None`` check; nothing allocates, nothing reads the clock.
-Enabled, the hot-path API is ``complete(name, t0, t1)``: the caller
-reads ``perf_counter`` around the timed region and the tracer records
-one pre-timed "X" event. The structured API, ``span()`` as a context
+read plus a ``None`` check; nothing allocates, nothing reads the clock,
+no CUDA event is made and no ``record_function`` entered. Enabled, the
+hot-path API is ``complete(name, t0, t1)``: the caller reads
+``perf_counter`` around the timed region and the tracer records one
+pre-timed "X" event. The structured API, ``span()`` as a context
 manager or a handle whose ``end()`` runs on every path, is for
-region-shaped sites (stream regions, rank steps).
+region-shaped sites (stream regions, rank steps, engine phases). A span
+opened inside another takes the enclosing span's ``step`` unless it is
+given one, so every span of one engine step shares it.
 
 Rank attribution: rank threads of a pool are reassigned to ranks
 arbitrarily, so thread identity is not rank identity. ``rank_scope(rank)``
@@ -50,6 +65,8 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+import torch
+
 from repro_torch.obs.residuals import ResidualLedger
 
 #: default ring capacity: a serving trial of a few hundred micro-steps
@@ -66,7 +83,7 @@ class Span:
     construction; manual use must call :meth:`end` on every path."""
 
     __slots__ = ("_tracer", "name", "cat", "args", "t0", "tid", "parent",
-                 "_open")
+                 "_open", "_range", "_events")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  args: Dict[str, Any], t0: float, tid: int,
@@ -79,6 +96,10 @@ class Span:
         self.tid = tid
         self.parent = parent
         self._open = True
+        #: the profiler's ``record_function`` range, while one runs
+        self._range = None
+        #: (start event, stream) of a device-timed span
+        self._events = None
 
     def end(self) -> None:
         if self._open:
@@ -110,6 +131,10 @@ class Tracer:
         # tid -> lane name for the thread_name metadata
         self._lane_names: Dict[int, str] = {}
         self._next_driver_lane = DRIVER_TID
+        # device-timed spans: (event dict, start, end) awaiting their
+        # device_ms, oldest end first; events read and free for reuse
+        self._pending: deque = deque()
+        self._free_events: List[Any] = []
 
     # -- thread-local context ----------------------------------------------
     def _stack(self) -> List[Span]:
@@ -170,17 +195,36 @@ class Tracer:
                 self.dropped += 1
             self._events.append(ev)
 
-    def span(self, name: str, cat: str = "", **args) -> Span:
+    def span(self, name: str, cat: str = "", device=None, **args) -> Span:
         """Open a span on this thread's stack: a context manager, or a
-        handle to ``end()`` on every path."""
+        handle to ``end()`` on every path. On a CUDA ``device`` the span
+        also carries the device time between its start and end on the
+        device's current stream, as ``args["device_ms"]``. A span opened
+        inside another takes that span's ``step`` unless given one."""
         stack = self._stack()
-        parent = stack[-1].name if stack else None
+        parent = stack[-1] if stack else None
+        if parent is not None and "step" in parent.args:
+            args.setdefault("step", parent.args["step"])
         sp = Span(self, name, cat, args, time.perf_counter(), self._tid(),
-                  parent)
+                  parent.name if parent is not None else None)
+        if torch.autograd._profiler_enabled():
+            sp._range = torch.autograd.profiler.record_function(name)
+            sp._range.__enter__()
+        if getattr(device, "type", None) == "cuda":
+            stream = torch.cuda.current_stream(device)
+            start = self._event()
+            start.record(stream)
+            sp._events = (start, stream)
         stack.append(sp)
         return sp
 
     def _end_span(self, sp: Span) -> None:
+        end = None
+        if sp._events is not None:
+            end = self._event()
+            end.record(sp._events[1])
+        if sp._range is not None:
+            sp._range.__exit__(None, None, None)
         t1 = time.perf_counter()
         stack = self._stack()
         if stack and stack[-1] is sp:
@@ -196,9 +240,39 @@ class Tracer:
         args = dict(sp.args)
         if sp.parent is not None:
             args["parent"] = sp.parent
-        self._emit({"name": sp.name, "cat": sp.cat or "span", "ph": "X",
-                    "ts": self._us(sp.t0), "dur": (t1 - sp.t0) * 1e6,
-                    "pid": 0, "tid": sp.tid, "args": args})
+        ev = {"name": sp.name, "cat": sp.cat or "span", "ph": "X",
+              "ts": self._us(sp.t0), "dur": (t1 - sp.t0) * 1e6,
+              "pid": 0, "tid": sp.tid, "args": args}
+        self._emit(ev)
+        if end is not None:
+            with self._lock:
+                self._pending.append((ev, sp._events[0], end))
+            self._read_device_times(wait=False)
+
+    # -- device times --------------------------------------------------------
+    def _event(self):
+        with self._lock:
+            if self._free_events:
+                return self._free_events.pop()
+        return torch.cuda.Event(enable_timing=True)
+
+    def _read_device_times(self, wait: bool) -> None:
+        """Put ``device_ms`` into the events of finished device-timed
+        spans, oldest first: those whose end event is done, or with
+        ``wait`` every one, waiting on each end event."""
+        while True:
+            with self._lock:
+                if not self._pending:
+                    return
+                ev, start, end = self._pending[0]
+                if not wait and not end.query():
+                    return
+                self._pending.popleft()
+            if wait:
+                end.synchronize()
+            ev["args"]["device_ms"] = start.elapsed_time(end)
+            with self._lock:
+                self._free_events += (start, end)
 
     def complete(self, name: str, t0: float, t1: float, cat: str = "",
                  **args) -> None:
@@ -256,6 +330,7 @@ class Tracer:
 
     # -- export ------------------------------------------------------------
     def events(self) -> List[dict]:
+        self._read_device_times(wait=True)
         with self._lock:
             return list(self._events)
 

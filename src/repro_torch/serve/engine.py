@@ -95,9 +95,20 @@ speculative rounds are ``prefill_chunk`` (``jobs``), ``decode``
 (``rows``) and ``spec_round`` spans, a round's dispatch a
 ``hop:spec_verify`` priced by ``protocol.speculative_verify_latency``;
 ``reset`` flushes the trial (:func:`repro_torch.obs.flush_trial`). A
-span is host wall clock around the call; it covers the card's work up
-to the call's last host sync. Off, each site is one global read and a
-``None`` check.
+span is host wall clock around the call. The port adds to the
+reference's events: ``prefill_chunk`` and ``decode`` carry ``step``
+(:attr:`ContinuousEngine.n_steps`, shared by every span of the step)
+and their device time (``device_ms`` on the card, see
+:mod:`repro_torch.obs.trace`), ``prefill_chunk`` its batch's valid
+``tokens`` and padded ``positions``, and each has three children of
+``cat="phase"``: ``.pack`` (host batch, copies to the card, table
+rows), ``.forward`` (the model call(s), the pool's ordering) and
+``.sample`` (read-back, bookkeeping, first tokens); a chunked step's
+admissions are one ``admit`` phase of its own (host time only). Off,
+each site is one global read and a ``None`` check: no clock, no CUDA
+event, no profiler range. Two counters run always, as the kernels'
+launch counters do: :data:`prefill_positions` and
+:data:`prefill_valid_tokens`.
 
 Roles (the serving fabric, :mod:`repro_torch.serve.fabric`): a
 ``role="prefill"`` engine (paged only) leases blocks for the prompt alone,
@@ -115,6 +126,7 @@ speculation need ``role="full"``.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -125,6 +137,7 @@ import torch
 
 from repro_torch.core import protocol
 from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
 from repro_torch.obs import flush_trial as _obs_flush_trial
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import active as _tr_active
@@ -136,6 +149,29 @@ from repro_torch.serve.scheduler import CellQueueScheduler, ServeRequest
 #: parked decode position: so far below zero that a free or prefilling
 #: row's decode writes nothing and reads no token
 PARK_POS = -(2 ** 30)
+
+#: token positions the prompt-chunk batches ran (rows x chunk, padding
+#: included), and the valid prompt tokens among them, since import; both
+#: bumped under the kernels' count lock (``kernels._build.count_lock``)
+prefill_positions = 0
+prefill_valid_tokens = 0
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _count_chunk(positions: int, valid: int) -> None:
+    global prefill_positions, prefill_valid_tokens
+    with _build.count_lock:
+        prefill_positions += positions
+        prefill_valid_tokens += valid
+
+
+def _phase(tr, name: str, device):
+    """A phase of an engine step: a device-timed span of ``cat="phase"``
+    while tracing, else a context that does nothing."""
+    if tr is None:
+        return _NO_SPAN
+    return tr.span(name, cat="phase", device=device)
 
 
 class _NullStream:
@@ -426,6 +462,8 @@ class ContinuousEngine:
         #: draft-verify rounds run (each: one resync and one verify
         #: forward, k - 1 drafter decode steps)
         self.spec_rounds = 0
+        #: micro-steps run: the ``step`` of every span a step emits
+        self.n_steps = 0
 
     def _init_drafter(self, draft_model, draft_params, num_slots) -> None:
         """The reference's checks on speculation, then the drafter's own
@@ -578,6 +616,7 @@ class ContinuousEngine:
         dispatch; or, with ``prefill_chunk=0``, whole prompts), then
         advance every decoding row by one token. Returns the requests
         that finished this step."""
+        self.n_steps += 1
         tr = _tr_active()
         if tr is not None:
             # runnable-work hint for the serialization-stall detector:
@@ -599,33 +638,36 @@ class ContinuousEngine:
             elif self.kv_layout == "paged":
                 def can(r):
                     return self.kv.can_admit(self._token_budget(r))
-            while budget > 0:
-                admitted = self.scheduler.admit(now, 1, can_admit=can)
-                if not admitted:
-                    break
-                req = admitted[0]
-                if tr is None:
-                    self._begin_prefill(req)
-                else:
-                    # the admission hop's wall-clock twin of the price
-                    # stamped on the request (repriced to the prefix-hit
-                    # model when the radix cache served it)
-                    t0 = time.perf_counter()
-                    self._begin_prefill(req)
-                    tr.hop("prefix_hit" if req.prefix_hit_tokens > 0
-                           else "admission", req.admit_cost_s, t0,
-                           time.perf_counter(), rid=req.rid)
-                budget -= 1
+            with (_NO_SPAN if tr is None else
+                  tr.span("admit", cat="phase", step=self.n_steps)):
+                while budget > 0:
+                    admitted = self.scheduler.admit(now, 1, can_admit=can)
+                    if not admitted:
+                        break
+                    req = admitted[0]
+                    if tr is None:
+                        self._begin_prefill(req)
+                    else:
+                        # the admission hop's wall-clock twin of the price
+                        # stamped on the request (repriced to the
+                        # prefix-hit model when the radix cache served it)
+                        t0 = time.perf_counter()
+                        self._begin_prefill(req)
+                        tr.hop("prefix_hit" if req.prefix_hit_tokens > 0
+                               else "admission", req.admit_cost_s, t0,
+                               time.perf_counter(), rid=req.rid)
+                    budget -= 1
             if self._prefilling:
                 if tr is None:
                     finished.extend(self._prefill_chunk_step(now))
                 else:
                     nj = min(len(self._prefilling),
                              self.max_prefill_per_step)
-                    t0 = time.perf_counter()
-                    finished.extend(self._prefill_chunk_step(now))
-                    tr.complete("prefill_chunk", t0, time.perf_counter(),
-                                cat="engine", jobs=nj)
+                    with tr.span("prefill_chunk", cat="engine",
+                                 device=self.device, step=self.n_steps,
+                                 jobs=nj) as sp:
+                        finished.extend(self._prefill_chunk_step(now, tr,
+                                                                 sp))
         else:
             n_admit = min(self.kv.num_free, self.max_prefill_per_step)
             for req in self.scheduler.admit(now, n_admit):
@@ -648,11 +690,9 @@ class ContinuousEngine:
                 tr.complete("spec_round", t0, time.perf_counter(),
                             cat="engine")
             else:
-                rows = self.num_decoding
-                t0 = time.perf_counter()
-                finished.extend(self._decode_micro_step(now))
-                tr.complete("decode", t0, time.perf_counter(),
-                            cat="engine", rows=rows)
+                with tr.span("decode", cat="engine", device=self.device,
+                             step=self.n_steps, rows=self.num_decoding):
+                    finished.extend(self._decode_micro_step(now, tr))
         self._account()
         return finished
 
@@ -772,78 +812,95 @@ class ContinuousEngine:
                 req, resident, cow_blocks=int(hit.cow_src is not None))
         return slot, resident
 
-    def _prefill_chunk_step(self, now: float) -> List[ServeRequest]:
+    def _prefill_chunk_step(self, now: float, tr=None,
+                            span=None) -> List[ServeRequest]:
         """One fused dispatch: the next chunk of up to
         ``max_prefill_per_step`` prefilling requests, one row each, padded
         to the chunk length and masked by ``n_valid``. The slot layout
         gathers the rows' slots, advances them and scatters them back; the
-        paged layout writes through the block tables."""
+        paged layout writes through the block tables. Traced, ``span`` is
+        the step's ``prefill_chunk`` span and takes the batch's sizes."""
         C = self.prefill_chunk
         jobs = list(self._prefilling)[:self.max_prefill_per_step]
         n = len(jobs)
-        tok = np.zeros((n, C), np.int64)
-        slots = np.zeros((n,), np.int64)
-        pos0 = np.zeros((n,), np.int64)
-        n_valid = np.zeros((n,), np.int64)
-        for i, job in enumerate(jobs):
-            k = min(C, len(job.tokens) - job.off)
-            tok[i, :k] = job.tokens[job.off:job.off + k]
-            slots[i] = job.slot
-            pos0[i] = job.off
-            n_valid[i] = k
-            job.req.prefill_chunks += 1
         dev = self.device
-        args = (torch.as_tensor(tok).to(dev), torch.as_tensor(pos0).to(dev),
-                torch.as_tensor(n_valid).to(dev))
-        if self.kv_layout == "paged":
-            tables = torch.as_tensor(self.kv.table_rows(slots)).to(dev)
-            # the rows of the carried state stay on the host: the model
-            # decides which state rows to write there, without a sync
-            logits = self.model.prefill_chunk_paged(
-                self.params, self.kv.buffers, args[0], tables,
-                torch.as_tensor(slots), *args[1:])
-            if self.speculate:
-                # the same chunk into the drafter's pool, through its own
-                # tables; its logits are not needed (the drafter's first
-                # proposal comes from the round's resync)
-                self.draft_model.prefill_chunk_paged(
-                    self.draft_params, self.draft_kv.buffers, args[0],
-                    torch.as_tensor(self.draft_kv.table_rows(slots)).to(dev),
+        with _phase(tr, "prefill_chunk.pack", dev):
+            tok = np.zeros((n, C), np.int64)
+            slots = np.zeros((n,), np.int64)
+            pos0 = np.zeros((n,), np.int64)
+            n_valid = np.zeros((n,), np.int64)
+            for i, job in enumerate(jobs):
+                k = min(C, len(job.tokens) - job.off)
+                tok[i, :k] = job.tokens[job.off:job.off + k]
+                slots[i] = job.slot
+                pos0[i] = job.off
+                n_valid[i] = k
+                job.req.prefill_chunks += 1
+            args = (torch.as_tensor(tok).to(dev),
+                    torch.as_tensor(pos0).to(dev),
+                    torch.as_tensor(n_valid).to(dev))
+            if self.kv_layout == "paged":
+                tables = torch.as_tensor(self.kv.table_rows(slots)).to(dev)
+                if self.speculate:
+                    draft_tables = torch.as_tensor(
+                        self.draft_kv.table_rows(slots)).to(dev)
+        valid = int(n_valid.sum())
+        _count_chunk(n * C, valid)
+        if span is not None:
+            span.args.update(tokens=valid, positions=n * C)
+        with _phase(tr, "prefill_chunk.forward", dev):
+            if self.kv_layout == "paged":
+                # the rows of the carried state stay on the host: the
+                # model decides which state rows to write there, without
+                # a sync
+                logits = self.model.prefill_chunk_paged(
+                    self.params, self.kv.buffers, args[0], tables,
                     torch.as_tensor(slots), *args[1:])
-                self.draft_kv.swap_buffers(
-                    self._draft_stream.ordered(self.draft_kv.buffers))
-        else:
-            rows = self.kv.rows_at(slots)
-            logits = self.model.prefill_chunk(self.params, rows, *args)
-            self.kv.rows_into(rows, slots)
-        self.kv.swap_buffers(self._prefill_stream.ordered(self.kv.buffers))
-
-        final = []
-        for i, job in enumerate(jobs):
-            job.off += int(n_valid[i])
-            self.kv.advance(job.slot, int(n_valid[i]))   # entries appended
-            if job.off >= len(job.tokens):
-                final.append(i)
-        finished: List[ServeRequest] = []
-        if not final:
+                if self.speculate:
+                    # the same chunk into the drafter's pool, through its
+                    # own tables; its logits are not needed (the
+                    # drafter's first proposal comes from the round's
+                    # resync)
+                    self.draft_model.prefill_chunk_paged(
+                        self.draft_params, self.draft_kv.buffers, args[0],
+                        draft_tables, torch.as_tensor(slots), *args[1:])
+                    self.draft_kv.swap_buffers(
+                        self._draft_stream.ordered(self.draft_kv.buffers))
+            else:
+                rows = self.kv.rows_at(slots)
+                logits = self.model.prefill_chunk(self.params, rows, *args)
+                self.kv.rows_into(rows, slots)
+            self.kv.swap_buffers(
+                self._prefill_stream.ordered(self.kv.buffers))
+        with _phase(tr, "prefill_chunk.sample", dev):
+            final = []
+            for i, job in enumerate(jobs):
+                job.off += int(n_valid[i])
+                self.kv.advance(job.slot, int(n_valid[i]))  # entries appended
+                if job.off >= len(job.tokens):
+                    final.append(i)
+            finished: List[ServeRequest] = []
+            if not final:
+                return finished
+            gens = [self._generator(jobs[i].req) for i in final]
+            tok0 = _sample(logits[final], [jobs[i].req.temperature
+                                           for i in final], gens)
+            for i, t0, gen in zip(final, tok0, gens):
+                job = jobs[i]
+                self._prefilling.remove(job)
+                if self.speculate:
+                    self._draft_len[job.slot] = len(job.tokens)
+                if self.prefix_cache is not None:
+                    # index the prompt's full blocks before the request
+                    # can finish at once (EOS first token) and free them
+                    # to parked
+                    self.prefix_cache.insert(job.tokens,
+                                             self.kv.blocks_of(job.slot))
+                done = self._start_decode(job.slot, job.req, int(t0), gen,
+                                          now)
+                if done is not None:
+                    finished.append(done)
             return finished
-        gens = [self._generator(jobs[i].req) for i in final]
-        tok0 = _sample(logits[final], [jobs[i].req.temperature
-                                       for i in final], gens)
-        for i, t0, gen in zip(final, tok0, gens):
-            job = jobs[i]
-            self._prefilling.remove(job)
-            if self.speculate:
-                self._draft_len[job.slot] = len(job.tokens)
-            if self.prefix_cache is not None:
-                # index the prompt's full blocks before the request can
-                # finish at once (EOS first token) and free them to parked
-                self.prefix_cache.insert(job.tokens,
-                                         self.kv.blocks_of(job.slot))
-            done = self._start_decode(job.slot, job.req, int(t0), gen, now)
-            if done is not None:
-                finished.append(done)
-        return finished
 
     def _admit(self, req: ServeRequest, now: float) -> Optional[ServeRequest]:
         """Monolithic admission (slot layout, ``prefill_chunk=0``): prefill
@@ -897,39 +954,44 @@ class ContinuousEngine:
         self._slot_out[slot] = out
         return None
 
-    def _decode_micro_step(self, now: float) -> List[ServeRequest]:
+    def _decode_micro_step(self, now: float,
+                           tr=None) -> List[ServeRequest]:
         dev = self.device
-        tok = torch.as_tensor(self._tok[:, None]).to(dev)
-        pos = torch.as_tensor(self._pos).to(dev)
-        # the decode step's device-resident state is the pool
-        self._decode_stream.ordered(self.kv.buffers)
-        if self.kv_layout == "paged":
-            logits = self.model.decode_step_paged(
-                self.params, self.kv.buffers, tok, pos,
-                self.kv.tables_device())
-        else:
-            logits = self.model.decode_step(self.params, self.kv.buffers,
-                                            tok, pos)
-        nxt = _sample(logits, self._temp, self._gen)
-
-        finished: List[ServeRequest] = []
-        for slot in self.kv.live_slots:
-            req = self._slot_req[slot]
-            if req is None:        # row still mid-prefill: nothing to read
-                continue
-            t = int(nxt[slot])
-            out = self._slot_out[slot]
-            out[req.generated] = t
-            req.generated += 1
-            self.kv.advance(slot)
-            self._tok[slot] = t
-            self._pos[slot] += 1
-            if (0 <= self.eos_id == t) \
-                    or req.generated >= req.max_new_tokens:
-                finished.append(self._finish(slot, req, out, now))
-                self._slot_req[slot] = None
-                self._slot_out[slot] = None
-        return finished
+        paged = self.kv_layout == "paged"
+        with _phase(tr, "decode.pack", dev):
+            tok = torch.as_tensor(self._tok[:, None]).to(dev)
+            pos = torch.as_tensor(self._pos).to(dev)
+            if paged:
+                tables = self.kv.tables_device()
+        with _phase(tr, "decode.forward", dev):
+            # the decode step's device-resident state is the pool
+            self._decode_stream.ordered(self.kv.buffers)
+            if paged:
+                logits = self.model.decode_step_paged(
+                    self.params, self.kv.buffers, tok, pos, tables)
+            else:
+                logits = self.model.decode_step(self.params,
+                                                self.kv.buffers, tok, pos)
+        with _phase(tr, "decode.sample", dev):
+            nxt = _sample(logits, self._temp, self._gen)
+            finished: List[ServeRequest] = []
+            for slot in self.kv.live_slots:
+                req = self._slot_req[slot]
+                if req is None:    # row still mid-prefill: nothing to read
+                    continue
+                t = int(nxt[slot])
+                out = self._slot_out[slot]
+                out[req.generated] = t
+                req.generated += 1
+                self.kv.advance(slot)
+                self._tok[slot] = t
+                self._pos[slot] += 1
+                if (0 <= self.eos_id == t) \
+                        or req.generated >= req.max_new_tokens:
+                    finished.append(self._finish(slot, req, out, now))
+                    self._slot_req[slot] = None
+                    self._slot_out[slot] = None
+            return finished
 
     def _spec_micro_step(self, now: float) -> List[ServeRequest]:
         """The speculative decode micro-step: one draft-verify round over

@@ -12,7 +12,10 @@ smoke, float32, the reference's parameters moved over).
   and tables (``eos_id=-1``).
 - With both packages' tracers installed, one trace through both engines
   gives the same spans, instants and counters in order, the same
-  residual counts and registry values, and ``reset`` flushes both.
+  residual counts and registry values, and ``reset`` flushes both. The
+  port's own categories (``phase``: an engine step's pack / forward /
+  sample; ``block``: the MoE block) are held apart from that comparison
+  and checked on their own: present, nested in their step, well-formed.
 - The launcher's CLI under ``REPRO_TRACE=1`` writes a Chrome trace and a
   payload with the residual keys.
 """
@@ -49,6 +52,11 @@ ROOT = Path(__file__).resolve().parents[1]
 @pytest.fixture(scope="module")
 def bundle():
     return tp.bundle("gemma-2b")
+
+
+@pytest.fixture(scope="module")
+def moe_bundle():
+    return tp.bundle("olmoe-1b-7b")
 
 
 @pytest.fixture(scope="module")
@@ -226,18 +234,82 @@ def test_sampled_trace_repeats_within_the_port(bundle, comms, off):
 # ---------------------------------------------------------------------------
 
 ARGS = ("rid", "rows", "jobs", "k", "free", "live", "reason", "protocol")
+#: categories only the port emits: an engine step's phases and the MoE
+#: block (the reference has no device time to put on them)
+PORT_ONLY = ("phase", "block")
+PHASES = ("pack", "forward", "sample")
 
 
 def _events(tracer):
     return [(e["name"], e["cat"], e["ph"],
              {k: e["args"][k] for k in ARGS if k in e["args"]})
-            for e in tracer.events()]
+            for e in tracer.events() if e["cat"] not in PORT_ONLY]
 
 
-@pytest.mark.parametrize("layout, extra", [
-    ("paged", {}), ("paged", {"speculate": 2}), ("slot-monolithic", {})])
-def test_traced_engines_agree_with_reference(bundle, comms, traced, layout,
-                                             extra):
+def _inside(child, parent):
+    return (parent["ts"] <= child["ts"] + 1e-3
+            and child["ts"] + child["dur"]
+            <= parent["ts"] + parent["dur"] + 1e-3)
+
+
+def _check_port_spans(events, num_layers, moe):
+    """The port-only spans: a chunked step's ``admit`` phase comes before
+    its chunk batch; each ``prefill_chunk`` / ``decode`` step has its
+    three phases, of its ``step``, inside it and in order; each MoE
+    layer of a forward is one ``moe`` span inside that forward's
+    ``.forward`` phase; no device time on the CPU."""
+    steps = {(e["name"], e["args"]["step"]): e for e in events
+             if e["name"] in ("prefill_chunk", "decode")}
+    assert steps and len(steps) == sum(
+        e["name"] in ("prefill_chunk", "decode") for e in events)
+    port = [e for e in events if e["cat"] in PORT_ONLY]
+    for e in port:
+        assert e["ph"] == "X" and e["dur"] >= 0
+        assert "device_ms" not in e["args"]
+    # a chunked step's admissions: one ``admit`` phase a step, before its
+    # chunk batch, holding every admission hop
+    admits = {e["args"]["step"]: e for e in port if e["name"] == "admit"}
+    assert len(admits) == sum(e["name"] == "admit" for e in port)
+    for (name, step), e in steps.items():
+        if name == "prefill_chunk":
+            a = admits[step]
+            assert a["ts"] + a["dur"] <= e["ts"] + 1e-3
+    for e in events:
+        if e["name"].startswith("hop:admission") and admits:
+            assert e["args"]["parent"] == "admit"
+    phases = {}
+    for e in (e for e in port if e["cat"] == "phase"
+              and e["name"] != "admit"):
+        parent, _, kind = e["name"].partition(".")
+        assert e["args"]["parent"] == parent and kind in PHASES
+        assert _inside(e, steps[parent, e["args"]["step"]])
+        phases.setdefault((parent, e["args"]["step"]), []).append(e)
+    assert set(phases) == set(steps)
+    for kids in phases.values():
+        assert [k["name"].partition(".")[2] for k in kids] == list(PHASES)
+        assert all(a["ts"] + a["dur"] <= b["ts"] + 1e-3
+                   for a, b in zip(kids, kids[1:]))
+    blocks = [e for e in port if e["cat"] == "block"]
+    assert bool(blocks) == moe
+    for (parent, step), kids in phases.items():
+        fwd = kids[1]
+        mine = [b for b in blocks if b["args"]["step"] == step
+                and b["args"]["parent"] == fwd["name"]]
+        assert all(b["name"] == "moe" and _inside(b, fwd) for b in mine)
+        assert [b["args"]["layer"] for b in mine] == (
+            list(range(num_layers)) if moe else [])
+        phase = "chunk" if parent == "prefill_chunk" else "decode"
+        assert all(b["args"]["phase"] == phase for b in mine)
+    assert len(blocks) == num_layers * len(steps) * moe
+
+
+@pytest.mark.parametrize("layout, extra, arch", [
+    ("paged", {}, "gemma-2b"), ("paged", {"speculate": 2}, "gemma-2b"),
+    ("slot-monolithic", {}, "gemma-2b"), ("paged", {}, "olmoe-1b-7b")])
+def test_traced_engines_agree_with_reference(request, comms, traced, layout,
+                                             extra, arch):
+    bundle = request.getfixturevalue(
+        "bundle" if arch == "gemma-2b" else "moe_bundle")
     jmodel, jparams, model, params = bundle
     ours_tr, theirs_tr = traced
     kw = dict(tp.ENGINE_KW, kv_layout=layout.split("-")[0], **extra)
@@ -258,6 +330,8 @@ def test_traced_engines_agree_with_reference(bundle, comms, traced, layout,
     assert ("prefill_chunk" in names) == (layout == "paged")
     assert ("block_pool" in names) == (layout == "paged")
     assert ("hop:spec_verify" in names) == bool(extra)
+    _check_port_spans(ours_tr.events(), model.cfg.num_layers,
+                      moe=arch == "olmoe-1b-7b")
     for e in ours_tr.events():
         if e["name"].startswith("hop:"):
             assert e["cat"] == "residual" and e["args"]["measured_s"] >= 0

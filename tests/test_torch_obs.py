@@ -6,7 +6,10 @@ runnable hint, ``merge_reports``, the metrics registry, the trial flush
 on engine reset and the inert-when-disabled guard; plus parity with the
 reference's ledger and tracer (the same calls give the same report
 dicts and the same Chrome events), and the comm's wait and stream
-hooks. Pure host code, a few seconds.
+hooks; and what the port's tracer adds: ``record_function`` ranges
+while a ``torch.profiler`` run is active, device time from CUDA event
+pairs (fake events on the CPU), ``step`` taken from the enclosing
+span. Pure host code, a few seconds.
 
 Fixtures force each package's tracer on or off, so ``REPRO_TRACE=1`` in
 the environment (which installs both at import) cannot leak between
@@ -18,6 +21,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -365,6 +369,132 @@ def test_tracer_events_equal_reference(off):
 
 
 # ---------------------------------------------------------------------------
+# the profiler's ranges, device time, the step
+# ---------------------------------------------------------------------------
+
+def _profiled_host_events(prof):
+    return {e.name(): e for e in prof.profiler.kineto_results.events()
+            if e.name() in ("outer", "inner")}
+
+
+def test_spans_mirror_into_a_running_profiler(tracer):
+    """Under ``torch.profiler`` every span is a host event of its name,
+    nested as the spans are, each inside its span's own times."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        w0 = time.time_ns()
+        with tracer.span("outer", cat="engine"):
+            with tracer.span("inner", cat="phase"):
+                torch.ones(64).add_(1)
+        w1 = time.time_ns()
+    host = _profiled_host_events(prof)
+    assert set(host) == {"outer", "inner"}
+    spans = {e["name"]: e for e in tracer.events()}
+    for name, e in host.items():
+        assert w0 <= e.start_ns() and e.start_ns() + e.duration_ns() <= w1
+        assert e.duration_ns() * 1e-3 <= spans[name]["dur"]
+    o, i = host["outer"], host["inner"]
+    assert o.start_ns() <= i.start_ns()
+    assert i.start_ns() + i.duration_ns() <= o.start_ns() + o.duration_ns()
+
+
+def test_no_profiler_range_without_a_profiler(tracer, monkeypatch):
+    def refuse(name):
+        raise AssertionError("record_function entered with no profiler")
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    with tracer.span("outer"):
+        with tracer.span("inner", device=True):
+            pass
+    assert [e["name"] for e in tracer.events()] == ["inner", "outer"]
+
+
+@pytest.mark.parametrize("device", [None, torch.device("cpu")])
+def test_device_span_on_the_cpu_has_no_device_time(tracer, monkeypatch,
+                                                   device):
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA event on the CPU")
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    with tracer.span("decode", cat="engine", device=device, rows=2):
+        pass
+    (ev,) = tracer.events()
+    assert ev["args"] == {"rows": 2}
+
+
+class _FakeEvent:
+    """A CUDA event's host side: ``record`` stamps a device clock the
+    test advances; ``query`` says whether the device got that far."""
+
+    clock = [0.0]
+    done_up_to = [float("inf")]
+    made = 0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        type(self).made += 1
+        self.at = None
+
+    def record(self, stream=None):
+        self.at = self.clock[0]
+
+    def query(self):
+        return self.at <= self.done_up_to[0]
+
+    def synchronize(self):
+        self.done_up_to[0] = max(self.done_up_to[0], self.at)
+
+    def elapsed_time(self, end):
+        return end.at - self.at
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    _FakeEvent.clock[0], _FakeEvent.done_up_to[0] = 0.0, float("inf")
+    _FakeEvent.made = 0
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: "stream")
+    return _FakeEvent
+
+
+def test_device_time_from_event_pairs(tracer, fake_card):
+    """A device-timed span carries its event pair's time as
+    ``device_ms``: read at once where ``query`` finds the end done (the
+    events then serve the next span), else when the events are taken."""
+    card = torch.device("cuda")
+    with tracer.span("prefill_chunk", cat="engine", device=card):
+        fake_card.clock[0] += 2.5
+    assert tracer._pending == deque() and fake_card.made == 2
+    fake_card.done_up_to[0] = 2.5          # the device is behind
+    with tracer.span("decode", cat="engine", device=card):
+        fake_card.clock[0] += 4.0
+    assert len(tracer._pending) == 1 and fake_card.made == 2
+    with tracer.span("decode", cat="engine", device=card):
+        fake_card.clock[0] += 1.0
+    assert len(tracer._pending) == 2 and fake_card.made == 4
+    evs = tracer.events()
+    assert not tracer._pending
+    assert [e["args"]["device_ms"] for e in evs] == [2.5, 4.0, 1.0]
+    assert len(tracer._free_events) == 4
+    doc = tracer.chrome_trace()
+    assert [e["args"]["device_ms"] for e in doc["traceEvents"]
+            if e["ph"] == "X"] == [2.5, 4.0, 1.0]
+
+
+def test_children_take_the_enclosing_step(tracer):
+    with tracer.span("prefill_chunk", cat="engine", step=7):
+        with tracer.span("prefill_chunk.forward", cat="phase"):
+            with tracer.span("moe", cat="block", layer=0):
+                pass
+        with tracer.span("other", step=8):
+            pass
+    with tracer.span("outside"):
+        pass
+    got = {e["name"]: e["args"].get("step") for e in tracer.events()}
+    assert got == {"moe": 7, "prefill_chunk.forward": 7, "other": 8,
+                   "prefill_chunk": 7, "outside": None}
+
+
+# ---------------------------------------------------------------------------
 # metrics registry
 # ---------------------------------------------------------------------------
 
@@ -524,16 +654,24 @@ def test_disabled_guard_is_one_global_read(off):
 @pytest.mark.parametrize("speculate", [0, 2])
 def test_disabled_engine_reads_no_clock(off, engine_bundle, monkeypatch,
                                         speculate):
-    """With telemetry off the engine's sites never read the clock (each
-    is a global read and a None check)."""
+    """With telemetry off the engine's sites never read the clock, make
+    no CUDA event and enter no profiler range (each is a global read and
+    a None check)."""
     import types
 
     from repro_torch.serve import engine as engine_mod
 
     def clock():
         raise AssertionError("the clock was read with telemetry off")
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA event or profiler range with "
+                             "telemetry off")
     monkeypatch.setattr(engine_mod, "time",
                         types.SimpleNamespace(perf_counter=clock))
+    monkeypatch.setattr(T, "time", types.SimpleNamespace(perf_counter=clock))
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
     model, params = engine_bundle
     eng = ContinuousEngine(model, params, cache_len=32, num_slots=2,
                            prefill_chunk=16, kv_layout="paged",
