@@ -9,8 +9,9 @@ Phases (any failure exits non-zero and prints no result):
    the card's name and power limit.
 2. Build: every kernel (``src/repro_torch/kernels/*/csrc/*.cu``: both
    paged-attention kernels and their combine pass, the flash-attention
-   kernel, both msgq message copies, eager and 1-copy, and the SSD chunk
-   scan) compiled by nvcc for sm_90a, one nvcc per source, all at once;
+   kernel, both msgq message copies, eager and 1-copy, the SSD chunk
+   scan and the MoE layer's top-k expert kernels) compiled by nvcc for
+   sm_90a, one nvcc per source, all at once;
    ptxas's registers and spills, and the spill bytes summed by source
    (phases 3 and 8(a) print them again per instantiation of the flash
    kernel and the scan, demangled, and carry them in the kernel table).
@@ -41,7 +42,16 @@ Phases (any failure exits non-zero and prints no result):
    plain version's time and the time of
    ``F.scaled_dot_product_attention`` on the same data (pages gathered up
    front, or kv heads repeated up front; a yardstick only, the port never
-   calls it).
+   calls it). Then the top-k expert kernels of the dropless MoE layer
+   (``kernels/moe``, :func:`phase_moe`): against their plain version at
+   olmoe-1b-7b's chunk (T = 4096, K = 8 of 64) and decode (T = 64)
+   shapes, dbrx-132b's full width (16 experts, K = 4, d 6144, f 10752)
+   and the smoke widths (ragged tiles), bfloat16 and float32, twice bit
+   for bit; the dispatch kernel's tables equal to the plain ones; a
+   token's output bit for bit alone and among other neighbours; one
+   ``moe_apply_dropless`` call under ``torch.cuda.set_sync_debug_mode
+   ("error")`` (no host sync), one launch count a call; times at the
+   chunk and decode shapes beside the bound and the plain version's.
 4. Model: full-width gemma-2b in bfloat16 from seed 0; one paged prefill
    chunk, one paged decode step and one monolithic prefill (B=4, S=256),
    each kernel path vs the same step through the plain attention; a
@@ -345,6 +355,7 @@ FLASH_SOURCE = \
     "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 MSGQ_SOURCE = "src/repro_torch/kernels/msgq/csrc/msgq.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+MOE_SOURCE = "src/repro_torch/kernels/moe/csrc/moe.cu"
 TPU_KERNELS = {
     "paged_decode":
         "src/repro/kernels/paged_attention/paged_attention.py:57",
@@ -899,6 +910,137 @@ def phase_flash(dev, timer):
     main_case = next(t for t in times if t["shape"] == FLASH_TABLE_CASE)
     row.update(main_case)
     row["max_abs_err"] = max(row["max_abs_err_by_dtype"].values())
+    row["times"] = times
+    return row
+
+
+#: the expert kernels' cases: (label, T, K, E, d, f); the chunk and decode
+#: shapes are olmoe-1b-7b's on the benchmark's path
+MOE_CASES = [("olmoe chunk", 4096, 8, 64, 2048, 1024),
+             ("olmoe decode", 64, 8, 64, 2048, 1024),
+             ("dbrx full width", 256, 4, 16, 6144, 10752),
+             ("smoke olmoe", 40, 2, 8, 64, 32),
+             ("smoke dbrx", 40, 2, 4, 64, 96)]
+#: kernel vs plain version, relative to the output's largest magnitude:
+#: bfloat16 rounds h and the output once on each side from float32 sums
+#: in other orders (a few bf16 ulps); float32 reorders the sums only
+MOE_TOL = {torch.bfloat16: 1.6e-2, torch.float32: 2e-5}
+
+
+def moe_inputs(dev, dtype, T, K, E, d, f, seed=0):
+    """x, the router's (ids, renormalised gates) of random logits, and
+    the stacked expert weights at fan-in scale."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((T, d), generator=g).to(dtype)
+    probs = torch.softmax(torch.randn((T, E), generator=g), -1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates = gates[:, :K] / gates[:, :K].sum(-1, keepdim=True)
+    w = [(torch.randn(s, generator=g) * s[1] ** -0.5).to(dtype)
+         for s in ((E, d, f), (E, d, f), (E, f, d))]
+    return [t.to(dev) for t in (x, idx[:, :K], gates, *w)]
+
+
+def phase_moe(dev, timer):
+    """3(b): the top-k expert kernels against their plain version, their
+    tables, batch invariance, no host sync, their launch count, and
+    their times at olmoe's chunk and decode shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe import ops as moe_ops
+    from repro_torch.kernels.moe.ref import dispatch_ref, moe_experts_ref
+    from repro_torch.models import moe
+
+    row = {"name": "moe_experts", "route": "cuda", "source": MOE_SOURCE,
+           "replaces": "none (the reference's dense MoE is XLA's)",
+           "max_abs_err_by_dtype": {},
+           "ptxas": ptxas_report(Path(MOE_SOURCE).name)}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = 0.0
+        for label, T, K, E, d, f in MOE_CASES:
+            if dtype == torch.float32 and label == "dbrx full width":
+                T = 32                  # float32 products: CUDA cores
+            args = moe_inputs(dev, dtype, T, K, E, d, f, seed=T + d)
+            before = moe_ops.moe_launches
+            out = moe_ops.moe_experts(*args)
+            again = moe_ops.moe_experts(*args)
+            require(moe_ops.moe_launches == before + 2,
+                    f"moe {label}: the kernels were not launched")
+            ref = moe_experts_ref(*args)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            rel = err / max(float(ref.float().abs().max()), 1e-30)
+            worst = max(worst, err)
+            same = torch.equal(out, again)
+            ok = rel <= MOE_TOL[dtype] and bool(
+                torch.isfinite(out.float()).all())
+            print(f"check moe_experts {label:16s} {str(dtype):14s} "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} "
+                  f"tol={MOE_TOL[dtype]:g} {'ok' if ok else 'MISMATCH'}, "
+                  f"two launches bitwise {same}", flush=True)
+            require(ok, f"moe {label} {dtype}: disagrees with ref.py")
+            require(same, f"moe {label} {dtype}: two launches differ")
+        row["max_abs_err_by_dtype"][str(dtype).split(".")[-1]] = worst
+    row["max_abs_err"] = max(row["max_abs_err_by_dtype"].values())
+    for T, K, E, bm in ((4096, 8, 64, 128), (64, 8, 64, 128),
+                        (256, 4, 16, 64), (1, 2, 8, 128)):
+        idx = torch.randint(0, E - 1, (T, K),
+                            generator=torch.Generator().manual_seed(T))
+        idx[: T // 2, 0] = 0
+        ours = moe_ops.dispatch(idx.to(dev), E, bm)
+        plain = dispatch_ref(idx, E, bm)
+        require(all(torch.equal(a.cpu(), b) for a, b in zip(ours, plain)),
+                f"moe dispatch T={T} K={K} E={E}: tables differ")
+    print("check moe dispatch tables: equal to the plain ones", flush=True)
+    x, idx, gates, *w = moe_inputs(dev, torch.bfloat16, *MOE_CASES[0][1:])
+    whole = moe_ops.moe_experts(x, idx, gates, *w)
+    alone = moe_ops.moe_experts(x[:100], idx[:100], gates[:100], *w)
+    among = moe_ops.moe_experts(torch.cat([x[:100], x.flip(0)[:900]]),
+                                torch.cat([idx[:100], idx.flip(0)[:900]]),
+                                torch.cat([gates[:100],
+                                           gates.flip(0)[:900]]), *w)
+    torch.cuda.synchronize()
+    require(torch.equal(whole[:100], alone)
+            and torch.equal(whole[:100], among[:100]),
+            "moe: a token's output depends on its neighbours")
+    print("check moe batch invariance: rows 0..99 alone and among others "
+          "bitwise", flush=True)
+    cfg = get_config("olmoe-1b-7b")
+    p = {"router": torch.randn((cfg.d_model, cfg.num_experts), device=dev)
+         * cfg.d_model ** -0.5, "w_gate": w[0], "w_up": w[1],
+         "w_down": w[2]}
+    xb = torch.randn((2, 32, cfg.d_model), device=dev, dtype=torch.bfloat16)
+    moe.moe_apply_dropless(p, xb, cfg)
+    torch.cuda.synchronize()
+    before = moe_ops.moe_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moe.moe_apply_dropless(p, xb, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    require(moe_ops.moe_launches == before + 1,
+            "moe_apply_dropless: not one launch count a call")
+    print("check moe_apply_dropless: no host sync, one launch count",
+          flush=True)
+    times = []
+    for label, T, K, E, d, f in MOE_CASES[:2]:
+        args = moe_inputs(dev, torch.bfloat16, T, K, E, d, f)
+        flops = 2 * T * K * 3 * d * f
+        nbytes = 2 * (3 * E * d * f + 2 * T * d)
+        t_ops = 1e3 * flops / PEAK_FLOPS[torch.bfloat16]
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t = dict(shape=label, dtype="bfloat16",
+                 ms=timer.ms(lambda: moe_ops.moe_experts(*args)),
+                 plain_ms=timer.ms(lambda: moe_experts_ref(*args), iters=5),
+                 bound_ms=max(t_ops, t_bytes),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bound_bytes=nbytes, bound_flops=flops)
+        t["share"] = t["bound_ms"] / t["ms"]
+        times.append(t)
+        print(f"time  moe_experts {label:16s} bf16 ms={t['ms']:.4f} "
+              f"plain_ms={t['plain_ms']:.4f} bound_ms={t['bound_ms']:.5f} "
+              f"({t['bound_by']}: {nbytes} bytes, {flops} flops), share "
+              f"{t['share']:.3f}", flush=True)
+    row.update(times[0])
     row["times"] = times
     return row
 
@@ -2939,8 +3081,11 @@ def family_launch_check(counts, cfg, label):
         require(counts["mq_launches"] > 0 and counts["decode_launches"] > 0,
                 f"{label}: a paged-attention kernel never launched")
     require(counts["ref_calls"] == counts["flash_ref_calls"]
-            == counts["ssd_ref_calls"] == 0,
+            == counts["ssd_ref_calls"] == counts["moe_ref_calls"] == 0,
             f"{label}: a plain version ran on the card")
+    if cfg.block == "moe":
+        require(counts["moe_launches"] > 0,
+                f"{label}: the top-k expert kernels never launched")
     if cfg.block in ("ssm", "hybrid"):
         require(counts["ssd_launches"] == L * (counts["chunk_calls"]
                                                + counts["prefill_calls"]),
@@ -5441,6 +5586,7 @@ def main() -> None:
     timer = Timer(dev)
     table = phase_kernels(dev, timer)
     table["flash_attention"] = phase_flash(dev, timer)
+    table["moe_experts"] = phase_moe(dev, timer)
     del timer
     torch.cuda.empty_cache()
     model = phase_model(dev)

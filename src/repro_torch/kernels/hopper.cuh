@@ -1,10 +1,12 @@
 // Helpers shared by the port's kernels for Hopper (sm_90a): PTX
-// wrappers for cp.async, ldmatrix and mma.sync, the tile swizzle, and the
+// wrappers for mbarriers, cp.async, ldmatrix and mma.sync, the tile
+// swizzle, and the
 // two attention products of one K/V stage in the mma.sync m16n8k16
 // fragment layout (bf16 on tensor cores, float32 on CUDA cores).
 // Included by paged_attention/csrc/paged_attention.cu,
-// flash_attention/csrc/flash_attention.cu and ssd_scan/csrc/ssd_scan.cu
-// (the copies, dot4 and sm_count); kernels/_build.py hashes every
+// flash_attention/csrc/flash_attention.cu, ssd_scan/csrc/ssd_scan.cu
+// (the copies, dot4 and sm_count), msgq/csrc/msgq.cu and moe/csrc/moe.cu
+// (the mbarriers); kernels/_build.py hashes every
 // header under kernels/ into each library's key, so a changed header
 // rebuilds every kernel.
 
@@ -24,6 +26,42 @@ typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers: init with an arrival count, arrive with a transaction
+// count, arrive, and wait for a phase of this parity (trap, a launch
+// error and not a hang, if it has not completed after ~8 s).
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  const long long start = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1LL << 34)) __trap();
+  }
 }
 
 // 16 bytes global -> shared; with ok false nothing is read and the 16

@@ -313,34 +313,9 @@ __device__ __forceinline__ void accumulate(V* d, V b, long long index,
 
 using hopper::smem_addr;
 
-__device__ __forceinline__ void mbar_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the slot's phase of this parity to complete; trap (a launch
-// error, not a hang) if it has not after ~8 s.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  const long long start = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - start > (1LL << 34)) __trap();
-  }
-}
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
 
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           unsigned bytes, unsigned bar) {
@@ -501,7 +476,7 @@ __global__ void __launch_bounds__(kEagerThreads)
       reinterpret_cast<uint64_t*>(smem + (size_t)a.nslots * 2 * a.cell);
   if constexpr (kBulk) {
     if (threadIdx.x == 0) {
-      for (int s = 0; s < a.nslots; ++s) mbar_init(smem_addr(bars + s));
+      for (int s = 0; s < a.nslots; ++s) mbar_init(smem_addr(bars + s), 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();

@@ -89,6 +89,7 @@ import torch
 from repro_torch.config import ServeConfig, ShapeConfig
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.moe import ops as moe_ops
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import encdec, transformer
@@ -206,12 +207,15 @@ def kernel_counters() -> Dict[str, int]:
     the chunk forwards (each launches the SSD scan once per layer with an
     SSM; an encoder-decoder's the flash kernel once per decoder layer),
     and an encoder-decoder's encoder passes (the flash kernel once per
-    encoder layer) and decode forwards (once per decoder layer)."""
-    fl, sd = flash_ops.counters(), ssd_ops.counters()
+    encoder layer) and decode forwards (once per decoder layer). A MoE
+    layer's experts are one ``moe_launches`` a call on the card."""
+    fl, sd, mo = flash_ops.counters(), ssd_ops.counters(), moe_ops.counters()
     return {**ops.counters(), "flash_launches": fl["flash_launches"],
             "flash_ref_calls": fl["ref_calls"],
             "ssd_launches": sd["ssd_launches"],
             "ssd_ref_calls": sd["ref_calls"],
+            "moe_launches": mo["moe_launches"],
+            "moe_ref_calls": mo["ref_calls"],
             "prefill_calls": transformer.prefill_calls,
             "chunk_calls": transformer.chunk_calls,
             "verify_calls": transformer.verify_calls,
@@ -223,6 +227,7 @@ def reset_kernel_counters() -> None:
     ops.reset_counters()
     flash_ops.reset_counters()
     ssd_ops.reset_counters()
+    moe_ops.reset_counters()
     transformer.reset_counters()
     encdec.reset_counters()
 

@@ -7,11 +7,13 @@ Every token picks its top-k experts from a float32 router over float32
 activations and combines their outputs under renormalised gates. No
 grouping, no capacity, no drops: a token's output is a function of its
 own hidden state alone, so a prompt split at any chunk boundary, or
-batched with any neighbours, routes the same. As in the reference's
-serve path, every expert runs on every token and the combine gives the
-experts a token did not pick zero weight. The expert products are
-batched matrix products over the stored ``(E, d, f)`` / ``(E, f, d)``
-weights, read in place (no per-call permute or copy of a weight).
+batched with any neighbours, routes the same. Each token runs only its
+top-k experts (``kernels/moe``: a top-k dispatch, then grouped products
+over the stored ``(E, d, f)`` / ``(E, f, d)`` weights, read in place,
+float32 accumulation, the gates applied in float32). The result equals
+the reference's serve path, which runs every expert on every token and
+gives the experts a token did not pick a zero gate: a zero-gated expert
+adds exactly 0 to that sum.
 
 Training (:func:`moe_apply`). Tokens are routed in groups of
 ``moe_group_size`` (a ragged tail zero-row padded; padded rows route and
@@ -30,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.moe import ops as moe_ops
 from repro_torch.models.layers import dense_init
 
 
@@ -137,19 +140,13 @@ def moe_apply(p, x, cfg):
 
 
 def moe_apply_dropless(p, x, cfg):
-    """x (B, S, d) -> (B, S, d): per-token top-k routing, every expert on
-    every token, outputs combined under the gates (zero for experts a
-    token did not pick)."""
+    """x (B, S, d) -> (B, S, d): per-token top-k routing, each token
+    through its top-k experts only, combined under its gates (the
+    reference's zero-gated dense sum)."""
     B, S, d = x.shape
     flat = x.reshape(B * S, d)
     idx, gates = route(p, flat, cfg)
-    weights = torch.zeros((flat.shape[0], cfg.num_experts),
-                          dtype=torch.float32, device=x.device)
-    weights.scatter_(1, idx, gates)                              # (T, E)
     cd = x.dtype
-    xe = flat.unsqueeze(0).expand(cfg.num_experts, -1, -1)       # (E, T, d)
-    g = torch.bmm(xe, p["w_gate"].to(cd))                        # (E, T, f)
-    u = torch.bmm(xe, p["w_up"].to(cd))
-    out_e = torch.bmm(F.silu(g) * u, p["w_down"].to(cd))         # (E, T, d)
-    out = torch.einsum("te,etd->td", weights.to(cd), out_e)
+    out = moe_ops.moe_experts(flat, idx, gates, p["w_gate"].to(cd),
+                              p["w_up"].to(cd), p["w_down"].to(cd))
     return out.reshape(B, S, d)

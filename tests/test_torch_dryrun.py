@@ -107,10 +107,10 @@ RATIO_BANDS = {
     ("mamba2-370m", "decode_32k"): (0.84, 0.87,
                                     "a one-token step runs the recurrence, "
                                     "not the chunked scan's products"),
-    # dropless MoE serving: every expert on every token, where the formula
-    # counts top_k (8 of 64): the excess is expected, not a tolerance
-    ("olmoe-1b-7b", "decode_32k"): (2.6, 2.8,
-                                    "dropless: all 64 experts a token"),
+    # dropless MoE serving: each token's top_k experts (8 of 64), as the
+    # formula counts them, plus the router
+    ("olmoe-1b-7b", "decode_32k"): (0.999, 1.001,
+                                    "top-k dispatch: 8 experts a token"),
     ("olmoe-1b-7b", "train_4k"): (1.3, 1.4,
                                   "capacity 1.25 x top_k slots an expert "
                                   "and the dispatch/combine products"),

@@ -2,11 +2,14 @@
 smoke config, MHA with q/k norm; dbrx-132b: 4 experts top-2, GQA) vs the
 JAX reference, on their smoke configs in float32 on the CPU.
 
-* ``moe_apply_dropless`` against the reference's: float32 router, softmax,
-  top-k, renormalised gates, every expert on every token — outputs within
-  1e-5 and the same expert ids; a prompt split at every chunk boundary
-  routes every token as the whole prompt does; exact ties keep the lower
-  expert first, as ``jax.lax.top_k`` does.
+* ``moe_apply_dropless`` (the top-k dispatch's plain version) against the
+  reference's dense sum with zero gates: float32 router, softmax, top-k,
+  renormalised gates — outputs within 1e-5 and the same expert ids, also
+  with an expert no token picks, with every token on one expert and at
+  T = 1; a prompt split at every chunk boundary routes every token as the
+  whole prompt does; exact ties keep the lower expert first, as
+  ``jax.lax.top_k`` does. The dispatch tables (counts, offsets,
+  permutation, row tiles) by hand on a small example.
 * ``init_moe``'s leaves: the reference's shapes and dtypes (the router
   float32).
 * The MoE block on every path: monolithic prefill, slot decode and
@@ -27,6 +30,7 @@ import torch
 import torch_parity as tp
 from repro.models import moe as jmoe
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.moe import ref as moe_ref
 from repro_torch.models import moe
 
 ARCHS = ["olmoe-1b-7b", "dbrx-132b"]
@@ -54,12 +58,25 @@ def _moe_params(cfg, seed):
                 np.float32)}
 
 
+#: routing cases of the dropless layer: (tokens, router bias of one
+#: expert on a constant feature); +60 puts expert 0 first for every token,
+#: -60 leaves the last expert unpicked
+ROUTING_CASES = {"random": ((3, 7), None), "one_expert": ((3, 7), (0, 60.0)),
+                 "unpicked_expert": ((3, 7), (-1, -60.0)),
+                 "single_token": ((1, 1), None)}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTING_CASES))
 @pytest.mark.parametrize("arch", ARCHS)
-def test_moe_apply_dropless_matches_reference(arch):
+def test_moe_apply_dropless_matches_reference(arch, case):
     cfg = get_smoke_config(arch)
     p = _moe_params(cfg, 1)
+    shape, bias = ROUTING_CASES[case]
     x = np.random.default_rng(2).standard_normal(
-        (3, 7, cfg.d_model)).astype(np.float32)
+        shape + (cfg.d_model,)).astype(np.float32)
+    if bias is not None:
+        x[..., 0] = 1.0
+        p["router"][0, bias[0]] = bias[1]
     ours = moe.moe_apply_dropless({k: torch.as_tensor(v) for k, v in
                                    p.items()}, torch.as_tensor(x), cfg)
     theirs, _ = jmoe.moe_apply_dropless({k: jnp.asarray(v) for k, v in
@@ -72,6 +89,29 @@ def test_moe_apply_dropless_matches_reference(arch):
     jg, ji = jax.lax.top_k(probs, cfg.top_k)
     assert np.array_equal(idx.numpy(), np.asarray(ji))
     tp.close(gates, np.asarray(jg) / np.asarray(jg).sum(-1, keepdims=True))
+    picked = (idx[..., None] == torch.arange(cfg.num_experts)).any(dim=1)
+    if case == "one_expert":
+        assert picked[:, 0].all()
+    if case == "unpicked_expert":
+        assert not picked[:, -1].any()
+
+
+def test_dispatch_tables_by_hand():
+    """Six assignments over five experts, row tiles of 2: the counts'
+    prefix, the assignments expert by expert in (token, slot) order, one
+    tile an expert that has rows, none for expert 4, none past them."""
+    idx = torch.tensor([[2, 0], [0, 3], [2, 1]])
+    offsets, perm, tiles = moe_ref.dispatch_ref(idx, 5, 2)
+    assert offsets.tolist() == [0, 2, 3, 5, 6, 6]
+    # a = t * K + k: e0 <- a1, a2; e1 <- a5; e2 <- a0, a4; e3 <- a3
+    assert perm.tolist() == [1, 2, 5, 0, 4, 3]
+    assert tiles.tolist() == [[0, 0], [1, 2], [2, 3], [3, 5]] + [[-1, 0]] * 4
+    # three rows of expert 0 in tiles of 2: two tiles, the second partial
+    idx = torch.tensor([[0, 1], [0, 1], [1, 0]])
+    offsets, perm, tiles = moe_ref.dispatch_ref(idx, 2, 2)
+    assert offsets.tolist() == [0, 3, 6]
+    assert perm.tolist() == [0, 2, 5, 1, 3, 4]
+    assert tiles.tolist() == [[0, 0], [0, 2], [1, 3], [1, 5], [-1, 0]]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -111,6 +151,12 @@ def test_top_k_ties_keep_the_lower_expert():
     assert np.array_equal(idx.numpy(), np.asarray(ji))
     assert np.array_equal(idx.numpy(), np.tile(np.arange(cfg.top_k), (5, 1)))
     tp.close(gates, np.full((5, cfg.top_k), 1.0 / cfg.top_k))
+    p = {k: torch.as_tensor(v) for k, v in _moe_params(cfg, 5).items()}
+    p["router"] = torch.zeros((cfg.d_model, cfg.num_experts))
+    theirs, _ = jmoe.moe_apply_dropless(
+        {k: jnp.asarray(v.numpy()) for k, v in p.items()},
+        jnp.asarray(flat.numpy()[None]), cfg)
+    tp.close(moe.moe_apply_dropless(p, flat[None], cfg), theirs)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
